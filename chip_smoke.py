@@ -11,7 +11,10 @@ Runs, and stops with a non-zero exit at the first failure:
    tensors, at 1/2/4/8 bits, shifts 0 and 2, the slice's shapes
    (pn = 2560, K in {128, 2560}, N in {16, 40}) and one ragged
    multi-tile shape, plus operands built so that the accumulator hits
-   every requantize edge (0, 2^b - 1, 2^b, 2^b + 1). Equality must be
+   every requantize edge (0, 2^b - 1, 2^b, 2^b + 1); and the whole-model
+   ``fused_model`` kernel at 1/2/4/8 bits, GCN and GIN, shifts none and
+   [1, 2, 1, 2, 1], dense and block-scheduled (chunks of 0, 1, odd and
+   all blocks), pn in {512, 2560} with 2 batches. Equality must be
    exact, padded outputs included.
 2. The main path: 2-bit 3-layer Cluster-GCN (hidden 16) on the
    full-scale synthetic ogbn-arxiv stand-in, psize 1500, batch 20, 75
@@ -19,10 +22,16 @@ Runs, and stops with a non-zero exit at the first failure:
    just before and must show 3 packmm + 3 digitmm launches per batch;
    logits must equal the plain versions' and, for the first batch, a
    NumPy integer reference. Then 4 batches of 2-bit GIN (hidden 64).
+   Then the mega engine on the same 75 batches
+   (``QGTCEngine.run_epochs_mega``: one ``fused_model`` launch per shape
+   bucket, here one): launch counts reset just before, logits equal to
+   the step engine's and the plain versions', no bucket falling back;
+   and 4 batches of GIN through the mega engine against plain.
 3. Timing: ms/epoch of the step engine (host clock around all epochs
    and one synchronize, resident and transfer-inclusive, twice each),
-   and the device time of each kernel beside its plain version at the
-   slice's shapes (torch.profiler).
+   the mega engine's ms/epoch with and without the compacted block
+   schedule (twice each), and the device time of each kernel beside its
+   plain version at the slice's shapes (torch.profiler).
 
 Test operands come from ``tests/torch_cases.py``. The second line from
 the end is ``{"kernels": [...]}``; the last line is
@@ -57,16 +66,19 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     sys.path.insert(0, os.path.join(root, "tests"))
-    from torch_cases import edge_operands, operands
+    from types import SimpleNamespace
+
+    from torch_cases import edge_operands, mega_case, operands
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
-    from qgtc_ppopp22_tpu_torch.ops import _build, digitmm, packmm
+    from qgtc_ppopp22_tpu_torch.ops import _build, digitmm, fused_model, packmm
     from qgtc_ppopp22_tpu_torch.ops.bitpack import unpack_bits
     from qgtc_ppopp22_tpu_torch.ops.digits import digit_levels, digit_pack, digit_unpack
     from qgtc_ppopp22_tpu_torch.ops.packmm import pack_rows, packed_levels
-    from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
+    from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine, mega_block_sched
     from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms
 
     dev = torch.device("cuda")
+    start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"card: {card}")
@@ -80,15 +92,16 @@ def main() -> int:
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-            entry = entry[entry.find("gemm_kernel"):][:60]
+            entry = next((entry[entry.find(k):][:60] for k in ("gemm_kernel", "fused_model_kernel")
+                          if k in entry), entry[-60:])
         elif "Used" in line:
             print(f"  ptxas: {entry}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
             print(f"  ptxas: {entry}: {line.strip()}")
 
     # -- phase 1: kernel vs plain --------------------------------------
-    err = {"packmm": 0.0, "digitmm": 0.0}
-    ncase = {"packmm": 0, "digitmm": 0}
+    err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0}
+    ncase = {"packmm": 0, "digitmm": 0, "fused_model": 0}
 
     def compare(kind, got, want, what):
         if hasattr(got, "digits"):
@@ -132,6 +145,30 @@ def main() -> int:
         for sh in (0, 2):
             qa, qb = edge_operands(bits, sh)
             check_pair(qa, qb, bits, bits, f"requant edges bits={bits}", shifts=(sh,))
+    # the whole-model kernel; keep[b][c]: occupied column blocks of row
+    # chunk c in batch b (chunks of 0, 1, an odd count and all blocks)
+    keeps = {512: [[[0, 1]], [[]]],
+             2560: [[[0, 1, 2, 3, 4], [], [2], [0, 2, 4], [1, 3]],
+                    [[0, 1, 2], [4], [0, 1, 2, 3, 4], [], [0, 3]]]}
+    for pn, keep in keeps.items():
+        cb = fused_model.mega_colblock(pn)
+        for bits in (1, 2, 4, 8):
+            for model in ("gcn", "gin"):
+                for shifts in (None, [1, 2, 1, 2, 1]):
+                    _, _, qws, aw, xd = mega_case(SEED + bits + pn, 2, pn, bits,
+                                                  16 if model == "gcn" else 64, keep=keep,
+                                                  cb=cb, shift=1 if shifts else 0)
+                    a, x = torch.from_numpy(aw).to(dev), torch.from_numpy(xd).to(dev)
+                    ws = [digit_pack(torch.from_numpy(w).to(dev), bits) for w in qws]
+                    sched = torch.from_numpy(np.stack(
+                        [mega_block_sched(w[None], 512, cb) for w in aw])).to(dev)
+                    for blk in (None, sched):
+                        kw = dict(model=model, shifts=shifts, out_cols=40 if shifts else None,
+                                  blk_sched=blk)
+                        compare("fused_model", fused_model.fused_model_epoch(a, x, ws, bits, **kw),
+                                fused_model.fused_model_epoch_plain(a, x, ws, bits, **kw),
+                                f"fused_model {model} bits={bits} pn={pn} shifts={shifts} "
+                                f"sched={blk is not None}")
     print(f"phase 1: kernel == plain exactly in {ncase} cases "
           f"({time.perf_counter() - t0:.1f} s); max abs err {err}")
 
@@ -149,12 +186,12 @@ def main() -> int:
     eng = QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gcn",
                      bit_width=2, seed=SEED, device=dev)
     eng.warmup(batcher)
-    packmm.LAUNCHES = 0
-    digitmm.LAUNCHES = 0
+    packmm.LAUNCHES = digitmm.LAUNCHES = fused_model.LAUNCHES = 0
     logits = eng.forward_all(batcher)
     torch.cuda.synchronize()
-    launches = {"packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES}
-    if launches != {"packmm": 3 * nb, "digitmm": 3 * nb}:
+    launches = {"packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES,
+                "fused_model": fused_model.LAUNCHES}
+    if launches != {"packmm": 3 * nb, "digitmm": 3 * nb, "fused_model": 0}:
         raise AssertionError(f"main path launches {launches}, want 3 each per batch")
     ref = eng.forward_all(batcher, plain=True)
     for b, got, want in zip(batcher.batches, logits, ref):
@@ -184,6 +221,28 @@ def main() -> int:
           f"launches {launches}; nonzero logits {nz}; "
           f"accuracy {eng.evaluate(batcher, ds.labels):.4f}")
 
+    # the mega path: one fused_model launch per shape bucket
+    packmm.LAUNCHES = digitmm.LAUNCHES = fused_model.LAUNCHES = 0
+    mega = eng._mega_logits(batcher)
+    torch.cuda.synchronize()
+    mega_launches = {"packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES,
+                     "fused_model": fused_model.LAUNCHES}
+    buckets = eng.mega_buckets
+    if any(bk["fallback"] for bk in buckets):
+        raise AssertionError(f"mega: a bucket fell back to the step engine: {buckets}")
+    if mega_launches != {"packmm": 0, "digitmm": 0, "fused_model": len(buckets)}:
+        raise AssertionError(f"mega launches {mega_launches}, want one fused_model per bucket")
+    for b, got, step, want in zip(batcher.batches, mega, logits, ref):
+        n, c = b.num_nodes, ds.num_classes
+        if not torch.isfinite(got).all() or not torch.equal(got[:n, :c], step[:n, :c]) \
+                or not torch.equal(got[:n, :c], want[:n, :c]):
+            raise AssertionError("mega logits != step engine / plain logits")
+    print(f"phase 2: mega GCN logits of {nb} batches == step engine == plain; buckets "
+          + ", ".join(f"pn={bk['pn']} x {bk['batches']}: compact schedule "
+                      f"{'chosen' if bk['compact'] else 'not chosen'}, skippable blocks "
+                      f"{bk['skippable']:.4f}" for bk in buckets)
+          + f"; launches {mega_launches} = one fused_model per bucket; no bucket fell back")
+
     gin = QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gin",
                      bit_width=2, seed=SEED, device=dev)
     packmm.LAUNCHES = 0
@@ -199,13 +258,36 @@ def main() -> int:
         if not torch.equal(got[:n, :ds.num_classes], want[:n, :ds.num_classes]):
             raise AssertionError("GIN: kernel logits != plain logits")
     print(f"phase 2: GIN (hidden 64) logits of 4 batches == plain; launches {gin_launches}")
+    fused_model.LAUNCHES = 0
+    gm = gin._mega_logits(SimpleNamespace(batches=batcher.batches[:4]))
+    torch.cuda.synchronize()
+    if fused_model.LAUNCHES != len(gin.mega_buckets) or any(bk["fallback"] for bk in gin.mega_buckets):
+        raise AssertionError(f"GIN mega: {fused_model.LAUNCHES} launches, buckets {gin.mega_buckets}")
+    for b, got in zip(batcher.batches[:4], gm):
+        want = gin.forward_batch(b, plain=True)
+        n, c = b.num_nodes, ds.num_classes
+        if not torch.equal(got[:n, :c], want[:n, :c]):
+            raise AssertionError("GIN mega logits != plain logits")
+    print(f"phase 2: GIN (hidden 64) mega logits of 4 batches == plain; "
+          f"{fused_model.LAUNCHES} fused_model launch(es)")
 
     # -- phase 3: timing ------------------------------------------------
+    print(f"phase 3 starts {time.perf_counter() - start:.0f} s into the run")
     for rep in range(2):
         for resident in (True, False):
             st = eng.run_epochs(batcher, n_epochs=5, resident=resident)
             print(f"phase 3: step engine GCN 2-bit arxiv, resident={resident}: "
                   f"{st.avg_ms:.3f} ms/epoch over {st.n_batches} batches [{card}]")
+    for rep in range(2):
+        for zj in (None, False):
+            eng.zerotile_jump = zj
+            st = eng.run_epochs_mega(batcher, n_epochs=20)
+            sched_on = eng.mega_buckets[0]["compact"]
+            print(f"phase 3: mega engine GCN 2-bit arxiv, compact schedule {sched_on}: "
+                  f"{st.avg_ms:.3f} ms/epoch over {st.n_batches} batches "
+                  f"({len(eng.mega_buckets)} launch(es) per epoch) [{card}]")
+    eng.zerotile_jump = None
+
     def on_card(q, bits, packed=False):
         t = torch.from_numpy(q).to(dev)
         return pack_rows(t, bits) if packed else digit_pack(t, bits)
@@ -225,20 +307,40 @@ def main() -> int:
         ("digitmm", "digitmm_to_digits H[2560x16] x W[16x16]",
          lambda: digitmm.digitmm_to_digits(h16, w2, 2), lambda: digitmm.digitmm_plain(h16, w2, 2)),
     ]
+    # the mega path's one launch per epoch, at its shapes, beside plain
+    staged = eng._stage_mega(batcher)
+    if len(staged) != 1:
+        raise AssertionError(f"expected one bucket, got {len(staged)}")
+    mega_fn = staged[0][1]
+    args, kw = mega_fn.args, mega_fn.keywords
+    dense_kw = dict(kw, blk_sched=None)
+    what = f"fused_model epoch, {nb} batches of pn={eng.mega_buckets[0]['pn']}"
+    timed.append(("fused_model", f"{what}, compact schedule {kw['blk_sched'] is not None}",
+                  mega_fn, lambda: fused_model.fused_model_epoch_plain(*args, **kw)))
+    # the plain epoch is the same chain with or without the schedule's
+    # mask, and the profiler's cost grows with its ~10^4 ops per epoch:
+    # the dense kernel is timed alone
+    timed.append(("fused_model dense", f"{what}, dense",
+                  lambda: fused_model.fused_model_epoch(*args, **dense_kw), None))
     # device time per call from one profiler session, in turns:
     # plain, kernel, kernel, plain
     fns = {}
     for i, (_, what, kern, plain) in enumerate(timed):
-        fns.update({(i, "plain", 0): plain, (i, "kernel", 0): kern,
-                    (i, "kernel", 1): kern, (i, "plain", 1): plain})
-    dt = device_times_ms(fns)
+        for side, rep in (("plain", 0), ("kernel", 0), ("kernel", 1), ("plain", 1)):
+            if side == "kernel" or plain is not None:
+                fns[(i, side, rep)] = kern if side == "kernel" else plain
+    dt = device_times_ms(fns, iters=5, warmup=1)
     times = {}
-    for i, (kind, what, _, _) in enumerate(timed):
+    for i, (kind, what, _, plain) in enumerate(timed):
         k_ms = min(dt[(i, "kernel", 0)], dt[(i, "kernel", 1)])
+        if plain is None:
+            print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us device time per call "
+                  f"(2-bit) [{card}]")
+            continue
         p_ms = min(dt[(i, "plain", 0)], dt[(i, "plain", 1)])
         times.setdefault(kind, (k_ms, p_ms))
         print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
-              f"device time per call (2-bit, N padded to 128) [{card}]")
+              f"device time per call (2-bit) [{card}]")
 
     kernels = [
         {"name": "packmm", "route": "cuda", "source": "qgtc_ppopp22_tpu_torch/csrc/packmm.cu",
@@ -247,7 +349,12 @@ def main() -> int:
         {"name": "digitmm", "route": "cuda", "source": "qgtc_ppopp22_tpu_torch/csrc/digitmm.cu",
          "replaces": "qgtc_ppopp22_tpu/ops/digitmm.py:193", "launches": launches["digitmm"],
          "max_abs_err": err["digitmm"], "ms": times["digitmm"][0], "plain_ms": times["digitmm"][1]},
+        {"name": "fused_model", "route": "cuda", "source": "qgtc_ppopp22_tpu_torch/csrc/fused_model.cu",
+         "replaces": "qgtc_ppopp22_tpu/ops/fused_model.py:329", "launches": mega_launches["fused_model"],
+         "max_abs_err": err["fused_model"], "ms": times["fused_model"][0],
+         "plain_ms": times["fused_model"][1]},
     ]
+    print(f"chip_smoke: {time.perf_counter() - start:.0f} s")
     print(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

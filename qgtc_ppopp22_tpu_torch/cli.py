@@ -1,9 +1,14 @@
-"""Command-line entry point of the step engine (reference ``main_qgtc.py``).
+"""Command-line entry point of the engines (reference ``main_qgtc.py``).
 
 Usage mirrors the reference (``main_qgtc.py:21-41``)::
 
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --bit_width 2 \
-        --use_QGTC [--run_GIN] [--resident]
+        --use_QGTC [--run_GIN] [--resident] [--mode mega [--zerotile_jump]]
+
+``--mode step`` (default) runs the step engine, one GEMM chain per
+batch; ``--mode mega`` runs one whole-model kernel launch per shape
+bucket (``QGTCEngine.run_epochs_mega``), where ``--zerotile_jump``
+forces the compacted block schedule (absent: the auto gate).
 
 Prints ``Avg. Epoch: <ms> ms`` as the reference does
 (``main_qgtc.py:157-159``), then one JSON record. Flags of the JAX
@@ -27,8 +32,8 @@ from qgtc_ppopp22_tpu_torch.graph.datasets import DEFAULT_PSIZE
 from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
 
 NOT_PORTED = (
-    "--dataset-scale", "--zerotile_jump", "--regular", "--sparse", "--use-pp",
-    "--fmt", "--mode", "--mesh", "--sync-every-epoch", "--bucket-rows",
+    "--dataset-scale", "--regular", "--sparse", "--use-pp",
+    "--fmt", "--mesh", "--sync-every-epoch", "--bucket-rows",
     "--cache-dir", "--eval-accuracy", "--timing-split", "--quant-in-loop",
     "--json-out", "--weights", "--profile-dir",
 )
@@ -44,7 +49,7 @@ class _NotPorted(argparse.Action):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="QGTC quantized GNN inference (PyTorch, step engine)")
+    p = argparse.ArgumentParser(description="QGTC quantized GNN inference (PyTorch)")
     p.add_argument("--dataset", type=str, default="ppi")
     p.add_argument("--data-dir", type=str, default="qgtc_graphs")
     p.add_argument("--n-epochs", type=int, default=20)
@@ -60,6 +65,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--run_GIN", action="store_true")
     p.add_argument("--resident", action="store_true",
                    help="move packed batches to the device once; time compute only")
+    p.add_argument("--mode", choices=("step", "mega"), default="step",
+                   help="epoch execution: one GEMM chain per batch, or one "
+                        "whole-model kernel launch per shape bucket")
+    p.add_argument("--zerotile_jump", action="store_true", default=None,
+                   help="mega mode: force the compacted zero-block schedule "
+                        "(absent: auto, on at >=45%% skippable blocks, "
+                        "pn >= 2048, <= 4 bits)")
     p.add_argument("--partition-method", type=str, default="auto")
     p.add_argument("--rnd_seed", type=int, default=3)
     p.add_argument("--device", type=str, default="cuda",
@@ -71,7 +83,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.mode != "mega" and args.zerotile_jump:
+        parser.error("--zerotile_jump is not yet ported to the step engine (use --mode mega)")
+    if args.mode == "mega" and args.resident:
+        parser.error("--resident is the step engine's option; the mega engine "
+                     "always stages its buckets on the device")
     random.seed(args.rnd_seed)
     np.random.seed(args.rnd_seed)
 
@@ -97,12 +115,15 @@ def main(argv=None) -> int:
     eng = QGTCEngine(
         feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model=model,
         bit_width=args.bit_width, hidden=args.hidden, num_layers=args.num_layers,
-        seed=args.rnd_seed, device=args.device,
+        zerotile_jump=args.zerotile_jump, seed=args.rnd_seed, device=args.device,
     )
-    stats = eng.run_epochs(batcher, n_epochs=args.n_epochs, resident=args.resident)
+    if args.mode == "mega":
+        stats = eng.run_epochs_mega(batcher, n_epochs=args.n_epochs)
+    else:
+        stats = eng.run_epochs(batcher, n_epochs=args.n_epochs, resident=args.resident)
     device = torch.device(args.device)
     record = dict(
-        dataset=ds.name, bit_width=args.bit_width, model=model, engine="qgtc-step",
+        dataset=ds.name, bit_width=args.bit_width, model=model, engine=f"qgtc-{args.mode}",
         psize=psize, batch_size=args.batch_size, n_epochs=args.n_epochs,
         resident=args.resident, device=str(device),
         device_name=(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
@@ -110,6 +131,8 @@ def main(argv=None) -> int:
     print(f"Avg. Epoch: {stats.avg_ms:.3f} ms")
     record["avg_epoch_ms"] = stats.avg_ms
     record["epoch_ms"] = stats.epoch_ms
+    if args.mode == "mega":
+        record["buckets"] = eng.mega_buckets
     print(json.dumps(record))
     return 0
 

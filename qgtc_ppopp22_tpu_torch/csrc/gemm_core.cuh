@@ -66,6 +66,40 @@ struct Int8Loader {
   }
 };
 
+// M-packed A (ops/packmm.py layout): within each 256-row group, logical
+// row q*4*gw + 4*i + k sits in bits [8k + F*q, 8k + F*(q+1)) of word row i,
+// gw = 8 * F word rows per group. Decodes int32 words [mp / (32 / F)][kp]
+// of F-bit fields into the int8 A tile.
+template <int F>
+struct PackedLoader {
+  const int32_t* __restrict__ w;
+  int kp;
+
+  template <int ND>
+  __device__ __forceinline__ void load(int8_t (*As)[BM][LDS], int m0, int k0,
+                                       int tid) const {
+    static_assert(ND == 1, "packed A holds one digit plane");
+    constexpr int GW = 8 * F;  // word rows per 256-row group
+    constexpr uint32_t MASK = (1u << F) - 1;
+    constexpr int CH = BK / 4;  // chunks of 4 columns (one int4 of words)
+    for (int c = tid; c < BM * CH; c += THREADS) {
+      const int r = c / CH, kc = (c % CH) * 4;
+      const int m = m0 + r;
+      const int rr = m & 255;
+      const int q = rr / (4 * GW), rem = rr % (4 * GW);
+      const int wrow = (m >> 8) * GW + (rem >> 2);
+      const int sh = 8 * (rem & 3) + F * q;
+      const int4 v =
+          __ldg(reinterpret_cast<const int4*>(w + (size_t)wrow * kp + k0 + kc));
+      const uint32_t packed = (((uint32_t)v.x >> sh) & MASK) |
+                              ((((uint32_t)v.y >> sh) & MASK) << 8) |
+                              ((((uint32_t)v.z >> sh) & MASK) << 16) |
+                              ((((uint32_t)v.w >> sh) & MASK) << 24);
+      *reinterpret_cast<uint32_t*>(&As[0][r][kc]) = packed;
+    }
+  }
+};
+
 template <int ND_B>
 __device__ __forceinline__ void load_b(int8_t (*Bs)[BN][LDS],
                                        const int8_t* __restrict__ b, int kp,
@@ -103,6 +137,26 @@ __device__ __forceinline__ int requant(int acc, int out_bits, int shift) {
   return r & (ub - 1);
 }
 
+// Requantize two adjacent sums and store them at element idx of each of
+// the nd_o = ceil(out_bits / 4) base-16 digit planes o[d * plane]. A
+// caller that knows nd_o at compile time passes it as a constant, so the
+// loop unrolls (a runtime count cost the fused kernel 40 registers).
+__device__ __forceinline__ void store_digits(int8_t* o, size_t plane,
+                                             size_t idx, int nd_o,
+                                             int out_bits, int shift, int v0,
+                                             int v1) {
+  const int r0 = requant(v0, out_bits, shift);
+  const int r1 = requant(v1, out_bits, shift);
+  for (int d = 0; d < nd_o; ++d) {
+    const int width = min(4, out_bits - 4 * d);
+    const int mask = (1 << width) - 1;
+    char2 c;
+    c.x = (char)((r0 >> (4 * d)) & mask);
+    c.y = (char)((r1 >> (4 * d)) & mask);
+    *reinterpret_cast<char2*>(o + d * plane + idx) = c;
+  }
+}
+
 __device__ __forceinline__ void store_pair(const Epilogue& ep, int row,
                                            int col, int v0, int v1) {
   const size_t idx = (size_t)row * ep.np + col;
@@ -113,19 +167,8 @@ __device__ __forceinline__ void store_pair(const Epilogue& ep, int row,
     *reinterpret_cast<int2*>(static_cast<int*>(ep.out) + idx) =
         make_int2(v0, v1);
   } else {
-    const int r0 = requant(v0, ep.out_bits, ep.shift);
-    const int r1 = requant(v1, ep.out_bits, ep.shift);
-    int8_t* o = static_cast<int8_t*>(ep.out);
-    const size_t plane = (size_t)ep.mp * ep.np;
-    const int nd_o = (ep.out_bits + 3) / 4;
-    for (int d = 0; d < nd_o; ++d) {
-      const int width = min(4, ep.out_bits - 4 * d);
-      const int mask = (1 << width) - 1;
-      char2 c;
-      c.x = (char)((r0 >> (4 * d)) & mask);
-      c.y = (char)((r1 >> (4 * d)) & mask);
-      *reinterpret_cast<char2*>(o + d * plane + idx) = c;
-    }
+    store_digits(static_cast<int8_t*>(ep.out), (size_t)ep.mp * ep.np, idx,
+                 (ep.out_bits + 3) / 4, ep.out_bits, ep.shift, v0, v1);
   }
 }
 

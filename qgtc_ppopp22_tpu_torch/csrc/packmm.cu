@@ -25,37 +25,6 @@ using namespace qgtc;
 
 namespace {
 
-// int32 words [mp / (32 / F)][kp] of F-bit fields -> int8 A tile.
-template <int F>
-struct PackedLoader {
-  const int32_t* __restrict__ w;
-  int kp;
-
-  template <int ND>
-  __device__ __forceinline__ void load(int8_t (*As)[BM][LDS], int m0, int k0,
-                                       int tid) const {
-    static_assert(ND == 1, "packed A holds one digit plane");
-    constexpr int GW = 8 * F;  // word rows per 256-row group
-    constexpr uint32_t MASK = (1u << F) - 1;
-    constexpr int CH = BK / 4;  // chunks of 4 columns (one int4 of words)
-    for (int c = tid; c < BM * CH; c += THREADS) {
-      const int r = c / CH, kc = (c % CH) * 4;
-      const int m = m0 + r;
-      const int rr = m & 255;
-      const int q = rr / (4 * GW), rem = rr % (4 * GW);
-      const int wrow = (m >> 8) * GW + (rem >> 2);
-      const int sh = 8 * (rem & 3) + F * q;
-      const int4 v =
-          __ldg(reinterpret_cast<const int4*>(w + (size_t)wrow * kp + k0 + kc));
-      const uint32_t packed = (((uint32_t)v.x >> sh) & MASK) |
-                              ((((uint32_t)v.y >> sh) & MASK) << 8) |
-                              ((((uint32_t)v.z >> sh) & MASK) << 16) |
-                              ((((uint32_t)v.w >> sh) & MASK) << 24);
-      *reinterpret_cast<uint32_t*>(&As[0][r][kc]) = packed;
-    }
-  }
-};
-
 template <int F>
 int launch_packed(const void* a, const void* b, int nd_b, int mp, int kp,
                   int np, const Epilogue& ep, cudaStream_t s) {

@@ -20,10 +20,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libqgtc_kernels.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lib = None
 
@@ -44,22 +42,38 @@ def _nvcc() -> str:
 
 
 def build() -> tuple:
-    """Compile ``csrc/*.cu`` into the shared library.
+    """Compile ``csrc/*.cu`` into the shared library: one ``nvcc`` per
+    source, all started together, then one link.
 
     Returns ``(seconds, ptxas_report)``; the report lists each kernel's
     registers, shared memory and spills."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = LIB_PATH.with_suffix(f".so.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)
-    return time.perf_counter() - t0, proc.stderr
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"  # nvcc links only *.o
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)))
+    report, failed = [], []
+    for obj, proc in jobs:
+        out, err = proc.communicate()
+        report.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{out}\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                               *(str(o) for o, _ in jobs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+    return time.perf_counter() - t0, "".join(report)
 
 
 def _stale() -> bool:
@@ -77,12 +91,17 @@ def library() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(str(LIB_PATH))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # (out, a, b, a_kind, nd_a, nd_b, mp, kp, np, out_kind, out_bits,
-        #  shift, stream); see csrc/gemm_core.cuh for the meaning of each.
+        # 12 arguments: (out, a, b, a_arg, nd_b, mp, kp, np, out_kind,
+        # out_bits, shift, stream), a_arg being nd_a for digitmm and the
+        # field width for packmm; see csrc/gemm_core.cuh.
         lib.qgtc_digitmm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
         lib.qgtc_digitmm.restype = i
         lib.qgtc_packmm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
         lib.qgtc_packmm.restype = i
+        # (out, a, x, w, sched, scratch, meta, n_meta, stream); meta is a
+        # host int array, laid out in csrc/fused_model.cu.
+        lib.qgtc_fused_model.argtypes = [p, p, p, p, p, p, p, i, p]
+        lib.qgtc_fused_model.restype = i
         _lib = lib
     return _lib
 

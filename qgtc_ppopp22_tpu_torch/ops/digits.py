@@ -70,6 +70,24 @@ def to_digit_tensor(bt: BitTensor) -> DigitTensor:
     return DigitTensor(digits=torch.stack(out), shape=(M, K), bits=bt.bits)
 
 
+def planes_stack_to_digits(planes: torch.Tensor, shape, bits: int) -> torch.Tensor:
+    """Batched packed planes int32[B, bits, Mw, Kp] -> int8 digits
+    [B, ndigits, Mp128, Kp128] in one pass on the planes' device (stages
+    a bucket's features for the mega kernel)."""
+    M, K = shape
+    Mp, Kp = round_up(M, LANE), round_up(K, LANE)
+    ones = unpack_plane_words(planes)  # [B, bits, Mw*32, Kp256]
+    out = []
+    for d in range(num_digits(bits)):
+        lo = d * DIGIT_BITS
+        hi = min(lo + DIGIT_BITS, bits)
+        acc = ones[:, lo]
+        for b in range(lo + 1, hi):
+            acc = acc | (ones[:, b] << (b - lo))
+        out.append(acc[:, :Mp, :Kp].to(torch.int8))
+    return torch.stack(out, dim=1)
+
+
 def split_digits(levels: torch.Tensor, bits: int) -> torch.Tensor:
     """Levels in ``[0, 2^bits)`` -> int8[ndigits, *levels.shape]."""
     out = []

@@ -1,0 +1,275 @@
+"""Whole-model kernel: a bucket's full GCN / GIN chain in one launch.
+
+Counterpart of ``qgtc_ppopp22_tpu/ops/fused_model.py`` (TPU kernel
+``fused_model_epoch``). Every stacked batch of a shape bucket runs its
+whole 3-layer chain of integer GEMMs, with the requantize step between
+layers, inside one launch of the kernel in ``csrc/fused_model.cu``:
+
+  GCN: XW1 -> A(.) -> (.)W2 -> A(.) -> (.)W3 -> A(.) [f32 out]
+  GIN: AX -> (.)W1 -> A(.) -> (.)W2 -> A(.) -> (.)W3 [f32 out]
+
+Operands are the JAX package's: the M-packed 1-bit adjacency words
+``int32[B, pn/32, pn]``, feature digits ``int8[B, nd_x, pn, xp]`` and
+weight ``DigitTensor``s with 1 or 2 base-16 digit planes. Weight digits
+must be zero outside each weight's ``shape`` (``digit_pack`` makes them
+so): the kernel multiplies only the real widths, rounded up to 32.
+
+``blk_sched`` is the occupancy-compacted block schedule of the JAX
+kernel (``runtime.mega_block_sched``): per (batch, row chunk)
+``[count, j_0, ..]``, and each aggregation of that chunk multiplies only
+the ``count`` listed column blocks. With a real occupancy schedule the
+result equals the dense one.
+
+Dispatch: tensors on the CPU run :func:`fused_model_epoch_plain`;
+tensors on a CUDA device launch the kernel or raise. Not ported (ROADMAP
+queue 1 item 6): levels-form X with the >4-bit offset-signed chain
+(``x_levels_bits``), the streaming predicated ``chunk_occ`` form, the
+streamed adjacency (``resident_a=False``) and ``unpack_once``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward, qgin_forward
+from qgtc_ppopp22_tpu_torch.ops import _gemm
+from qgtc_ppopp22_tpu_torch.ops._build import check, library
+from qgtc_ppopp22_tpu_torch.ops.bitpack import DIGIT_BITS, num_digits, round_up
+from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor
+from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor
+
+LAUNCHES = 0  # kernel launches since the count was last reset to 0
+
+_RPW = 32  # adjacency rows per packed word (1-bit)
+_WIDTH = 32  # the kernel's column granule: real widths round up to it
+MAX_LAYERS = 8  # csrc/fused_model.cu MAX_LAYERS
+_ROADMAP = "not yet ported (ROADMAP queue 1 item 6)"
+
+
+def mega_colblock(pn: int) -> int:
+    """Column-block width of the 2-D zero-block schedule: the smallest
+    divisor of ``pn`` that is a multiple of 256 and >= 512, else 256,
+    else ``pn`` (one block per chunk). Copy of the JAX function."""
+    for w in range(512, pn, 256):
+        if pn % w == 0:
+            return w
+    if pn % 256 == 0 and pn > 256:
+        return 256
+    return pn
+
+
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class MegaPlan:
+    """Geometry of one launch, checked against the JAX contract."""
+
+    B: int
+    pn: int
+    nd_x: int
+    xp: int
+    nd_w: int
+    nd_h: int
+    chunk: int
+    nj: int  # column blocks of blk_sched; 0 = dense
+    oc: int  # stored logit columns
+    widths: List[int]  # per layer: output columns the kernel computes
+
+
+def plan(
+    a_shape, x_shape, ws: Sequence[DigitTensor], out_bits: int, model: str,
+    shifts, out_cols: Optional[int], sched_shape=None,
+) -> MegaPlan:
+    """Check the operands' shapes and return the launch geometry; raises
+    ``ValueError`` on what the kernel (and the JAX kernel) refuses."""
+    B, pnw, pn = a_shape
+    Bx, nd_x, pnx, xp = x_shape
+    if pnw * _RPW != pn or pn != pnx or B != Bx:
+        raise ValueError(f"bad stacked shapes {tuple(a_shape)} {tuple(x_shape)}")
+    if model not in ("gcn", "gin"):
+        raise ValueError(model)
+    if not 1 <= out_bits <= 8:
+        raise ValueError(f"out_bits must be in [1, 8], got {out_bits}")
+    chunk = next((c for c in (512, 256) if c <= pn and pn % c == 0), None)
+    if chunk is None:
+        raise ValueError(
+            f"pn={pn} has no chunk divisor in (512, 256); packed adjacency "
+            "rows come in 256-row groups"
+        )
+    n = len(ws)
+    if not 1 <= n <= MAX_LAYERS:
+        raise ValueError(f"{n} layers; the kernel takes 1..{MAX_LAYERS}")
+    nd_w = ws[0].ndigits
+    if any(w.ndigits != nd_w for w in ws) or nd_w > 2 or nd_x > 2:
+        raise ValueError("every weight needs the same 1 or 2 digit planes, X 1 or 2")
+    if xp % _WIDTH or any(w.padded_cols % _WIDTH for w in ws):
+        raise ValueError(f"padded widths must be multiples of {_WIDTH}")
+    if ws[0].padded_rows != xp:
+        raise ValueError(f"x width {xp} != first weight's padded rows {ws[0].padded_rows}")
+    for prev, w in zip(ws, ws[1:]):
+        if w.padded_rows != prev.padded_cols:
+            raise ValueError("consecutive weights' padded widths do not chain")
+    if shifts is not None and len(shifts) != 2 * n - 1:
+        raise ValueError(f"{len(shifts)} shifts for {2 * n - 1} requantizing GEMMs")
+    if shifts is not None and any(not 0 <= s <= 31 for s in shifts):
+        raise ValueError(f"shifts must lie in [0, 31]: {list(shifts)}")
+    cp = ws[-1].padded_cols
+    oc = cp if out_cols is None else min(_round8(out_cols), cp)
+    widths = [min(round_up(max(w.shape[1], 1), _WIDTH), w.padded_cols) for w in ws]
+    widths[-1] = max(widths[-1], round_up(oc, _WIDTH))
+    # the int32 guard of every GEMM of the chain
+    nd_h = num_digits(out_bits)
+    rhs_nd = [nd_x] + [nd_h] * (n - 1) if model == "gin" else [nd_h] * n
+    for nd in rhs_nd:  # aggregations: 1-bit A x H over pn
+        _gemm.check_accumulator(1, nd, pn)
+    lhs_nd = [nd_x] + [nd_h] * (n - 1) if model == "gcn" else [nd_h] * n
+    for nd, w in zip(lhs_nd, ws):  # updates: H x W over the padded rows
+        _gemm.check_accumulator(nd, nd_w, w.padded_rows)
+    nj = 0
+    if sched_shape is not None:
+        nch = pn // chunk
+        if len(sched_shape) != 3 or tuple(sched_shape[:2]) != (B, nch):
+            raise ValueError(f"blk_sched shape {tuple(sched_shape)} incompatible with B={B} nch={nch}")
+        nj = sched_shape[2] - 1
+        if nj < 1 or pn % nj or (pn // nj) % 128:
+            raise ValueError(f"blk_sched nj={nj} incompatible with pn={pn}")
+    return MegaPlan(B, pn, nd_x, xp, nd_w, nd_h, chunk, nj, oc, widths)
+
+
+def _refuse_unported(x_levels_bits, chunk_occ, resident_a, unpack_once) -> None:
+    for name, val, bad in (
+        ("x_levels_bits", x_levels_bits, x_levels_bits is not None),
+        ("chunk_occ", chunk_occ, chunk_occ is not None),
+        ("resident_a", resident_a, resident_a is False),
+        ("unpack_once", unpack_once, bool(unpack_once)),
+    ):
+        if bad:
+            raise NotImplementedError(f"fused_model_epoch({name}={val!r}) is {_ROADMAP}")
+
+
+def _sched_mask(sched: torch.Tensor, chunk: int, pn: int) -> torch.Tensor:
+    """One batch's schedule -> int32 mask over its packed words
+    [pn/32, pn]: 1 on the listed (row chunk, column block) blocks."""
+    s = sched.cpu().numpy()
+    nch, nj = s.shape[0], s.shape[1] - 1
+    occ = np.zeros((nch, nj), np.int32)
+    for c in range(nch):
+        cnt = int(s[c, 0])
+        js = s[c, 1:1 + cnt]
+        if not 0 <= cnt <= nj or ((js < 0) | (js >= nj)).any() or len(set(js.tolist())) != cnt:
+            raise ValueError(f"blk_sched row chunk {c} is not a schedule: {s[c].tolist()}")
+        occ[c, js] = 1
+    occ_t = torch.from_numpy(occ).to(sched.device)
+    return occ_t.repeat_interleave(chunk // _RPW, dim=0).repeat_interleave(pn // nj, dim=1)
+
+
+def fused_model_epoch_plain(
+    a_stack: torch.Tensor,
+    x_stack: torch.Tensor,
+    ws: Sequence[DigitTensor],
+    out_bits: int,
+    model: str = "gcn",
+    shifts: Optional[Sequence[int]] = None,
+    out_cols: Optional[int] = None,
+    blk_sched: Optional[torch.Tensor] = None,
+    x_cols: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version on any device: each batch's chain through
+    ``packmm_plain`` / ``digitmm_plain``, with the blocks a schedule
+    leaves out zeroed in the adjacency. Returns float32[B, pn, oc]."""
+    p = plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
+             None if blk_sched is None else blk_sched.shape)
+    fwd = qgcn_forward if model == "gcn" else qgin_forward
+    out = torch.zeros((p.B, p.pn, p.oc), dtype=torch.float32, device=a_stack.device)
+    for b in range(p.B):
+        words = a_stack[b]
+        if blk_sched is not None:
+            words = words * _sched_mask(blk_sched[b], p.chunk, p.pn)
+        a = PackedTensor(words=words[None], shape=(p.pn, p.pn), bits=1)
+        x = DigitTensor(digits=x_stack[b], shape=(p.pn, ws[0].shape[0]),
+                        bits=DIGIT_BITS * p.nd_x)
+        logits = fwd(a, x, ws, out_bits, shifts=shifts, plain=True)
+        n = min(p.oc, logits.shape[1])
+        out[b, :, :n] = logits[:, :n]
+    return out
+
+
+def _weights_blob(ws: Sequence[DigitTensor]) -> tuple:
+    """The weights' digit planes in one int8 buffer -> (buffer, byte
+    offset of each weight); every size is a multiple of 32 (``plan``)."""
+    flats = [w.digits.reshape(-1) for w in ws]
+    offs = np.cumsum([0] + [f.numel() for f in flats[:-1]]).tolist()
+    return torch.cat(flats), offs
+
+
+def fused_model_epoch(
+    a_stack: torch.Tensor,  # int32[B, pn/32, pn] M-packed 1-bit adjacency
+    x_stack: torch.Tensor,  # int8[B, nd_x, pn, xp] feature digits
+    ws: Sequence[DigitTensor],
+    out_bits: int,
+    model: str = "gcn",
+    shifts: Optional[Sequence[int]] = None,
+    out_cols: Optional[int] = None,
+    blk_sched: Optional[torch.Tensor] = None,  # int32[B, nch, nj+1]
+    x_cols: Optional[int] = None,
+    x_levels_bits: Optional[int] = None,
+    chunk_occ: Optional[torch.Tensor] = None,
+    resident_a: Optional[bool] = None,
+    unpack_once: Optional[bool] = None,
+) -> torch.Tensor:
+    """The whole model over every stacked batch in one kernel launch.
+
+    Returns float32 logits [B, pn, oc] with ``oc`` the last weight's
+    padded class width, or ``round8(out_cols)`` when given (slices the
+    store only). ``shifts``: optional per-GEMM requantize shifts in
+    ``qgcn_forward`` / ``qgin_forward`` order. ``x_cols`` is accepted for
+    parity with the JAX signature; it matters only to forms not ported.
+    ``resident_a=None`` and ``True`` both mean the resident adjacency:
+    on this card A is never re-streamed."""
+    global LAUNCHES
+    _refuse_unported(x_levels_bits, chunk_occ, resident_a, unpack_once)
+    if not a_stack.is_cuda:
+        return fused_model_epoch_plain(a_stack, x_stack, ws, out_bits, model, shifts,
+                                       out_cols, blk_sched, x_cols)
+    p = plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
+             None if blk_sched is None else blk_sched.shape)
+    dev = a_stack.device
+    for t, name in ((x_stack, "x_stack"), *((w.digits, "weight") for w in ws),
+                    *(((blk_sched, "blk_sched"),) if blk_sched is not None else ())):
+        if t.device != dev:
+            raise ValueError(f"operands on {dev} and {t.device} ({name})")
+    n = len(ws)
+    blob, offs = _weights_blob(ws)
+    hw = max(p.widths + ([p.xp] if model == "gin" else []))
+    scratch = torch.empty((p.B, 3, p.nd_h, p.pn, hw), dtype=torch.int8, device=dev)
+    out = torch.empty((p.B, p.pn, p.oc), dtype=torch.float32, device=dev)
+    sh = list(shifts) if shifts is not None else [0] * (2 * n - 1)
+    meta = [p.B, p.pn, p.nd_x, p.xp, p.nd_w, p.nd_h, n, int(model == "gin"),
+            out_bits, p.oc, p.chunk, p.nj, hw]
+    for l, w in enumerate(ws):
+        meta += [w.padded_rows, w.padded_cols, p.widths[l], offs[l]]
+    meta += sh
+    meta_c = (ctypes.c_int * len(meta))(*meta)
+    sched = None
+    if blk_sched is not None:
+        sched = blk_sched.to(torch.int32).contiguous()
+    a = _gemm._operand(a_stack, torch.int32, "a_stack")
+    x = _gemm._operand(x_stack, torch.int8, "x_stack")
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.qgtc_fused_model(
+            out.data_ptr(), a, x, blob.data_ptr(),
+            None if sched is None else sched.data_ptr(), scratch.data_ptr(),
+            meta_c, len(meta), stream,
+        )
+    check(err, "qgtc_fused_model")
+    LAUNCHES += 1
+    return out

@@ -10,14 +10,18 @@ synchronize once after all epochs.
 The engine runs on the ``device`` it is given and nowhere else. On a
 CUDA device every GEMM launches its kernel; on the CPU every GEMM runs
 its plain PyTorch version. Ported so far: ``fmt='digits'`` with dense
-GEMMs; the zero-tile, fused, mega and quant-in-loop engines are not.
+GEMMs (the step engine), and the mega engine (``run_epochs_mega``: one
+whole-model kernel launch per shape bucket, ``ops/fused_model.py``). The
+step engine's zero-tile K skip, and the fused (scan) and quant-in-loop
+engines are not.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,8 +34,9 @@ from qgtc_ppopp22_tpu_torch.models.qmodels import (
     qgcn_forward,
     qgin_forward,
 )
-from qgtc_ppopp22_tpu_torch.ops.bitpack import BitTensor
-from qgtc_ppopp22_tpu_torch.ops.digits import to_digit_tensor
+from qgtc_ppopp22_tpu_torch.ops import fused_model
+from qgtc_ppopp22_tpu_torch.ops.bitpack import LANE, BitTensor, num_digits, round_up
+from qgtc_ppopp22_tpu_torch.ops.digits import planes_stack_to_digits, to_digit_tensor
 from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor
 
 
@@ -39,10 +44,12 @@ from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor
 class EpochStats:
     """``epoch_ms`` holds per-epoch wall times when ``sync_every_epoch``
     was requested, else the one launch-all-then-synchronize window
-    divided by the epoch count (``main_qgtc.py:157-159``)."""
+    divided by the epoch count (``main_qgtc.py:157-159``), which is also
+    ``launch_sync_ms``."""
 
     epoch_ms: List[float]
     n_batches: int
+    launch_sync_ms: float = 0.0
 
     @property
     def avg_ms(self) -> float:
@@ -74,8 +81,6 @@ class QGTCEngine:
     ):
         if model not in ("gcn", "gin"):
             raise ValueError(f"unknown model {model!r}")
-        if zerotile_jump:
-            raise NotImplementedError("zerotile_jump is not yet ported")
         if fmt != "digits":
             raise NotImplementedError(f"fmt={fmt!r} is not yet ported")
         self.device = torch.device(device)
@@ -85,6 +90,12 @@ class QGTCEngine:
             hidden = 16 if model == "gcn" else 64  # 0_7a…py:6 / 0_7b…py:6
         self.model = model
         self.bit_width = bit_width
+        # Tri-state, as in the JAX engine: True forces the mega kernel's
+        # compacted block schedule, False forbids it, None = the auto gate
+        # of run_epochs_mega. The step engine's zero-tile K skip is not
+        # ported: its entry points refuse True.
+        self.zerotile_jump = zerotile_jump
+        self.mega_buckets: List[dict] = []  # what run_epochs_mega staged
         self.cfg = QModelConfig(
             in_dim=feat_dim, hidden=hidden, out_dim=num_classes,
             bit_width=bit_width, num_layers=num_layers,
@@ -94,6 +105,13 @@ class QGTCEngine:
         self._fwd = qgcn_forward if model == "gcn" else qgin_forward
 
     # -- single batch ---------------------------------------------------
+
+    def _step_engine_only(self) -> None:
+        if self.zerotile_jump:
+            raise NotImplementedError(
+                "zerotile_jump=True in the step engine (its TileMap K skip) is "
+                "not yet ported; run_epochs_mega takes it"
+            )
 
     def put_batch(self, batch: ClusterBatch) -> Tuple[PackedTensor, BitTensor]:
         """Host -> device transfer of the packed storage format."""
@@ -109,6 +127,7 @@ class QGTCEngine:
         """Logits [padded_nodes, num_classes] on the engine's device.
         ``plain=True`` runs the GEMMs' plain PyTorch versions instead of
         the kernels (the on-device reference)."""
+        self._step_engine_only()
         return self._step(*self.put_batch(batch), plain=plain)
 
     def forward_all(self, batcher: ClusterBatcher, plain: bool = False) -> List[torch.Tensor]:
@@ -146,6 +165,7 @@ class QGTCEngine:
         epochs launched, one synchronize at the end. ``resident=True``
         moves the packed batches to the device once, before the timed
         region, and times compute only."""
+        self._step_engine_only()
         self.warmup(batcher)
         staged = [self.put_batch(b) for b in batcher.batches] if resident else None
 
@@ -157,6 +177,12 @@ class QGTCEngine:
                 for batch in batcher:
                     self.forward_batch(batch)
 
+        return self._timed_epochs(one_epoch, n_epochs, len(batcher), sync_every_epoch)
+
+    def _timed_epochs(
+        self, one_epoch: Callable[[], object], n_epochs: int, n_batches: int,
+        sync_every_epoch: bool,
+    ) -> EpochStats:
         if sync_every_epoch:
             times = []
             for _ in range(n_epochs):
@@ -164,13 +190,112 @@ class QGTCEngine:
                 one_epoch()
                 self._sync()
                 times.append((time.perf_counter() - t0) * 1e3)
-            return EpochStats(epoch_ms=times, n_batches=len(batcher))
+            return EpochStats(epoch_ms=times, n_batches=n_batches)
         t0 = time.perf_counter()
         for _ in range(n_epochs):
             one_epoch()
         self._sync()
         per_epoch = (time.perf_counter() - t0) * 1e3 / max(n_epochs, 1)
-        return EpochStats(epoch_ms=[per_epoch], n_batches=len(batcher))
+        return EpochStats(epoch_ms=[per_epoch], n_batches=n_batches, launch_sync_ms=per_epoch)
+
+    # -- mega engine: one whole-model kernel launch per bucket ----------
+
+    def _fused_groups(self, batcher: ClusterBatcher):
+        """Stack the batches by shape bucket -> [(key, indices, a_stack,
+        x_stack)]: ``a_stack`` int32[B, 1, pn/32, pn] packed adjacency
+        words, ``x_stack`` int32[B, bits, Mw, Kp] feature planes, both on
+        the CPU; ``indices`` into ``batcher.batches``."""
+        groups: dict = {}
+        for i, b in enumerate(batcher.batches):
+            groups.setdefault((b.padded_nodes, b.bit_X.shape[1]), []).append(i)
+        out = []
+        for key, idx in groups.items():
+            bs = [batcher.batches[i] for i in idx]
+            out.append((key, idx, torch.stack([b.a_words for b in bs]),
+                        torch.stack([b.bit_X.planes for b in bs])))
+        return out
+
+    def _stage_mega(self, batcher: ClusterBatcher) -> List[tuple]:
+        """Move every bucket to the device once -> [(indices, fn)]: ``fn()``
+        runs the bucket's epoch and returns its logits, float32[B, pn, oc]
+        from one fused_model kernel launch, or, for a bucket the kernel
+        refuses, a list of the step engine's per-batch logits. Records
+        each bucket's choices in ``self.mega_buckets``."""
+        ws, dev, bw = self.weights, self.device, self.bit_width
+        staged, self.mega_buckets = [], []
+        for (pn, feat), idx, a_np, x_np in self._fused_groups(batcher):
+            bs = [batcher.batches[i] for i in idx]
+            B, xshape = len(idx), bs[0].bit_X.shape
+            x_shape = (B, num_digits(bw), round_up(xshape[0], LANE), round_up(feat, LANE))
+            info = dict(pn=pn, batches=B, fallback=False, compact=False, skippable=None)
+            self.mega_buckets.append(info)
+            try:
+                geo = fused_model.plan(a_np[:, 0].shape, x_shape, ws, bw, self.model,
+                                       None, self.cfg.out_dim)
+            except ValueError as e:
+                # Loudly: a silent fallback would turn a "mega" measurement
+                # into a step-engine one.
+                print(f"[mega] bucket pn={pn}: falling back to the step engine "
+                      f"({type(e).__name__}: {e})")
+                info["fallback"] = True
+                batches = [self.put_batch(b) for b in bs]
+                staged.append((idx, lambda batches=batches: [self._step(*t) for t in batches]))
+                continue
+            a_stack = a_np[:, 0].to(dev).contiguous()
+            x_stack = torch.empty(x_shape, dtype=torch.int8, device=dev)
+            for i in range(0, B, 16):  # bounds the unpack intermediate
+                x_stack[i:i + 16] = planes_stack_to_digits(x_np[i:i + 16].to(dev), xshape, bw)
+            cb = fused_model.mega_colblock(pn)
+            occ = np.stack([mega_block_occ(b.a_words.numpy(), geo.chunk, cb) for b in bs])
+            info["skippable"] = float(1.0 - occ.mean())
+            zj = self.zerotile_jump
+            sched = None
+            # The JAX engine's gate for its resident kernel
+            # (runtime.py:595-607); every bucket the kernel takes counts as
+            # resident here.
+            if zj is True or (zj is None and info["skippable"] >= 0.45
+                              and pn >= 2048 and bw <= 4):
+                sched = torch.from_numpy(np.stack([
+                    mega_block_sched(b.a_words.numpy(), geo.chunk, cb) for b in bs
+                ])).to(dev)
+                info["compact"] = True
+            staged.append((idx, functools.partial(
+                fused_model.fused_model_epoch, a_stack, x_stack, ws, bw,
+                model=self.model, out_cols=self.cfg.out_dim, blk_sched=sched,
+                x_cols=self.cfg.in_dim,
+            )))
+        return staged
+
+    def _mega_logits(self, batcher: ClusterBatcher) -> List[torch.Tensor]:
+        """Each batch's mega-engine logits, in ``batcher.batches`` order
+        ([pn, oc] from the kernel, [pn, classes] from a fallback)."""
+        out: List[Optional[torch.Tensor]] = [None] * len(batcher.batches)
+        for idx, fn in self._stage_mega(batcher):
+            for i, logits in zip(idx, fn()):
+                out[i] = logits
+        return out
+
+    def run_epochs_mega(
+        self,
+        batcher: ClusterBatcher,
+        n_epochs: int = 20,
+        sync_every_epoch: bool = False,
+    ) -> EpochStats:
+        """Timed epochs of the mega engine: the buckets are staged on the
+        device once (outside the timed region), and each epoch launches
+        one fused_model kernel per bucket. Every bucket's output is kept
+        by the epoch, so no bucket's work can be dropped (the JAX
+        engine's guard, runtime.py:659-666). Timing as in ``run_epochs``:
+        all epochs launched, one synchronize, divided."""
+        staged = self._stage_mega(batcher)
+        fns = [fn for _, fn in staged]
+
+        def one_epoch():
+            return [fn() for fn in fns]
+
+        one_epoch()  # builds and loads the kernel library on CUDA
+        self._sync()
+        return self._timed_epochs(one_epoch, n_epochs, len(batcher), sync_every_epoch)
 
     # -- accuracy -------------------------------------------------------
 
@@ -182,3 +307,38 @@ class QGTCEngine:
             correct += int((pred == labels[batch.nodes]).sum())
             total += batch.num_nodes
         return correct / max(total, 1)
+
+
+def mega_chunk_occ(a_words: np.ndarray, chunk: int) -> np.ndarray:
+    """Row-chunk occupancy int32[nch] of an M-packed adjacency
+    [nd, pn/32, pn]: 1 where any word of the chunk's rows is nonzero.
+    Copy of the JAX package's host-side builder."""
+    chw = chunk // 32
+    nd, mw, pn = a_words.shape
+    return (a_words.reshape(nd, mw // chw, chw, pn) != 0).any(axis=(0, 2, 3)).astype(np.int32)
+
+
+def mega_block_occ(a_words: np.ndarray, chunk: int, cb: int) -> np.ndarray:
+    """2-D (row chunk x column block) occupancy int32[nch, pn/cb] of an
+    M-packed adjacency. Copy of the JAX package's host-side builder."""
+    chw = chunk // 32
+    nd, mw, pn = a_words.shape
+    return (
+        (a_words.reshape(nd, mw // chw, chw, pn // cb, cb) != 0)
+        .any(axis=(0, 2, 4))
+        .astype(np.int32)
+    )
+
+
+def mega_block_sched(a_words: np.ndarray, chunk: int, cb: int) -> np.ndarray:
+    """Occupancy-compacted block schedule int32[nch, nj+1]: per row chunk
+    ``[count, j_0, j_1, ...]``, the occupied column blocks (unused tail
+    slots 0). Copy of the JAX package's host-side builder."""
+    occ = mega_block_occ(a_words, chunk, cb)
+    nch, nj = occ.shape
+    out = np.zeros((nch, nj + 1), np.int32)
+    for c in range(nch):
+        js = np.nonzero(occ[c])[0]
+        out[c, 0] = len(js)
+        out[c, 1:1 + len(js)] = js
+    return out

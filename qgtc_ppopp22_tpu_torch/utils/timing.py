@@ -14,6 +14,8 @@ from typing import Callable, Dict, Hashable
 
 import torch
 
+_MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep
+
 
 def device_times_ms(
     fns: Dict[Hashable, Callable[[], object]], iters: int = 20, warmup: int = 3
@@ -22,11 +24,15 @@ def device_times_ms(
     every kernel and copy its ``iters`` calls ran, summed.
 
     One profiler session covers all functions (a second session in the
-    same process can come back empty); each function's calls run inside
-    a named range that ends with a synchronize, so its device work falls
-    inside that range. Requires a CUDA device."""
+    same process can come back empty). Each function's calls follow a
+    marker kernel and end with a synchronize, and the device events are
+    assigned to functions by their order on the device, between markers:
+    the profiler's device timestamps can sit a millisecond or more off
+    the host's clock, so host-side ranges would drop or misplace the
+    first kernels of a function. Requires a CUDA device; every function
+    must run on the current stream."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         raise RuntimeError("device_times_ms needs a CUDA device")
@@ -35,26 +41,25 @@ def device_times_ms(
         for _ in range(warmup):
             fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i, name in enumerate(names):
-            with record_function(f"timed:{i}"):
-                for _ in range(iters):
-                    fns[name]()
-                torch.cuda.synchronize()
-    events = prof.events()
-    ranges = {
-        int(e.name[len("timed:"):]): (e.time_range.start, e.time_range.end)
-        for e in events
-        if e.name.startswith("timed:") and e.device_type == DeviceType.CPU
-    }
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name in names:
+            torch.cuda._sleep(1)
+            for _ in range(iters):
+                fns[name]()
+            torch.cuda.synchronize()
+    device = sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start,
+    )
     total_us = [0.0] * len(names)
-    for e in events:
-        if e.device_type != DeviceType.CUDA or e.name.startswith("timed:"):
-            continue
-        for i, (start, end) in ranges.items():
-            if start <= e.time_range.start and e.time_range.end <= end:
-                total_us[i] += e.time_range.elapsed_us()
-                break
+    i = -1
+    for e in device:
+        if _MARKER in e.name:
+            i += 1
+        elif i >= 0:
+            total_us[i] += e.time_range.elapsed_us()
+    if i != len(names) - 1:
+        raise RuntimeError(f"the profiler recorded {i + 1} markers for {len(names)} functions")
     empty = [names[i] for i, t in enumerate(total_us) if t <= 0]
     if empty:
         raise RuntimeError(f"the profiler recorded no device time for {empty}")

@@ -152,9 +152,11 @@ def test_engine_cuda_raises_without_cuda(small, monkeypatch):
     (dict(fmt="bits"), NotImplementedError),
     (dict(model="sage"), ValueError),
 ])
-def test_engine_rejects_unported_options(kwargs, exc):
+def test_engine_rejects_unported_options(small, kwargs, exc):
+    # zerotile_jump=True is the mega engine's; the step engine refuses it
+    ds, it, _, _ = small
     with pytest.raises(exc):
-        QGTCEngine(feat_dim=128, num_classes=40, **kwargs)
+        QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, **kwargs).forward_batch(it.batches[0])
 
 
 def test_package_never_imports_jax():

@@ -14,9 +14,9 @@ import pytest
 import torch
 
 from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, synthesize
-from qgtc_ppopp22_tpu_torch.ops import digitmm, digits, packmm
-from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
-from torch_cases import edge_operands, operands  # tests/ is on sys.path
+from qgtc_ppopp22_tpu_torch.ops import digitmm, digits, fused_model, packmm
+from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine, mega_block_sched
+from torch_cases import edge_operands, mega_case, operands  # tests/ is on sys.path
 
 BITS = [1, 2, 4, 8]
 SHAPES = [(2560, 128, 16), (2560, 2560, 40), (1000, 700, 200)]
@@ -122,3 +122,70 @@ def test_device_times_ms(cuda):
     t = device_times_ms({"kernel": lambda: packmm.packmm_to_f32(a, b),
                          "plain": lambda: packmm.packmm_plain(a, b)}, iters=5)
     assert set(t) == {"kernel", "plain"} and t["kernel"] > 0 and t["plain"] > 0
+
+
+# -- fused_model: the whole chain in one launch --------------------------
+
+MEGA_KEEP = {512: [[[0, 1]], [[1]]], 1024: [[[0, 1, 2, 3], [2]], [[], [0, 2, 3]]]}
+
+
+def _mega_args(cuda, model, bits, pn, shifts, seed=0):
+    hidden = 16 if model == "gcn" else 64
+    _, _, qws, aw, xd = mega_case(seed + bits + pn, 2, pn, bits, hidden, keep=MEGA_KEEP[pn],
+                                  shift=1 if shifts else 0)
+    ws = [digits.digit_pack(torch.from_numpy(w).to(cuda), bits) for w in qws]
+    sched = np.stack([mega_block_sched(w[None], 512, 256) for w in aw])
+    return (torch.from_numpy(aw).to(cuda), torch.from_numpy(xd).to(cuda), ws, bits,
+            torch.from_numpy(sched).to(cuda))
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("shifts", [None, [1, 2, 1, 2, 1]])
+@pytest.mark.parametrize("pn", [512, 1024])
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_fused_model_kernel_equals_plain(cuda, model, bits, pn, shifts, compact):
+    a, x, ws, bits, sched = _mega_args(cuda, model, bits, pn, shifts)
+    kw = dict(model=model, shifts=shifts, out_cols=40 if shifts else None,
+              blk_sched=sched if compact else None)
+    before = fused_model.LAUNCHES
+    got = fused_model.fused_model_epoch(a, x, ws, bits, **kw)
+    assert fused_model.LAUNCHES == before + 1
+    want = fused_model.fused_model_epoch_plain(a, x, ws, bits, **kw)
+    _check(got, want)
+    if compact:  # a real occupancy schedule changes nothing
+        _check(got, fused_model.fused_model_epoch(a, x, ws, bits, **dict(kw, blk_sched=None)))
+
+
+def test_fused_model_kernel_honours_a_partial_schedule(cuda):
+    a, x, ws, bits, sched = _mega_args(cuda, "gcn", 2, 1024, None)
+    part = sched.clone()
+    part[0, 0, 0] = 3  # chunk 0 of batch 0: blocks 0, 1, 2 of its 4
+    got = fused_model.fused_model_epoch(a, x, ws, bits, blk_sched=part)
+    _check(got, fused_model.fused_model_epoch_plain(a, x, ws, bits, blk_sched=part))
+    assert not torch.equal(got, fused_model.fused_model_epoch(a, x, ws, bits, blk_sched=sched))
+
+
+def test_fused_model_kernel_is_repeatable(cuda):
+    """A race between the CTAs of one batch would show as a run that
+    differs from the others."""
+    a, x, ws, bits, sched = _mega_args(cuda, "gin", 2, 1024, None, seed=9)
+    first = fused_model.fused_model_epoch(a, x, ws, bits, model="gin", blk_sched=sched)
+    for _ in range(5):
+        _check(fused_model.fused_model_epoch(a, x, ws, bits, model="gin", blk_sched=sched), first)
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_run_epochs_mega_on_card_equals_cpu(cuda, model):
+    ds = synthesize("Proteins", scale=0.05, seed=5)
+    it = ClusterBatcher(ds, 8, 2, bit_width=2, seed=5, partition_method="bfs")
+    gpu = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4,
+                     device=cuda, zerotile_jump=True)
+    cpu = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4)
+    before = fused_model.LAUNCHES
+    got = gpu._mega_logits(it)
+    assert fused_model.LAUNCHES - before == len(gpu.mega_buckets)
+    assert all(i["compact"] and not i["fallback"] for i in gpu.mega_buckets)
+    for b, g, c in zip(it.batches, got, cpu.forward_all(it)):
+        n, k = b.num_nodes, ds.num_classes
+        np.testing.assert_array_equal(g[:n, :k].cpu().numpy(), c[:n, :k].numpy())
