@@ -15,7 +15,13 @@ Runs, and stops with a non-zero exit at the first failure:
    ``fused_model`` kernel at 1/2/4/8 bits, GCN and GIN, shifts none and
    [1, 2, 1, 2, 1], dense and block-scheduled (chunks of 0, 1, odd and
    all blocks), pn in {512, 2560} with 2 batches. Equality must be
-   exact, padded outputs included.
+   exact, padded outputs included. Then the bf16 baseline kernel
+   ``fused_baseline`` (sage hidden 16 and gin hidden 64, 1 and 3 layers,
+   pn in {512, 2560}, 2 batches): equal to plain bit for bit on the
+   "integer" case (nothing rounds) and the "rounding" case (every cast
+   rounds, every sum exact), and within max |kernel - plain| <= 2^-6 max
+   |plain| per row of logits on random 0/1 adjacency at arxiv density
+   plus a few dense rows.
 2. The main path: 2-bit 3-layer Cluster-GCN (hidden 16) on the
    full-scale synthetic ogbn-arxiv stand-in, psize 1500, batch 20, 75
    batches, through ``QGTCEngine.forward_all``; launch counts are reset
@@ -26,15 +32,27 @@ Runs, and stops with a non-zero exit at the first failure:
    (``QGTCEngine.run_epochs_mega``: one ``fused_model`` launch per shape
    bucket, here one): launch counts reset just before, logits equal to
    the step engine's and the plain versions', no bucket falling back;
-   and 4 batches of GIN through the mega engine against plain.
+   and 4 batches of GIN through the mega engine against plain. Then the
+   full-precision baseline on the same 75 batches through
+   ``BaselineEngine.run_epochs_mega``'s staging (one ``fused_baseline``
+   launch per bucket, counts reset just before; a bucket the kernel
+   refused would stop the staging), its logits within the tolerance
+   above of the step baseline's and of plain; and 4 batches of the gin
+   baseline (hidden 64).
 3. Timing: ms/epoch of the step engine (host clock around all epochs
    and one synchronize, resident and transfer-inclusive, twice each),
    the mega engine's ms/epoch with and without the compacted block
-   schedule (twice each), and the device time of each kernel beside its
-   plain version at the slice's shapes (torch.profiler).
+   schedule (twice each); the baseline's ms/epoch in step (resident),
+   fused and mega modes beside the quantized mega engine's (twice each);
+   and the device time of each kernel beside its plain version at the
+   slice's shapes (torch.profiler), with ``torch._int_mm`` on the same
+   operands as the library yardstick of packmm and digitmm.
 
-Test operands come from ``tests/torch_cases.py``. The second line from
-the end is ``{"kernels": [...]}``; the last line is
+Test operands come from ``tests/torch_cases.py``. Each kernel's bound
+is the larger of its bytes (inputs read once, outputs written once) over
+3.35 TB/s and its operations over the card's dense peak (1,979 TOP/s
+int8, 989 TFLOP/s bf16). The third line from the end is the card's name
+and power limit, the second ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -47,6 +65,14 @@ import time
 import numpy as np
 
 SEED = 3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM peaks (NVIDIA's data sheet)
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
+
+
+def bound(nbytes, ops, kind):
+    """(bound_ms, bound_by): the least time for the bytes and operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def card_line() -> str:
@@ -68,13 +94,13 @@ def main() -> int:
     sys.path.insert(0, os.path.join(root, "tests"))
     from types import SimpleNamespace
 
-    from torch_cases import edge_operands, mega_case, operands
+    from torch_cases import BF16_REL_TOL, baseline_case, bf16_rel_err, edge_operands, mega_case, operands
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.ops import _build, digitmm, fused_model, packmm
     from qgtc_ppopp22_tpu_torch.ops.bitpack import unpack_bits
     from qgtc_ppopp22_tpu_torch.ops.digits import digit_levels, digit_pack, digit_unpack
-    from qgtc_ppopp22_tpu_torch.ops.packmm import pack_rows, packed_levels
-    from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine, mega_block_sched
+    from qgtc_ppopp22_tpu_torch.ops.packmm import pack_rows, packed_levels, unpack_rows
+    from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine, mega_block_sched
     from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms
 
     dev = torch.device("cuda")
@@ -92,7 +118,8 @@ def main() -> int:
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-            entry = next((entry[entry.find(k):][:60] for k in ("gemm_kernel", "fused_model_kernel")
+            entry = next((entry[entry.find(k):][:60] for k in ("gemm_kernel", "fused_model_kernel",
+                                                                  "fused_baseline_kernel")
                           if k in entry), entry[-60:])
         elif "Used" in line:
             print(f"  ptxas: {entry}: {line.split(':', 1)[1].strip()}")
@@ -100,8 +127,9 @@ def main() -> int:
             print(f"  ptxas: {entry}: {line.strip()}")
 
     # -- phase 1: kernel vs plain --------------------------------------
-    err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0}
-    ncase = {"packmm": 0, "digitmm": 0, "fused_model": 0}
+    err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0}
+    ncase = {"packmm": 0, "digitmm": 0, "fused_model": 0, "fused_baseline": 0}
+    worst_rel = 0.0  # fused_baseline, random cases: the worst row's relative error
 
     def compare(kind, got, want, what):
         if hasattr(got, "digits"):
@@ -169,7 +197,35 @@ def main() -> int:
                                 fused_model.fused_model_epoch_plain(a, x, ws, bits, **kw),
                                 f"fused_model {model} bits={bits} pn={pn} shifts={shifts} "
                                 f"sched={blk is not None}")
-    print(f"phase 1: kernel == plain exactly in {ncase} cases "
+    # the bf16 baseline kernel: bit-exact ("integer", "rounding") and
+    # random cases
+    for model, hidden in (("sage", 16), ("gin", 64)):
+        for layers in (1, 3):
+            dims = [128] + [hidden] * (layers - 1) + [40]
+            for pn in (512, 2560):
+                for kind in ("integer", "rounding", "random"):
+                    a, x, ws = baseline_case(SEED + pn + layers + hidden, 2, pn, dims, kind=kind)
+                    a, x = torch.from_numpy(a).to(dev), torch.from_numpy(x).to(dev)
+                    ws = [torch.from_numpy(w).to(dev) for w in ws]
+                    got = fused_model.fused_baseline_epoch(a, x, ws)
+                    want = fused_model.fused_baseline_epoch_plain(a, x, ws)
+                    torch.cuda.synchronize()
+                    what = f"fused_baseline {model} layers={layers} pn={pn} {kind}"
+                    if got.shape != want.shape or not torch.isfinite(got).all():
+                        raise AssertionError(f"{what}: {tuple(got.shape)} vs {tuple(want.shape)}")
+                    err["fused_baseline"] = max(err["fused_baseline"],
+                                                (got - want).abs().max().item())
+                    ncase["fused_baseline"] += 1
+                    if kind != "random":
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"{what}: kernel != plain bit for bit")
+                        continue
+                    rel = bf16_rel_err(got, want)
+                    worst_rel = max(worst_rel, rel)
+                    if rel > BF16_REL_TOL:
+                        raise AssertionError(f"{what}: relative error {rel} > {BF16_REL_TOL} in a row")
+    print(f"phase 1: kernel == plain exactly in {ncase} cases (fused_baseline: the integer "
+          f"and rounding ones; worst row's relative error of its random ones {worst_rel:.3e}) "
           f"({time.perf_counter() - t0:.1f} s); max abs err {err}")
 
     # -- phase 2: the main path ----------------------------------------
@@ -271,6 +327,56 @@ def main() -> int:
     print(f"phase 2: GIN (hidden 64) mega logits of 4 batches == plain; "
           f"{fused_model.LAUNCHES} fused_model launch(es)")
 
+    # the full-precision baseline: one fused_baseline launch per bucket
+    t0 = time.perf_counter()
+    beng = BaselineEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="sage",
+                          seed=SEED, device=dev)
+    bstaged = beng._stage_mega(batcher, ds)
+    fused_model.BASELINE_LAUNCHES = packmm.LAUNCHES = digitmm.LAUNCHES = fused_model.LAUNCHES = 0
+    bouts = [(idx, fn()) for idx, fn in bstaged]
+    torch.cuda.synchronize()
+    base_launches = {"fused_baseline": fused_model.BASELINE_LAUNCHES, "fused_model": fused_model.LAUNCHES,
+                     "packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES}
+    if base_launches != {"fused_baseline": len(beng.mega_buckets), "fused_model": 0,
+                         "packmm": 0, "digitmm": 0}:
+        raise AssertionError(f"baseline mega launches {base_launches}, want one per bucket")
+    bmega = [None] * nb
+    for idx, out in bouts:
+        for i, logits in zip(idx, out):
+            bmega[i] = logits
+    base_rel = 0.0
+    for (idx, fn), (_, out) in zip(bstaged, bouts):
+        plain = fused_model.fused_baseline_epoch_plain(*fn.args)
+        for i, got, want in zip(idx, out, plain):
+            step = beng.forward_batch(batcher.batches[i], ds, batcher.features)
+            if got.shape != (batcher.batches[i].padded_nodes, ds.num_classes) \
+                    or not torch.isfinite(got).all():
+                raise AssertionError(f"baseline mega: bad logits {tuple(got.shape)}")
+            rel = max(bf16_rel_err(got, step), bf16_rel_err(got, want))
+            base_rel = max(base_rel, rel)
+            if rel > BF16_REL_TOL:
+                raise AssertionError(f"baseline mega batch {i}: relative error {rel} in a row")
+    print(f"phase 2: baseline (sage, hidden 16) mega logits of {nb} batches within 2^-6 per row "
+          f"of the step baseline and plain (worst row's relative error {base_rel:.3e}); buckets "
+          + ", ".join(f"pn={bk['pn']} x {bk['batches']}" for bk in beng.mega_buckets)
+          + f"; launches {base_launches}, one per bucket; accuracy "
+          f"{beng.evaluate(batcher, ds, ds.labels):.4f} ({time.perf_counter() - t0:.1f} s)")
+    bgin = BaselineEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gin",
+                          seed=SEED, device=dev)
+    sub = SimpleNamespace(batches=batcher.batches[:4], features=batcher.features)
+    fused_model.BASELINE_LAUNCHES = 0
+    gbm = bgin._mega_logits(sub, ds)
+    torch.cuda.synchronize()
+    if fused_model.BASELINE_LAUNCHES != len(bgin.mega_buckets):
+        raise AssertionError(f"gin baseline mega: {fused_model.BASELINE_LAUNCHES} launches, "
+                             f"buckets {bgin.mega_buckets}")
+    gin_rel = max(bf16_rel_err(got, bgin.forward_batch(b, ds)) for b, got in zip(sub.batches, gbm))
+    if gin_rel > BF16_REL_TOL:
+        raise AssertionError(f"gin baseline mega: relative error {gin_rel} in a row")
+    print(f"phase 2: gin baseline (hidden 64) mega logits of 4 batches within 2^-6 per row of "
+          f"the step baseline (worst row's relative error {gin_rel:.3e}); "
+          f"{fused_model.BASELINE_LAUNCHES} fused_baseline launch(es)")
+
     # -- phase 3: timing ------------------------------------------------
     print(f"phase 3 starts {time.perf_counter() - start:.0f} s into the run")
     for rep in range(2):
@@ -287,6 +393,13 @@ def main() -> int:
                   f"{st.avg_ms:.3f} ms/epoch over {st.n_batches} batches "
                   f"({len(eng.mega_buckets)} launch(es) per epoch) [{card}]")
     eng.zerotile_jump = None
+    for rep in range(2):
+        runs = [("baseline step (resident)", lambda: beng.run_epochs(batcher, ds, n_epochs=5)),
+                ("baseline fused", lambda: beng.run_epochs_fused(batcher, ds, n_epochs=5)),
+                ("baseline mega", lambda: beng.run_epochs_mega(batcher, ds, n_epochs=20)),
+                ("quantized mega (2-bit GCN)", lambda: eng.run_epochs_mega(batcher, n_epochs=20))]
+        print("phase 3: " + "; ".join(f"{what} {run().avg_ms:.3f}" for what, run in runs)
+              + f" ms/epoch over {nb} batches, arxiv [{card}]")
 
     def on_card(q, bits, packed=False):
         t = torch.from_numpy(q).to(dev)
@@ -322,6 +435,23 @@ def main() -> int:
     # the dense kernel is timed alone
     timed.append(("fused_model dense", f"{what}, dense",
                   lambda: fused_model.fused_model_epoch(*args, **dense_kw), None))
+    bfn = bstaged[0][1]
+    timed.append(("fused_baseline", f"fused_baseline epoch (sage hidden 16), {nb} batches of "
+                  f"pn={beng.mega_buckets[0]['pn']}", bfn,
+                  lambda: fused_model.fused_baseline_epoch_plain(*bfn.args)))
+    # where K5's time goes: the first layer alone (A @ X, 128 columns, then
+    # [128 x 40]), and gin's widths (hidden 64) on the same stacks
+    w_one = [torch.randn(128, ds.num_classes, generator=torch.Generator().manual_seed(SEED)).to(dev)]
+    p_one, p_gin = (fused_model.pack_baseline_weights(w) for w in (w_one, bgin.weights))
+    timed.append(("fused_baseline 1 layer", "fused_baseline epoch, first layer only [128 -> 40]",
+                  lambda: fused_model.fused_baseline_epoch(*bfn.args[:2], w_one, packed=p_one), None))
+    timed.append(("fused_baseline gin", "fused_baseline epoch, gin widths (hidden 64)",
+                  lambda: fused_model.fused_baseline_epoch(*bfn.args[:2], bgin.weights, packed=p_gin),
+                  None))
+    # the library yardstick of packmm and digitmm: cuBLAS int8 on the
+    # unpacked levels at the same shapes (the port never calls it)
+    lib_ops = {"packmm": (unpack_rows(a).to(torch.int8), digit_unpack(h16).to(torch.int8)),
+               "digitmm": (digit_unpack(x).to(torch.int8), digit_unpack(w1).to(torch.int8))}
     # device time per call from one profiler session, in turns:
     # plain, kernel, kernel, plain
     fns = {}
@@ -329,30 +459,68 @@ def main() -> int:
         for side, rep in (("plain", 0), ("kernel", 0), ("kernel", 1), ("plain", 1)):
             if side == "kernel" or plain is not None:
                 fns[(i, side, rep)] = kern if side == "kernel" else plain
-    dt = device_times_ms(fns, iters=5, warmup=1)
+    for kind, (la, lb) in lib_ops.items():
+        for rep in (0, 1):
+            fns[(kind, "library", rep)] = lambda la=la, lb=lb: torch._int_mm(la, lb)
+    # plain versions run thousands of small ops per call, and a session
+    # that holds too many records can lose some: one call each
+    dt = device_times_ms(fns, iters={k: 1 if k[1] == "plain" else 5 for k in fns}, warmup=1)
     times = {}
     for i, (kind, what, _, plain) in enumerate(timed):
         k_ms = min(dt[(i, "kernel", 0)], dt[(i, "kernel", 1)])
         if plain is None:
-            print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us device time per call "
-                  f"(2-bit) [{card}]")
+            print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us device time per call [{card}]")
             continue
         p_ms = min(dt[(i, "plain", 0)], dt[(i, "plain", 1)])
         times.setdefault(kind, (k_ms, p_ms))
         print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
-              f"device time per call (2-bit) [{card}]")
+              f"device time per call [{card}]")
+    lib_ms = {kind: min(dt[(kind, "library", 0)], dt[(kind, "library", 1)]) for kind in lib_ops}
+    print(f"phase 3: torch._int_mm on the unpacked int8 operands (library yardstick): "
+          + ", ".join(f"{k} shape {lib_ms[k] * 1e3:.1f} us" for k in lib_ms) + f" [{card}]")
 
+    # bounds at the timed shapes: inputs read once, outputs written once
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    bounds = {
+        "packmm": bound(nbytes(a.words, h16.digits, packmm.packmm_to_digits(a, h16, 2).digits),
+                        2 * 2560 * 2560 * 16, "int8"),
+        "digitmm": bound(nbytes(x.digits, w1.digits, digitmm.digitmm_to_digits(x, w1, 2).digits),
+                         2 * 2560 * 128 * 16, "int8"),
+    }
+    # K1: the aggregations count only the blocks its schedule lists
+    a_st, x_st, ws_k1 = args[0], args[1], args[2]
+    sched = kw["blk_sched"]
+    pn_k1, B_k1 = a_st.shape[2], a_st.shape[0]
+    share = 1.0
+    if sched is not None:
+        cb = pn_k1 // (sched.shape[2] - 1)
+        share = float(sched[:, :, 0].sum().item()) * (pn_k1 // sched.shape[1]) * cb / (B_k1 * pn_k1 ** 2)
+    k1_w = [w.shape for w in ws_k1]
+    k1_ops = B_k1 * (2 * pn_k1 ** 2 * share * sum(s[1] for s in k1_w)
+                     + 2 * pn_k1 * sum(s[0] * s[1] for s in k1_w))
+    bounds["fused_model"] = bound(nbytes(a_st, x_st, *(w.digits for w in ws_k1), mega_fn())
+                                  + (0 if sched is None else nbytes(sched)), k1_ops, "int8")
+    ba, bx, bws = bfn.args
+    k5_ops = ba.shape[0] * sum(2 * ba.shape[1] ** 2 * w.shape[0] + 2 * ba.shape[1] * w.shape[0] * w.shape[1]
+                               for w in bws)
+    bounds["fused_baseline"] = bound(nbytes(ba, bx, *bws, bfn()), k5_ops, "bf16")
+    for k, (b_ms, by) in bounds.items():
+        print(f"phase 3: {k} bound {b_ms * 1e3:.2f} us ({by}); kernel {times[k][0] * 1e3:.1f} us")
+
+    sources = {"packmm": ("packmm.cu", "qgtc_ppopp22_tpu/ops/packmm.py:664", launches),
+               "digitmm": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", launches),
+               "fused_model": ("fused_model.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
+                               mega_launches),
+               "fused_baseline": ("fused_baseline.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:1299",
+                                  base_launches)}
     kernels = [
-        {"name": "packmm", "route": "cuda", "source": "qgtc_ppopp22_tpu_torch/csrc/packmm.cu",
-         "replaces": "qgtc_ppopp22_tpu/ops/packmm.py:664", "launches": launches["packmm"],
-         "max_abs_err": err["packmm"], "ms": times["packmm"][0], "plain_ms": times["packmm"][1]},
-        {"name": "digitmm", "route": "cuda", "source": "qgtc_ppopp22_tpu_torch/csrc/digitmm.cu",
-         "replaces": "qgtc_ppopp22_tpu/ops/digitmm.py:193", "launches": launches["digitmm"],
-         "max_abs_err": err["digitmm"], "ms": times["digitmm"][0], "plain_ms": times["digitmm"][1]},
-        {"name": "fused_model", "route": "cuda", "source": "qgtc_ppopp22_tpu_torch/csrc/fused_model.cu",
-         "replaces": "qgtc_ppopp22_tpu/ops/fused_model.py:329", "launches": mega_launches["fused_model"],
-         "max_abs_err": err["fused_model"], "ms": times["fused_model"][0],
-         "plain_ms": times["fused_model"][1]},
+        {"name": k, "route": "cuda", "source": f"qgtc_ppopp22_tpu_torch/csrc/{src}",
+         "replaces": rep_, "launches": counts[k], "max_abs_err": err[k], "ms": times[k][0],
+         "plain_ms": times[k][1], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": lib_ms.get(k)}
+        for k, (src, rep_, counts) in sources.items()
     ]
     print(f"chip_smoke: {time.perf_counter() - start:.0f} s")
     print(card)  # as nvidia-smi prints it: name, power limit

@@ -8,13 +8,18 @@ can be held against the JAX package by exact integer equality.
 Layers, from the entry point down:
 
 * ``cli.py`` -> ``runtime.QGTCEngine`` (step engine: one forward chain per
-  cluster batch, epochs timed the reference's way).
+  cluster batch, epochs timed the reference's way; mega engine: one
+  whole-model launch per shape bucket) and ``runtime.BaselineEngine``
+  (the full-precision bf16 baseline, ``--regular``).
 * ``graph/``: the NumPy host layer (synthetic datasets, partitioning,
   cluster batching and packing).
-* ``models/qmodels.py``: the GCN / GIN GEMM chains.
-* ``ops/``: formats, plus the two GEMMs whose CUDA kernels live in
-  ``csrc/``: ``packmm`` (packed 1-bit adjacency x digit planes) and
-  ``digitmm`` (digit planes x digit planes).
+* ``models/qmodels.py``: the GCN / GIN GEMM chains;
+  ``models/baselines.py``: the bf16 baseline chains.
+* ``ops/``: formats, plus the kernels' wrappers, whose CUDA sources live
+  in ``csrc/``: ``packmm`` (packed 1-bit adjacency x digit planes),
+  ``digitmm`` (digit planes x digit planes) and ``fused_model`` (the
+  whole quantized model, and the whole baseline, per bucket).
+* ``utils/``: device timing and the F1 metrics.
 
 The package imports ``torch`` and never ``jax``. Kernels are compiled
 with ``nvcc`` at first use on a CUDA tensor (``ops/_build.py``); on CPU

@@ -4,11 +4,21 @@ Usage mirrors the reference (``main_qgtc.py:21-41``)::
 
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --bit_width 2 \
         --use_QGTC [--run_GIN] [--resident] [--mode mega [--zerotile_jump]]
+    python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --regular \
+        [--run_GIN] [--resident] [--mode step|fused|mega] [--eval-accuracy]
 
-``--mode step`` (default) runs the step engine, one GEMM chain per
-batch; ``--mode mega`` runs one whole-model kernel launch per shape
-bucket (``QGTCEngine.run_epochs_mega``), where ``--zerotile_jump``
-forces the compacted block schedule (absent: the auto gate).
+``--use_QGTC`` (the default engine) runs the quantized engine:
+``--mode step`` (default) one GEMM chain per batch, ``--mode mega`` one
+whole-model kernel launch per shape bucket
+(``QGTCEngine.run_epochs_mega``), where ``--zerotile_jump`` forces the
+compacted block schedule (absent: the auto gate). ``--regular`` runs the
+full-precision baseline (``BaselineEngine``, the DGL-driver role;
+``--run_GIN`` picks its GIN model): ``--mode step``, ``fused`` (a loop
+over the buckets staged on the device) or ``mega`` (one
+``fused_baseline`` launch per bucket; a bucket or width the kernel
+refuses stops the run, pointing at ``fused``). ``--resident`` applies to the
+step modes of both engines. ``--eval-accuracy`` adds the accuracy, and
+micro / macro F1 where the dataset has multilabels.
 
 Prints ``Avg. Epoch: <ms> ms`` as the reference does
 (``main_qgtc.py:157-159``), then one JSON record. Flags of the JAX
@@ -19,6 +29,7 @@ ported" error instead of being ignored.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import random
 import sys
@@ -29,12 +40,11 @@ import torch
 
 from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
 from qgtc_ppopp22_tpu_torch.graph.datasets import DEFAULT_PSIZE
-from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
+from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine
 
 NOT_PORTED = (
-    "--dataset-scale", "--regular", "--sparse", "--use-pp",
-    "--fmt", "--mesh", "--sync-every-epoch", "--bucket-rows",
-    "--cache-dir", "--eval-accuracy", "--timing-split", "--quant-in-loop",
+    "--sparse", "--use-pp", "--fmt", "--mesh", "--sync-every-epoch",
+    "--bucket-rows", "--cache-dir", "--timing-split", "--quant-in-loop",
     "--json-out", "--weights", "--profile-dir",
 )
 
@@ -52,6 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="QGTC quantized GNN inference (PyTorch)")
     p.add_argument("--dataset", type=str, default="ppi")
     p.add_argument("--data-dir", type=str, default="qgtc_graphs")
+    p.add_argument("--dataset-scale", type=float, default=1.0,
+                   help="shrink factor for synthetic stand-in datasets")
     p.add_argument("--n-epochs", type=int, default=20)
     p.add_argument("--batch-size", type=int, default=20)
     p.add_argument("--psize", type=int, default=None,
@@ -61,13 +73,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-layers", type=int, default=3)
     p.add_argument("--bit_width", type=int, default=2)
     p.add_argument("--use_QGTC", action="store_true",
-                   help="the quantized engine (the only one ported)")
+                   help="the quantized engine (the default)")
+    p.add_argument("--regular", action="store_true",
+                   help="the full-precision baseline (DGL-driver role)")
     p.add_argument("--run_GIN", action="store_true")
     p.add_argument("--resident", action="store_true",
-                   help="move packed batches to the device once; time compute only")
-    p.add_argument("--mode", choices=("step", "mega"), default="step",
-                   help="epoch execution: one GEMM chain per batch, or one "
-                        "whole-model kernel launch per shape bucket")
+                   help="step mode: move batches to the device once; time compute only")
+    p.add_argument("--mode", choices=("step", "fused", "mega"), default="step",
+                   help="epoch execution: one chain per batch, a loop over "
+                        "buckets staged on the device (--regular only), or "
+                        "one whole-model kernel launch per shape bucket")
+    p.add_argument("--eval-accuracy", action="store_true",
+                   help="report accuracy (and micro/macro F1 on multilabel data)")
     p.add_argument("--zerotile_jump", action="store_true", default=None,
                    help="mega mode: force the compacted zero-block schedule "
                         "(absent: auto, on at >=45%% skippable blocks, "
@@ -85,16 +102,20 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.regular and args.zerotile_jump:
+        parser.error("--zerotile_jump is the quantized engine's option")
     if args.mode != "mega" and args.zerotile_jump:
         parser.error("--zerotile_jump is not yet ported to the step engine (use --mode mega)")
-    if args.mode == "mega" and args.resident:
-        parser.error("--resident is the step engine's option; the mega engine "
-                     "always stages its buckets on the device")
+    if args.mode == "fused" and not args.regular:
+        parser.error("--mode fused is not yet ported to the quantized engine")
+    if args.mode != "step" and args.resident:
+        parser.error("--resident is the step modes' option; the fused and mega "
+                     "modes always stage their buckets on the device")
     random.seed(args.rnd_seed)
     np.random.seed(args.rnd_seed)
 
     t0 = time.perf_counter()
-    ds = load_dataset(args.dataset, data_dir=args.data_dir)
+    ds = load_dataset(args.dataset, data_dir=args.data_dir, scale=args.dataset_scale)
     print(f"[t] dataset load/synth: {time.perf_counter() - t0:.1f}s")
     print(
         f"dataset {ds.name}: {ds.num_nodes} nodes, {ds.graph.num_edges} edges, "
@@ -111,19 +132,41 @@ def main(argv=None) -> int:
         f"[t] partition+pack: {time.perf_counter() - t0:.1f}s; "
         f"{len(batcher)} batches/epoch, shape buckets {batcher.buckets()}"
     )
-    model = "gin" if args.run_GIN else "gcn"
-    eng = QGTCEngine(
-        feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model=model,
-        bit_width=args.bit_width, hidden=args.hidden, num_layers=args.num_layers,
-        zerotile_jump=args.zerotile_jump, seed=args.rnd_seed, device=args.device,
-    )
-    if args.mode == "mega":
-        stats = eng.run_epochs_mega(batcher, n_epochs=args.n_epochs)
+    if args.regular:
+        model = "gin" if args.run_GIN else "sage"
+        eng = BaselineEngine(
+            feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model=model,
+            hidden=args.hidden, num_layers=args.num_layers, seed=args.rnd_seed,
+            device=args.device,
+        )
+        if args.mode == "mega":
+            try:
+                stats = eng.run_epochs_mega(batcher, ds, n_epochs=args.n_epochs)
+            except ValueError as e:
+                parser.error(f"--mode mega: {e} (--mode fused)")
+        elif args.mode == "fused":
+            stats = eng.run_epochs_fused(batcher, ds, n_epochs=args.n_epochs)
+        else:
+            stats = eng.run_epochs(batcher, ds, n_epochs=args.n_epochs, resident=args.resident)
+        evaluate = functools.partial(eng.evaluate, batcher, ds)
+        evaluate_f1 = functools.partial(eng.evaluate_f1, batcher, ds)
     else:
-        stats = eng.run_epochs(batcher, n_epochs=args.n_epochs, resident=args.resident)
+        model = "gin" if args.run_GIN else "gcn"
+        eng = QGTCEngine(
+            feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model=model,
+            bit_width=args.bit_width, hidden=args.hidden, num_layers=args.num_layers,
+            zerotile_jump=args.zerotile_jump, seed=args.rnd_seed, device=args.device,
+        )
+        if args.mode == "mega":
+            stats = eng.run_epochs_mega(batcher, n_epochs=args.n_epochs)
+        else:
+            stats = eng.run_epochs(batcher, n_epochs=args.n_epochs, resident=args.resident)
+        evaluate = functools.partial(eng.evaluate, batcher)
+        evaluate_f1 = functools.partial(eng.evaluate_f1, batcher)
     device = torch.device(args.device)
     record = dict(
-        dataset=ds.name, bit_width=args.bit_width, model=model, engine=f"qgtc-{args.mode}",
+        dataset=ds.name, bit_width=args.bit_width, model=model,
+        engine=f"{'regular' if args.regular else 'qgtc'}-{args.mode}",
         psize=psize, batch_size=args.batch_size, n_epochs=args.n_epochs,
         resident=args.resident, device=str(device),
         device_name=(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
@@ -133,6 +176,12 @@ def main(argv=None) -> int:
     record["epoch_ms"] = stats.epoch_ms
     if args.mode == "mega":
         record["buckets"] = eng.mega_buckets
+    if args.eval_accuracy:
+        record["accuracy"] = evaluate(ds.labels)
+        print(f"accuracy: {record['accuracy']:.4f}")
+        if ds.multilabels is not None:
+            record.update(evaluate_f1(ds.multilabels))
+            print(f"F1-mic: {record['f1_micro']:.4f}, F1-mac: {record['f1_macro']:.4f}")
     print(json.dumps(record))
     return 0
 

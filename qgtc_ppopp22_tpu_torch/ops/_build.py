@@ -102,6 +102,10 @@ def library() -> ctypes.CDLL:
         # host int array, laid out in csrc/fused_model.cu.
         lib.qgtc_fused_model.argtypes = [p, p, p, p, p, p, p, i, p]
         lib.qgtc_fused_model.restype = i
+        # (out, a, x, w, scratch, meta, n_meta, stream); meta laid out in
+        # csrc/fused_baseline.cu.
+        lib.qgtc_fused_baseline.argtypes = [p, p, p, p, p, p, i, p]
+        lib.qgtc_fused_baseline.restype = i
         _lib = lib
     return _lib
 

@@ -1,7 +1,10 @@
-"""Whole-model kernel: a bucket's full GCN / GIN chain in one launch.
+"""Whole-model kernels: a bucket's full model chain in one launch.
 
-Counterpart of ``qgtc_ppopp22_tpu/ops/fused_model.py`` (TPU kernel
-``fused_model_epoch``). Every stacked batch of a shape bucket runs its
+Counterpart of ``qgtc_ppopp22_tpu/ops/fused_model.py``: the quantized
+``fused_model_epoch`` (K1) and the full-precision baseline
+``fused_baseline_epoch`` (K5, at the end of this module).
+
+K1: every stacked batch of a shape bucket runs its
 whole 3-layer chain of integer GEMMs, with the requantize step between
 layers, inside one launch of the kernel in ``csrc/fused_model.cu``:
 
@@ -25,6 +28,11 @@ tensors on a CUDA device launch the kernel or raise. Not ported (ROADMAP
 queue 1 item 6): levels-form X with the >4-bit offset-signed chain
 (``x_levels_bits``), the streaming predicated ``chunk_occ`` form, the
 streamed adjacency (``resident_a=False``) and ``unpack_once``.
+
+K5 (``csrc/fused_baseline.cu``): the dense bf16 chain of
+``models/baselines.sage_forward`` over ``int8[B, pn, pn]`` 0/1 adjacency
+stacks and float features, one launch per bucket, dispatched the same
+way to :func:`fused_baseline_epoch_plain` on the CPU.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from qgtc_ppopp22_tpu_torch.models.baselines import sage_forward
 from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward, qgin_forward
 from qgtc_ppopp22_tpu_torch.ops import _gemm
 from qgtc_ppopp22_tpu_torch.ops._build import check, library
@@ -43,7 +52,8 @@ from qgtc_ppopp22_tpu_torch.ops.bitpack import DIGIT_BITS, num_digits, round_up
 from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor
 from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor
 
-LAUNCHES = 0  # kernel launches since the count was last reset to 0
+LAUNCHES = 0  # fused_model launches since the count was last reset to 0
+BASELINE_LAUNCHES = 0  # fused_baseline launches, likewise
 
 _RPW = 32  # adjacency rows per packed word (1-bit)
 _WIDTH = 32  # the kernel's column granule: real widths round up to it
@@ -272,4 +282,155 @@ def fused_model_epoch(
         )
     check(err, "qgtc_fused_model")
     LAUNCHES += 1
+    return out
+
+
+# -- K5: the full-precision baseline in one launch --------------------------
+
+BASELINE_MAX_LAYERS = 8  # csrc/fused_baseline.cu MAX_LAYERS
+_BF16_WIDTH = 16  # the bf16 MMA's column granule: widths round up to it
+_BASELINE_MAX_COLS = 128  # widest padded layer output the kernel takes
+# csrc/fused_baseline.cu: the A and h rings, then W^T of the widest layer
+_BASELINE_SMEM_RINGS = 2 * 64 * 80 + 2 * 64 * 136 * 2
+_SMEM_LIMIT = 227 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class BaselinePlan:
+    """Geometry of one baseline launch."""
+
+    B: int
+    pn: int
+    xp: int
+    cp: int  # stored logit columns: the last weight's width
+    hw: int  # scratch row width: the widest layer input
+    kp: List[int]  # per layer: padded input width
+    np: List[int]  # per layer: padded output width
+
+
+def baseline_plan(a_shape, x_shape, w_shapes) -> BaselinePlan:
+    """Check the operands' shapes and return the launch geometry; raises
+    ``ValueError`` on what the kernel refuses (the CPU path refuses the
+    same, so an engine makes one choice on every device)."""
+    B, pn, pn2 = a_shape
+    Bx, pnx, xp = x_shape
+    if pn != pn2 or pn != pnx or B != Bx:
+        raise ValueError(f"bad stacked shapes {tuple(a_shape)} {tuple(x_shape)}")
+    if pn % 256:
+        raise ValueError(f"pn={pn} has no chunk divisor in (512, 256)")
+    if w_shapes and w_shapes[0][0] != xp:
+        raise ValueError(f"x width {xp} != first weight's rows {w_shapes[0][0]}")
+    kp, np_ = _baseline_widths(w_shapes)
+    return BaselinePlan(B, pn, xp, int(w_shapes[-1][1]), max(kp), kp, np_)
+
+
+def _baseline_widths(w_shapes) -> tuple:
+    """Padded (input, output) widths of each layer -> (kp, np); raises
+    ``ValueError`` on weights the kernel refuses."""
+    n = len(w_shapes)
+    if not 1 <= n <= BASELINE_MAX_LAYERS:
+        raise ValueError(f"{n} layers; the kernel takes 1..{BASELINE_MAX_LAYERS}")
+    for prev, cur in zip(w_shapes, w_shapes[1:]):
+        if cur[0] != prev[1]:
+            raise ValueError(f"weights {tuple(prev)} and {tuple(cur)} do not chain")
+    kp = [round_up(s[0], _BF16_WIDTH) for s in w_shapes]
+    np_ = [round_up(s[1], _BF16_WIDTH) for s in w_shapes]
+    if max(np_) > _BASELINE_MAX_COLS:
+        raise ValueError(f"padded layer widths {np_}: the kernel takes at most "
+                         f"{_BASELINE_MAX_COLS} output columns per layer")
+    smem = _BASELINE_SMEM_RINGS + max(c * (k + 8) * 2 for k, c in zip(kp, np_))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"weights of widths {list(zip(kp, np_))} need {smem} bytes "
+                         f"of shared memory; a block has {_SMEM_LIMIT}")
+    return kp, np_
+
+
+def fused_baseline_epoch_plain(
+    a_stack: torch.Tensor, x_stack: torch.Tensor, ws: Sequence[torch.Tensor]
+) -> torch.Tensor:
+    """Plain PyTorch version on any device: each batch's
+    ``sage_forward`` chain. Returns float32[B, pn, cp]."""
+    p = baseline_plan(a_stack.shape, x_stack.shape, [tuple(w.shape) for w in ws])
+    out = torch.empty((p.B, p.pn, p.cp), dtype=torch.float32, device=a_stack.device)
+    for b in range(p.B):
+        out[b] = sage_forward(a_stack[b], x_stack[b].float(), ws)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BaselineWeights:
+    """The kernel's weight operand: each weight rounded to bf16 (to
+    nearest even), transposed and zero-padded to [np, kp], in one buffer
+    at element offsets ``offs``."""
+
+    buf: torch.Tensor
+    offs: List[int]
+    kp: List[int]
+    np: List[int]
+
+
+def pack_baseline_weights(ws: Sequence[torch.Tensor]) -> BaselineWeights:
+    """Build the kernel's weight operand once; weights do not change
+    between epochs, so an engine passes the result to every launch."""
+    kps, nps = _baseline_widths([tuple(w.shape) for w in ws])
+    parts = []
+    for w, kp, np_ in zip(ws, kps, nps):
+        t = torch.zeros((np_, kp), dtype=torch.bfloat16, device=w.device)
+        t[: w.shape[1], : w.shape[0]] = w.t().to(torch.bfloat16)
+        parts.append(t.reshape(-1))
+    offs = np.cumsum([0] + [t.numel() for t in parts[:-1]]).tolist()
+    return BaselineWeights(torch.cat(parts), offs, kps, nps)
+
+
+def fused_baseline_epoch(
+    a_stack: torch.Tensor,  # int8[B, pn, pn] dense 0/1 adjacency
+    x_stack: torch.Tensor,  # float32 or bf16 [B, pn, xp] features
+    ws: Sequence[torch.Tensor],  # float weights [K, N], chained
+    resident_a: Optional[bool] = None,
+    packed: Optional[BaselineWeights] = None,
+) -> torch.Tensor:
+    """The full-precision model over every stacked batch in one kernel
+    launch: per layer ``h = relu((A @ h) @ W)`` with bf16 operands and
+    float32 sums, no relu after the last layer. Returns float32 logits
+    [B, pn, cp], ``cp = ws[-1].shape[1]``.
+
+    ``packed``: ``pack_baseline_weights(ws)``, built here when absent.
+    ``resident_a`` is kept only for the JAX package's signature: ``None``
+    and ``True`` both mean the kernel's one form (A read from device
+    memory once per layer); ``False``, the TPU's streamed form, is
+    refused."""
+    global BASELINE_LAUNCHES
+    if resident_a is False:
+        raise NotImplementedError(
+            "fused_baseline_epoch(resident_a=False) is not yet ported (ROADMAP queue 1 item 8)")
+    if not a_stack.is_cuda:
+        return fused_baseline_epoch_plain(a_stack, x_stack, ws)
+    p = baseline_plan(a_stack.shape, x_stack.shape, [tuple(w.shape) for w in ws])
+    dev = a_stack.device
+    for t, name in ((x_stack, "x_stack"), *((w, "weight") for w in ws)):
+        if t.device != dev:
+            raise ValueError(f"operands on {dev} and {t.device} ({name})")
+    if x_stack.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x_stack: expected float32 or bfloat16, got {x_stack.dtype}")
+    if packed is None:
+        packed = pack_baseline_weights(ws)
+    elif (packed.kp, packed.np) != (p.kp, p.np) or packed.buf.device != dev:
+        raise ValueError(f"packed weights of widths {list(zip(packed.kp, packed.np))} on "
+                         f"{packed.buf.device}; this launch needs {list(zip(p.kp, p.np))} on {dev}")
+    x = x_stack.float()  # as the JAX kernel's input; exact for bf16
+    scratch = torch.empty((p.B, 2, p.pn, p.hw), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((p.B, p.pn, p.cp), dtype=torch.float32, device=dev)
+    meta = [p.B, p.pn, p.xp, p.cp, p.hw, len(ws)]
+    for kp, np_, off in zip(p.kp, p.np, packed.offs):
+        meta += [kp, np_, off]
+    meta_c = (ctypes.c_int * len(meta))(*meta)
+    a = _gemm._operand(a_stack, torch.int8, "a_stack")
+    xptr = _gemm._operand(x, torch.float32, "x_stack")
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.qgtc_fused_baseline(out.data_ptr(), a, xptr, packed.buf.data_ptr(),
+                                      scratch.data_ptr(), meta_c, len(meta), stream)
+    check(err, "qgtc_fused_baseline")
+    BASELINE_LAUNCHES += 1
     return out

@@ -1,4 +1,4 @@
-"""Single-device inference engine: the step engine and its epoch loop.
+"""Single-device inference engines: the quantized engine and the baseline.
 
 Counterpart of ``qgtc_ppopp22_tpu/runtime.py::QGTCEngine`` (the
 reference's epoch machinery, ``main_qgtc.py:112-159``): iterate
@@ -7,13 +7,15 @@ reference's ``cluster.cuda()`` boundary, ``main_qgtc.py:115``), convert
 the features to digit planes there, run the quantized GEMM chain, and
 synchronize once after all epochs.
 
-The engine runs on the ``device`` it is given and nowhere else. On a
-CUDA device every GEMM launches its kernel; on the CPU every GEMM runs
-its plain PyTorch version. Ported so far: ``fmt='digits'`` with dense
-GEMMs (the step engine), and the mega engine (``run_epochs_mega``: one
-whole-model kernel launch per shape bucket, ``ops/fused_model.py``). The
-step engine's zero-tile K skip, and the fused (scan) and quant-in-loop
-engines are not.
+An engine runs on the ``device`` it is given (CUDA unless the caller
+asks for the CPU) and nowhere else. On a CUDA device every GEMM launches
+its kernel; on the CPU every GEMM runs its plain PyTorch version. Ported
+so far: ``fmt='digits'`` with dense GEMMs (the step engine), the mega
+engine (``run_epochs_mega``: one whole-model kernel launch per shape
+bucket, ``ops/fused_model.py``), and the full-precision
+``BaselineEngine`` (step, fused and mega modes, the last through the
+``fused_baseline`` kernel). The quantized engine's zero-tile K skip, and
+its fused (scan) and quant-in-loop modes are not.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from qgtc_ppopp22_tpu_torch.graph.batching import ClusterBatch, ClusterBatcher
+from qgtc_ppopp22_tpu_torch.models.baselines import gin_forward, init_mlp_weights, sage_forward
 from qgtc_ppopp22_tpu_torch.models.qmodels import (
     QModelConfig,
     init_weights,
@@ -38,6 +41,7 @@ from qgtc_ppopp22_tpu_torch.ops import fused_model
 from qgtc_ppopp22_tpu_torch.ops.bitpack import LANE, BitTensor, num_digits, round_up
 from qgtc_ppopp22_tpu_torch.ops.digits import planes_stack_to_digits, to_digit_tensor
 from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor
+from qgtc_ppopp22_tpu_torch.utils.metrics import multilabel_f1
 
 
 @dataclasses.dataclass
@@ -56,7 +60,42 @@ class EpochStats:
         return float(np.mean(self.epoch_ms)) if self.epoch_ms else 0.0
 
 
-class QGTCEngine:
+class _Engine:
+    """What both engines share: the device, its synchronize, and the
+    reference's epoch timing."""
+
+    device: torch.device
+
+    def _set_device(self, device) -> None:
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} requested but CUDA is not available")
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _timed_epochs(
+        self, one_epoch: Callable[[], object], n_epochs: int, n_batches: int,
+        sync_every_epoch: bool,
+    ) -> EpochStats:
+        if sync_every_epoch:
+            times = []
+            for _ in range(n_epochs):
+                t0 = time.perf_counter()
+                one_epoch()
+                self._sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return EpochStats(epoch_ms=times, n_batches=n_batches)
+        t0 = time.perf_counter()
+        for _ in range(n_epochs):
+            one_epoch()
+        self._sync()
+        per_epoch = (time.perf_counter() - t0) * 1e3 / max(n_epochs, 1)
+        return EpochStats(epoch_ms=[per_epoch], n_batches=n_batches, launch_sync_ms=per_epoch)
+
+
+class QGTCEngine(_Engine):
     """Quantized GNN inference engine (reference ``main_qgtc.py`` role).
 
     ``model``: ``'gcn'`` (update then aggregate, hidden 16 by default) or
@@ -77,15 +116,13 @@ class QGTCEngine:
         zerotile_jump: Optional[bool] = None,
         fmt: str = "digits",
         seed: int = 0,
-        device="cpu",
+        device="cuda",
     ):
         if model not in ("gcn", "gin"):
             raise ValueError(f"unknown model {model!r}")
         if fmt != "digits":
             raise NotImplementedError(f"fmt={fmt!r} is not yet ported")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but CUDA is not available")
+        self._set_device(device)
         if hidden is None:
             hidden = 16 if model == "gcn" else 64  # 0_7a…py:6 / 0_7b…py:6
         self.model = model
@@ -136,10 +173,6 @@ class QGTCEngine:
 
     # -- epoch loop (reference timing semantics) ------------------------
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def warmup(self, batcher: ClusterBatcher) -> None:
         """Run one batch of every shape bucket outside the timed region
         (on CUDA this builds and loads the kernel library)."""
@@ -178,25 +211,6 @@ class QGTCEngine:
                     self.forward_batch(batch)
 
         return self._timed_epochs(one_epoch, n_epochs, len(batcher), sync_every_epoch)
-
-    def _timed_epochs(
-        self, one_epoch: Callable[[], object], n_epochs: int, n_batches: int,
-        sync_every_epoch: bool,
-    ) -> EpochStats:
-        if sync_every_epoch:
-            times = []
-            for _ in range(n_epochs):
-                t0 = time.perf_counter()
-                one_epoch()
-                self._sync()
-                times.append((time.perf_counter() - t0) * 1e3)
-            return EpochStats(epoch_ms=times, n_batches=n_batches)
-        t0 = time.perf_counter()
-        for _ in range(n_epochs):
-            one_epoch()
-        self._sync()
-        per_epoch = (time.perf_counter() - t0) * 1e3 / max(n_epochs, 1)
-        return EpochStats(epoch_ms=[per_epoch], n_batches=n_batches, launch_sync_ms=per_epoch)
 
     # -- mega engine: one whole-model kernel launch per bucket ----------
 
@@ -307,6 +321,247 @@ class QGTCEngine:
             correct += int((pred == labels[batch.nodes]).sum())
             total += batch.num_nodes
         return correct / max(total, 1)
+
+    def evaluate_f1(self, batcher: ClusterBatcher, multilabels: np.ndarray) -> dict:
+        """Multilabel micro / macro F1 (reference ``calc_f1`` /
+        ``evaluate``, ``utils.py:43-60``, used for ppi). The engine's
+        logits are unsigned integers, so the reference's threshold at 0
+        becomes the per-class mean logit (``_threshold_f1``), as in the
+        JAX engine."""
+        rows, labs = [], []
+        for batch, logits in zip(batcher.batches, self.forward_all(batcher)):
+            rows.append(logits[: batch.num_nodes].cpu().numpy())
+            labs.append(multilabels[batch.nodes])
+        return _threshold_f1(np.concatenate(rows), np.concatenate(labs))
+
+
+class BaselineEngine(_Engine):
+    """Full-precision baseline engine (reference DGL-driver role,
+    ``cluster_gcn_dgl.py`` / ``batched_gin_dgl.py``): dense bf16
+    aggregation over the same cluster batches as :class:`QGTCEngine`.
+
+    ``model``: ``'sage'`` (hidden 16 by default) or ``'gin'`` (hidden
+    64). Weights are drawn from ``torch.Generator().manual_seed(seed)``;
+    assign ``self.weights`` (e.g. from
+    ``models.baselines.baseline_weights_from_jax``) to run others. Each
+    batch's dense uint8 adjacency and float32 features are built once on
+    the host and cached (``_batch_key``)."""
+
+    def __init__(
+        self,
+        feat_dim: int,
+        num_classes: int,
+        model: str = "sage",
+        hidden: Optional[int] = None,
+        num_layers: int = 3,
+        seed: int = 0,
+        device="cuda",
+    ):
+        if model not in ("sage", "gin"):
+            raise ValueError(f"unknown baseline model {model!r}")
+        self._set_device(device)
+        if hidden is None:
+            hidden = 16 if model == "sage" else 64
+        self.model = model
+        dims = [feat_dim] + [hidden] * (num_layers - 1) + [num_classes]
+        gen = torch.Generator().manual_seed(seed)
+        self.weights = [w.to(self.device) for w in init_mlp_weights(gen, dims)]
+        self._fwd = sage_forward if model == "sage" else gin_forward
+        self._dense_cache: dict = {}
+        self.mega_buckets: List[dict] = []  # what run_epochs_mega staged
+
+    # -- single batch ---------------------------------------------------
+
+    def _dense(self, batch: ClusterBatch, dataset, features=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The batch's host tensors (uint8 A [pn, pn], float32 X [pn,
+        feat]) from the cache, built on first use. ``features`` must be
+        the batcher's; absent, the dataset's."""
+        key = _batch_key(batch)
+        if key not in self._dense_cache:
+            feats = features if features is not None else dataset.features
+            n, pn, f = batch.num_nodes, batch.padded_nodes, batch.bit_X.shape[1]
+            a = np.zeros((pn, pn), np.uint8)
+            a[:n, :n] = dataset.graph.subgraph_dense(batch.nodes)
+            x = np.zeros((pn, f), np.float32)
+            x[:n] = feats[batch.nodes][:, :f]
+            self._dense_cache[key] = (torch.from_numpy(a), torch.from_numpy(x))
+        return self._dense_cache[key]
+
+    def forward_batch(self, batch: ClusterBatch, dataset, features=None) -> torch.Tensor:
+        """Logits [padded_nodes, num_classes] on the engine's device. The
+        dense A and X cross to the device on every call, as the DGL
+        baseline ships each subgraph (``cluster_gcn_dgl.py:97-101``)."""
+        a, x = self._dense(batch, dataset, features)
+        return self._fwd(a.to(self.device), x.to(self.device), self.weights)
+
+    # -- epoch loops ----------------------------------------------------
+
+    def run_epochs(
+        self,
+        batcher: ClusterBatcher,
+        dataset,
+        n_epochs: int = 20,
+        resident: bool = True,
+        sync_every_epoch: bool = False,
+    ) -> EpochStats:
+        """Timed step epochs: one forward chain per batch. ``resident``
+        moves every batch's dense A and X to the device before the timed
+        region; otherwise each batch's copy is timed too."""
+        for b in batcher.batches:  # fills the dense cache
+            self.forward_batch(b, dataset, batcher.features)
+        self._sync()
+        ws = self.weights
+        staged = None
+        if resident:
+            staged = [tuple(t.to(self.device) for t in self._dense(b, dataset))
+                      for b in batcher.batches]
+
+        def one_epoch():
+            if resident:
+                return [self._fwd(a, x, ws) for a, x in staged]
+            return [self.forward_batch(b, dataset) for b in batcher]
+
+        return self._timed_epochs(one_epoch, n_epochs, len(batcher), sync_every_epoch)
+
+    def _stage(self, batcher: ClusterBatcher, dataset, a_dtype: torch.dtype) -> List[tuple]:
+        """Every bucket's stacks on the device -> [(indices, a_stack
+        [B, pn, pn] of ``a_dtype``, x_stack float32 [B, pn, feat])];
+        ``indices`` into ``batcher.batches``."""
+        groups: dict = {}
+        for i, b in enumerate(batcher.batches):
+            a, _ = self._dense(b, dataset, batcher.features)
+            groups.setdefault(tuple(a.shape), []).append(i)
+        staged = []
+        for idx in groups.values():
+            dense = [self._dense(batcher.batches[i], dataset) for i in idx]
+            a_stack = torch.empty((len(idx),) + tuple(dense[0][0].shape), dtype=a_dtype,
+                                  device=self.device)
+            x_stack = torch.empty((len(idx),) + tuple(dense[0][1].shape), dtype=torch.float32,
+                                  device=self.device)
+            for j, (a, x) in enumerate(dense):
+                a_stack[j].copy_(a)
+                x_stack[j].copy_(x)
+            staged.append((idx, a_stack, x_stack))
+        return staged
+
+    def _fused_bucket(self, a_stack: torch.Tensor, x_stack: torch.Tensor) -> List[torch.Tensor]:
+        """One bucket's epoch as a loop over its staged batches, the A
+        cast to bf16 inside the loop (the JAX scan's body)."""
+        return [self._fwd(a_stack[i].to(torch.bfloat16), x_stack[i], self.weights)
+                for i in range(a_stack.shape[0])]
+
+    def run_epochs_fused(
+        self,
+        batcher: ClusterBatcher,
+        dataset,
+        n_epochs: int = 20,
+        sync_every_epoch: bool = False,
+    ) -> EpochStats:
+        """Timed epochs over the buckets staged on the device once, uint8
+        adjacency (the JAX scan-fused baseline; its one dispatch per
+        epoch becomes a loop here, CUDA-graph capture being later work)."""
+        staged = self._stage(batcher, dataset, torch.uint8)
+
+        def one_epoch():
+            return [self._fused_bucket(a, x) for _, a, x in staged]
+
+        one_epoch()
+        self._sync()
+        return self._timed_epochs(one_epoch, n_epochs, len(batcher), sync_every_epoch)
+
+    def _stage_mega(self, batcher: ClusterBatcher, dataset) -> List[tuple]:
+        """Stage every bucket as int8 stacks -> [(indices, fn)]: ``fn()``
+        runs the bucket's epoch, one fused_baseline launch returning
+        float32[B, pn, classes]. Records each bucket in
+        ``self.mega_buckets``. Raises ``ValueError`` where the kernel
+        refuses a bucket or the weights (``run_epochs_fused`` takes any
+        shape): a mega epoch is one launch per bucket or nothing."""
+        shapes = [tuple(w.shape) for w in self.weights]
+        for b in batcher.batches:
+            a, x = self._dense(b, dataset, batcher.features)
+            try:
+                fused_model.baseline_plan((1,) + tuple(a.shape), (1,) + tuple(x.shape), shapes)
+            except ValueError as e:
+                raise ValueError(f"fused_baseline refuses the bucket pn={a.shape[0]}: {e}; "
+                                 "the fused mode takes it") from e
+        packed = fused_model.pack_baseline_weights(self.weights)
+        staged, self.mega_buckets = [], []
+        for idx, a_stack, x_stack in self._stage(batcher, dataset, torch.int8):
+            self.mega_buckets.append(dict(pn=a_stack.shape[1], batches=len(idx)))
+            staged.append((idx, functools.partial(
+                fused_model.fused_baseline_epoch, a_stack, x_stack, self.weights, packed=packed)))
+        return staged
+
+    def _mega_logits(self, batcher: ClusterBatcher, dataset) -> List[torch.Tensor]:
+        """Each batch's mega-engine logits, in ``batcher.batches`` order."""
+        out: List[Optional[torch.Tensor]] = [None] * len(batcher.batches)
+        for idx, fn in self._stage_mega(batcher, dataset):
+            for i, logits in zip(idx, fn()):
+                out[i] = logits
+        return out
+
+    def run_epochs_mega(
+        self,
+        batcher: ClusterBatcher,
+        dataset,
+        n_epochs: int = 20,
+        sync_every_epoch: bool = False,
+    ) -> EpochStats:
+        """Timed epochs of one fused_baseline launch per bucket (the JAX
+        mega baseline, the same whole-model fusion the quantized engine
+        gets). Buckets are staged on the device before the timed region;
+        every bucket's output is kept by the epoch."""
+        fns = [fn for _, fn in self._stage_mega(batcher, dataset)]
+
+        def one_epoch():
+            return [fn() for fn in fns]
+
+        one_epoch()  # builds and loads the kernel library on CUDA
+        self._sync()
+        return self._timed_epochs(one_epoch, n_epochs, len(batcher), sync_every_epoch)
+
+    # -- accuracy -------------------------------------------------------
+
+    def _logits_rows(self, batcher: ClusterBatcher, dataset):
+        for batch in batcher.batches:
+            logits = self.forward_batch(batch, dataset, batcher.features)
+            yield batch, logits[: batch.num_nodes].cpu().numpy()
+
+    def evaluate(self, batcher: ClusterBatcher, dataset, labels: np.ndarray) -> float:
+        """Masked argmax accuracy (reference DGL ``evaluate`` role)."""
+        correct = total = 0
+        for batch, logits in self._logits_rows(batcher, dataset):
+            correct += int((logits.argmax(axis=1) == labels[batch.nodes]).sum())
+            total += batch.num_nodes
+        return correct / max(total, 1)
+
+    def evaluate_f1(self, batcher: ClusterBatcher, dataset, multilabels: np.ndarray) -> dict:
+        """Multilabel micro / macro F1 (reference ``calc_f1``,
+        ``utils.py:43-60``), thresholds as in ``_threshold_f1``."""
+        rows, labs = [], []
+        for batch, logits in self._logits_rows(batcher, dataset):
+            rows.append(logits)
+            labs.append(multilabels[batch.nodes])
+        return _threshold_f1(np.concatenate(rows), np.concatenate(labs))
+
+
+def _threshold_f1(logits: np.ndarray, labels: np.ndarray) -> dict:
+    """Micro / macro F1 with per-class mean-logit thresholds: the
+    reference thresholds at 0 (``utils.py:44-47``); the quantized
+    engines' logits are unsigned, so the decision boundary is the
+    per-class mean (a bias before the reference's threshold). Copy of the
+    JAX package's function."""
+    centered = logits - logits.mean(axis=0, keepdims=True)
+    return {
+        "f1_micro": multilabel_f1(centered, labels, "micro"),
+        "f1_macro": multilabel_f1(centered, labels, "macro"),
+    }
+
+
+def _batch_key(batch: ClusterBatch):
+    """Content-derived cache key (``id()`` would dangle if batches were
+    rebuilt between warm-up and the timed run)."""
+    return (batch.padded_nodes, batch.num_nodes, hash(batch.nodes.tobytes()))
 
 
 def mega_chunk_occ(a_words: np.ndarray, chunk: int) -> np.ndarray:

@@ -1,0 +1,55 @@
+"""Classification metrics (reference ``utils.py:43-50``, ``calc_f1``).
+
+NumPy copy of ``f1_score`` and ``multilabel_f1`` from
+``qgtc_ppopp22_tpu/utils/metrics.py``: micro / macro F1 over argmax
+predictions, and the multilabel branch that thresholds logits at 0.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+
+def _f1_from_counts(tp, fp, fn):
+    denom = 2 * tp + fp + fn
+    return np.where(denom > 0, 2 * tp / np.maximum(denom, 1), 0.0)
+
+
+def f1_score(
+    y_true: np.ndarray,
+    y_pred: np.ndarray,
+    num_classes: Optional[int] = None,
+    average: str = "micro",
+) -> float:
+    """Micro / macro F1 of class predictions."""
+    y_true = np.asarray(y_true).ravel()
+    y_pred = np.asarray(y_pred).ravel()
+    if num_classes is None:
+        num_classes = int(max(y_true.max(initial=0), y_pred.max(initial=0))) + 1
+    tp = np.zeros(num_classes)
+    fp = np.zeros(num_classes)
+    fn = np.zeros(num_classes)
+    for c in range(num_classes):
+        tp[c] = np.sum((y_pred == c) & (y_true == c))
+        fp[c] = np.sum((y_pred == c) & (y_true != c))
+        fn[c] = np.sum((y_pred != c) & (y_true == c))
+    if average == "micro":
+        return float(_f1_from_counts(tp.sum(), fp.sum(), fn.sum()))
+    if average == "macro":
+        return float(np.mean(_f1_from_counts(tp, fp, fn)))
+    raise ValueError(f"unknown average {average!r}")
+
+
+def multilabel_f1(logits: np.ndarray, labels: np.ndarray, average: str = "micro") -> float:
+    """Reference ``calc_f1`` multilabel branch (``utils.py:44-47``):
+    predictions are ``logits > 0``."""
+    pred = (np.asarray(logits) > 0).astype(np.int64)
+    lab = np.asarray(labels).astype(np.int64)
+    tp = np.sum((pred == 1) & (lab == 1), axis=0).astype(np.float64)
+    fp = np.sum((pred == 1) & (lab == 0), axis=0).astype(np.float64)
+    fn = np.sum((pred == 0) & (lab == 1), axis=0).astype(np.float64)
+    if average == "micro":
+        return float(_f1_from_counts(tp.sum(), fp.sum(), fn.sum()))
+    return float(np.mean(_f1_from_counts(tp, fp, fn)))

@@ -10,7 +10,7 @@ from ``torch.profiler``, so host gaps do not count.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable
+from typing import Callable, Dict, Hashable, Union
 
 import torch
 
@@ -18,10 +18,15 @@ _MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep
 
 
 def device_times_ms(
-    fns: Dict[Hashable, Callable[[], object]], iters: int = 20, warmup: int = 3
+    fns: Dict[Hashable, Callable[[], object]],
+    iters: Union[int, Dict[Hashable, int]] = 20,
+    warmup: int = 3,
 ) -> Dict[Hashable, float]:
     """Mean device milliseconds per call of each function in ``fns``:
-    every kernel and copy its ``iters`` calls ran, summed.
+    every kernel and copy its ``iters`` calls ran, summed. ``iters`` may
+    be a count per function: the profiler can drop records when a
+    session holds too many, so a function of thousands of small ops
+    (a plain version) takes fewer calls.
 
     One profiler session covers all functions (a second session in the
     same process can come back empty). Each function's calls follow a
@@ -37,6 +42,7 @@ def device_times_ms(
     if not torch.cuda.is_available():
         raise RuntimeError("device_times_ms needs a CUDA device")
     names = list(fns)
+    counts = {name: iters[name] if isinstance(iters, dict) else iters for name in names}
     for fn in fns.values():
         for _ in range(warmup):
             fn()
@@ -44,7 +50,7 @@ def device_times_ms(
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for name in names:
             torch.cuda._sleep(1)
-            for _ in range(iters):
+            for _ in range(counts[name]):
                 fns[name]()
             torch.cuda.synchronize()
     device = sorted(
@@ -63,4 +69,4 @@ def device_times_ms(
     empty = [names[i] for i, t in enumerate(total_us) if t <= 0]
     if empty:
         raise RuntimeError(f"the profiler recorded no device time for {empty}")
-    return {name: total_us[i] / 1e3 / iters for i, name in enumerate(names)}
+    return {name: total_us[i] / 1e3 / counts[name] for i, name in enumerate(names)}

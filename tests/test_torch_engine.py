@@ -40,7 +40,7 @@ def _engines(it, ds, model, bit_width, seed=1):
     je = JaxEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model,
                    bit_width=bit_width, seed=seed)
     te = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model,
-                    bit_width=bit_width, seed=seed)
+                    bit_width=bit_width, seed=seed, device="cpu")
     te.weights = qmodels.weights_from_jax([np.asarray(w) for w in je.float_weights], bit_width)
     return je, te
 
@@ -134,7 +134,8 @@ def test_engine_8bit_matches_jax_and_golden():
 @pytest.mark.parametrize("sync_every_epoch", [False, True])
 def test_run_epochs_covers_every_batch(small, resident, sync_every_epoch):
     ds, it, _, _ = small
-    eng = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, bit_width=2, seed=2)
+    eng = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, bit_width=2, seed=2,
+                     device="cpu")
     st = eng.run_epochs(it, n_epochs=2, resident=resident, sync_every_epoch=sync_every_epoch)
     assert isinstance(st, EpochStats) and st.n_batches == len(it) == 2
     assert len(st.epoch_ms) == (2 if sync_every_epoch else 1) and st.avg_ms > 0
@@ -156,7 +157,8 @@ def test_engine_rejects_unported_options(small, kwargs, exc):
     # zerotile_jump=True is the mega engine's; the step engine refuses it
     ds, it, _, _ = small
     with pytest.raises(exc):
-        QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, **kwargs).forward_batch(it.batches[0])
+        QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, device="cpu",
+                   **kwargs).forward_batch(it.batches[0])
 
 
 def test_package_never_imports_jax():

@@ -6,7 +6,10 @@ environment variable keeps ``tests/conftest.py`` from importing it)::
 
     QGTC_TEST_BACKEND=cuda python -m pytest tests/test_torch_kernels.py -q
 
-Tolerance: exact equality, padded outputs included.
+Tolerance: exact equality, padded outputs included; for the bf16
+baseline kernel exact equality on the "integer" and "rounding" cases,
+else max |kernel - plain| <= 2^-6 * max |plain| per row of logits
+(``torch_cases``).
 """
 
 import numpy as np
@@ -15,8 +18,15 @@ import torch
 
 from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, synthesize
 from qgtc_ppopp22_tpu_torch.ops import digitmm, digits, fused_model, packmm
-from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine, mega_block_sched
-from torch_cases import edge_operands, mega_case, operands  # tests/ is on sys.path
+from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine, mega_block_sched
+from torch_cases import (  # tests/ is on sys.path
+    BF16_REL_TOL,
+    baseline_case,
+    bf16_rel_err,
+    edge_operands,
+    mega_case,
+    operands,
+)
 
 BITS = [1, 2, 4, 8]
 SHAPES = [(2560, 128, 16), (2560, 2560, 40), (1000, 700, 200)]
@@ -107,7 +117,8 @@ def test_engine_on_card_equals_cpu(cuda, model):
     ds = synthesize("Proteins", scale=0.05, seed=5)
     it = ClusterBatcher(ds, 8, 2, bit_width=2, seed=5, partition_method="bfs")
     gpu = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4, device=cuda)
-    cpu = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4)
+    cpu = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4,
+                     device="cpu")
     for b in it.batches:
         got = gpu.forward_batch(b)
         assert torch.equal(got, gpu.forward_batch(b, plain=True))
@@ -122,6 +133,10 @@ def test_device_times_ms(cuda):
     t = device_times_ms({"kernel": lambda: packmm.packmm_to_f32(a, b),
                          "plain": lambda: packmm.packmm_plain(a, b)}, iters=5)
     assert set(t) == {"kernel", "plain"} and t["kernel"] > 0 and t["plain"] > 0
+    # a count per function: the mean is per call whatever the count
+    t2 = device_times_ms({"kernel": lambda: packmm.packmm_to_f32(a, b),
+                          "plain": lambda: packmm.packmm_plain(a, b)}, iters={"kernel": 5, "plain": 1})
+    assert 0.5 < t2["plain"] / t["plain"] < 2 and 0.5 < t2["kernel"] / t["kernel"] < 2
 
 
 # -- fused_model: the whole chain in one launch --------------------------
@@ -181,7 +196,8 @@ def test_run_epochs_mega_on_card_equals_cpu(cuda, model):
     it = ClusterBatcher(ds, 8, 2, bit_width=2, seed=5, partition_method="bfs")
     gpu = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4,
                      device=cuda, zerotile_jump=True)
-    cpu = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4)
+    cpu = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4,
+                     device="cpu")
     before = fused_model.LAUNCHES
     got = gpu._mega_logits(it)
     assert fused_model.LAUNCHES - before == len(gpu.mega_buckets)
@@ -189,3 +205,71 @@ def test_run_epochs_mega_on_card_equals_cpu(cuda, model):
     for b, g, c in zip(it.batches, got, cpu.forward_all(it)):
         n, k = b.num_nodes, ds.num_classes
         np.testing.assert_array_equal(g[:n, :k].cpu().numpy(), c[:n, :k].numpy())
+
+
+# -- fused_baseline: the bf16 baseline chain in one launch ----------------
+
+BASELINE_DIMS = {"sage": [128, 16, 16, 40], "gin": [128, 64, 64, 40]}
+
+
+def _baseline_args(cuda, model, pn, layers, kind, B=2):
+    dims = BASELINE_DIMS[model] if layers == 3 else [128, 40]
+    a, x, ws = baseline_case(pn + layers, B, pn, dims, kind=kind)
+    return (torch.from_numpy(a).to(cuda), torch.from_numpy(x).to(cuda),
+            [torch.from_numpy(w).to(cuda) for w in ws])
+
+
+def _check_close(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    for g, w in zip(got.cpu().numpy(), want.cpu().numpy()):
+        assert bf16_rel_err(g, w) <= BF16_REL_TOL
+
+
+@pytest.mark.parametrize("kind", ["integer", "rounding", "random"])
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("pn", [512, 1024])
+@pytest.mark.parametrize("model", ["sage", "gin"])
+def test_fused_baseline_kernel_vs_plain(cuda, model, pn, layers, kind):
+    a, x, ws = _baseline_args(cuda, model, pn, layers, kind)
+    before = fused_model.BASELINE_LAUNCHES
+    got = fused_model.fused_baseline_epoch(a, x, ws)
+    assert fused_model.BASELINE_LAUNCHES == before + 1
+    want = fused_model.fused_baseline_epoch_plain(a, x, ws)
+    if kind != "random":
+        _check(got, want)
+    else:
+        _check_close(got, want)
+
+
+def test_fused_baseline_kernel_ragged_widths_and_repeatable(cuda):
+    """Widths that are not multiples of 16, X wider than 128 columns
+    (two aggregation passes), three batches; a race between the CTAs of
+    one batch would show as a run that differs from the others."""
+    a, x, ws = baseline_case(11, 3, 256, [200, 24, 10])
+    a, x = torch.from_numpy(a).to(cuda), torch.from_numpy(x).to(cuda)
+    ws = [torch.from_numpy(w).to(cuda) for w in ws]
+    first = fused_model.fused_baseline_epoch(a, x, ws)
+    _check_close(first, fused_model.fused_baseline_epoch_plain(a, x, ws))
+    packed = fused_model.pack_baseline_weights(ws)
+    for _ in range(5):
+        _check(fused_model.fused_baseline_epoch(a, x, ws, packed=packed), first)
+    with pytest.raises(ValueError, match="packed weights"):
+        fused_model.fused_baseline_epoch(a, x, ws, packed=fused_model.pack_baseline_weights(ws[1:]))
+    _check(fused_model.fused_baseline_epoch(a, x.to(torch.bfloat16), ws),
+           fused_model.fused_baseline_epoch(a, x.to(torch.bfloat16).float(), ws))
+
+
+@pytest.mark.parametrize("model", ["sage", "gin"])
+def test_baseline_mega_on_card_matches_cpu(cuda, model):
+    ds = synthesize("Proteins", scale=0.05, seed=5)
+    it = ClusterBatcher(ds, 8, 2, bit_width=2, seed=5, partition_method="bfs")
+    gpu = BaselineEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4,
+                         device=cuda)
+    cpu = BaselineEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4,
+                         device="cpu")
+    before = fused_model.BASELINE_LAUNCHES
+    got = gpu._mega_logits(it, ds)
+    assert fused_model.BASELINE_LAUNCHES - before == len(gpu.mega_buckets)
+    for b, g in zip(it.batches, got):
+        assert bf16_rel_err(g.cpu().numpy(), cpu.forward_batch(b, ds).numpy()) <= BF16_REL_TOL

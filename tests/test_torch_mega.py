@@ -174,7 +174,7 @@ def _engine_pair(model, bucket_rows=256, zerotile_jump=None):
     it, jit = graph.ClusterBatcher(ds, 4, 2, **kw), jgraph.ClusterBatcher(jds, 4, 2, **kw)
     je = JaxEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=1)
     te = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=1,
-                    zerotile_jump=zerotile_jump)
+                    zerotile_jump=zerotile_jump, device="cpu")
     te.weights = qmodels.weights_from_jax([np.asarray(w) for w in je.float_weights], 2)
     return ds, it, jit, je, te
 
@@ -208,7 +208,8 @@ def test_run_epochs_mega_matches_step_engine_and_jax(model, zerotile_jump):
     # auto gate: these buckets are below pn 2048, so only True compacts
     assert all(i["compact"] == bool(zerotile_jump) for i in info)
     assert all(0.0 <= i["skippable"] <= 1.0 for i in info)
-    te_step = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model)
+    te_step = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model,
+                         device="cpu")
     te_step.weights = te.weights
     ref = _jax_mega_logits(je, jit, bool(zerotile_jump))
     for b, g, s, r in zip(it.batches, got, te_step.forward_all(it), ref):
@@ -222,7 +223,8 @@ def test_run_epochs_mega_falls_back_loudly(capsys):
     """A bucket the kernel refuses (here: more layers than it takes) runs
     through the step engine, and says so."""
     ds, it, _, _, _ = _engine_pair("gcn")
-    te = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, num_layers=9, seed=3)
+    te = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, num_layers=9, seed=3,
+                    device="cpu")
     got = te._mega_logits(it)
     assert "[mega] bucket pn=" in capsys.readouterr().out
     assert te.mega_buckets and all(i["fallback"] for i in te.mega_buckets)

@@ -71,3 +71,88 @@ def mega_case(seed, B, pn, bits, hidden, keep=None, chunk=512, cb=256,
     nd = -(-bits // 4)
     x_digits = np.stack([(xl >> (4 * d)) & ((1 << min(4, bits - 4 * d)) - 1) for d in range(nd)], axis=1)
     return qa, qx, qws, a_words, x_digits.astype(np.int8)
+
+
+# Tolerance of the bf16 baseline chain, per row of logits: max |port - ref|
+# over the row <= 2^-6 * the row's scale, the larger of its own max |ref|
+# and the median row's max |ref| in its batch (rows whose ref is all 0 left
+# out of the median; where the scale is 0 both sides must be 0). A float32
+# sum taken in another order can move a bf16 rounding by one ulp (at most
+# 2^-7 of the value rounded) at any of the chain's 2n casts. The value
+# rounded has the size of an ordinary row's, not of this row's logits,
+# which can cancel to a tenth of it: hence the median. Not the batch's
+# largest row: its dense (hub) rows reach logits thousands of times an
+# ordinary row's and would hide any ordinary row's error. The readings lie
+# between 1e-7 and 2e-3 (JAX against the port on the CPU, the kernel
+# against plain on the card); 2^-6 = 1.6e-2 leaves room above them. No
+# limit of this kind tells one rounding mode from another: the "integer"
+# and "rounding" cases of ``baseline_case`` must be equal bit for bit.
+BF16_REL_TOL = 2.0 ** -6
+
+
+def bf16_rel_err(got, ref) -> float:
+    """The worst row's max |got - ref| over its scale (above). Rows lie
+    along the last axis, a batch's rows along the one before it."""
+    got, ref = (np.asarray(t.detach().cpu() if hasattr(t, "detach") else t, np.float64)
+                for t in (got, ref))
+    diff = np.abs(got - ref).max(axis=-1)
+    rowmax = np.abs(ref).max(axis=-1)
+    typical = np.zeros(rowmax.shape[:-1] + (1,))
+    for i in np.ndindex(rowmax.shape[:-1]):
+        nz = rowmax[i][rowmax[i] > 0]
+        typical[i] = np.median(nz) if nz.size else 0.0
+    scale = np.maximum(rowmax, typical)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return float(np.where(diff > 0, diff / scale, 0.0).max())
+
+
+def baseline_case(seed, B, pn, dims, kind="random"):
+    """Operands of the bf16 baseline chain: A int8 [B, pn, pn] of 0/1, X
+    float32 [B, pn, dims[0]], weights float32 [dims[i], dims[i+1]].
+
+    ``kind``:
+    - ``"random"``: A at about 6 edges per row (an ogbn-arxiv cluster
+      batch) plus 4 rows half full, X normal, W normal * 0.1 (the
+      engine's initialisation);
+    - ``"integer"``: every intermediate is an integer exact in bf16: A
+      has at most 2 ones per row, X is 0/1 and W is -1/0/1 with at most 2
+      nonzeros per column, so magnitudes grow at most 4x per layer (64
+      after 3 layers). No rounding happens anywhere;
+    - ``"rounding"``: A and W as in ``"integer"``, X float32 of magnitude
+      in [1, 2) and either sign. In bf16 X is a multiple of 2^-7, and so
+      is every later value, which stays below 2^8: every float32 sum is
+      exact in any order and in any adder (a tensor core's truncating
+      alignment included), while X, the aggregations and the relu
+      outputs need more than bf16's 8 significant bits: each of the
+      chain's casts rounds, and only the same rounding mode (to nearest
+      even) gives the same bits."""
+    if kind not in ("random", "integer", "rounding"):
+        raise ValueError(f"unknown case kind {kind!r}")
+    rng = np.random.default_rng(seed)
+    a = np.zeros((B, pn, pn), np.int8)
+    sparse = kind != "random"
+    if sparse:
+        for b in range(B):
+            for r in range(pn):
+                a[b, r, rng.choice(pn, rng.integers(0, 3), replace=False)] = 1
+    else:
+        a[:] = rng.random((B, pn, pn)) < 6.0 / pn
+        a[:, rng.choice(pn, 4, replace=False)] = rng.random((B, 4, pn)) < 0.5
+    if kind == "integer":
+        x = rng.integers(0, 2, (B, pn, dims[0])).astype(np.float32)
+    elif kind == "rounding":
+        x = (rng.uniform(1, 2, (B, pn, dims[0])) * rng.choice([-1, 1], (B, pn, dims[0])))
+        x = x.astype(np.float32)
+    else:
+        x = rng.standard_normal((B, pn, dims[0])).astype(np.float32)
+    ws = []
+    for k, n in zip(dims, dims[1:]):
+        if sparse:
+            w = np.zeros((k, n), np.float32)
+            for c in range(n):
+                rows = rng.choice(k, rng.integers(1, 3), replace=False)
+                w[rows, c] = rng.choice([-1.0, 1.0], len(rows))
+        else:
+            w = (rng.standard_normal((k, n)) * 0.1).astype(np.float32)
+        ws.append(w)
+    return a, x, ws
