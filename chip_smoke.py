@@ -21,7 +21,15 @@ Runs, and stops with a non-zero exit at the first failure:
    "integer" case (nothing rounds) and the "rounding" case (every cast
    rounds, every sum exact), and within max |kernel - plain| <= 2^-6 max
    |plain| per row of logits on random 0/1 adjacency at arxiv density
-   plus a few dense rows.
+   plus a few dense rows. Then the one-bit tensor-core kernel ``bitmm``
+   against ``bitmm_plain``, word for word: (a_bits, b_bits) in (1,1),
+   (1,2), (2,2), (3,5), (4,4), (8,8), (1,8), each to 1/2/4/8-bit planes
+   and to float32, at C1's aggregation (A[2560x2560] x H[2560x16]) and
+   first update (X[2560x128] x W[128x16]) and the ragged M=300, K=520,
+   N=40; operands that put the accumulator at 0, 2^b - 1, 2^b and
+   2^b + 1; and with a TileMap: block-diagonal A with empty tiles and a
+   row tile of kcnt 0 (equal to dense), and a hand-made map that omits
+   occupied tiles (equal to plain's masked product, not to dense).
 2. The main path: 2-bit 3-layer Cluster-GCN (hidden 16) on the
    full-scale synthetic ogbn-arxiv stand-in, psize 1500, batch 20, 75
    batches, through ``QGTCEngine.forward_all``; launch counts are reset
@@ -38,20 +46,29 @@ Runs, and stops with a non-zero exit at the first failure:
    launch per bucket, counts reset just before; a bucket the kernel
    refused would stop the staging), its logits within the tolerance
    above of the step baseline's and of plain; and 4 batches of the gin
-   baseline (hidden 64).
+   baseline (hidden 64). Then the bit-serial path:
+   ``QGTCEngine(fmt='bits').forward_all`` on the same 75 batches, counts
+   reset just before: 6 bitmm launches per batch and no packmm / digitmm
+   launch; logits equal to the plain versions', to the digit step
+   engine's and, for the first batch, to the NumPy reference; then 4
+   batches of GIN (hidden 64) against the digit engine and plain.
 3. Timing: ms/epoch of the step engine (host clock around all epochs
-   and one synchronize, resident and transfer-inclusive, twice each),
+   and one synchronize, resident and transfer-inclusive, twice each,
+   each beside the bits step engine's),
    the mega engine's ms/epoch with and without the compacted block
    schedule (twice each); the baseline's ms/epoch in step (resident),
    fused and mega modes beside the quantized mega engine's (twice each);
    and the device time of each kernel beside its plain version at the
    slice's shapes (torch.profiler), with ``torch._int_mm`` on the same
-   operands as the library yardstick of packmm and digitmm.
+   operands as the library yardstick of packmm, digitmm and bitmm.
 
 Test operands come from ``tests/torch_cases.py``. Each kernel's bound
 is the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its operations over the card's dense peak (1,979 TOP/s
-int8, 989 TFLOP/s bf16). The third line from the end is the card's name
+int8, 989 TFLOP/s bf16); bitmm is charged 2 M N K int8 operations per
+pair of base-16 digits on the logical shapes (the data sheet gives no
+one-bit rate), and the work its padded shapes make it do is printed
+beside. The third line from the end is the card's name
 and power limit, the second ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -96,8 +113,8 @@ def main() -> int:
 
     from torch_cases import BF16_REL_TOL, baseline_case, bf16_rel_err, edge_operands, mega_case, operands
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
-    from qgtc_ppopp22_tpu_torch.ops import _build, digitmm, fused_model, packmm
-    from qgtc_ppopp22_tpu_torch.ops.bitpack import unpack_bits
+    from qgtc_ppopp22_tpu_torch.ops import _build, bitgemm, digitmm, fused_model, packmm
+    from qgtc_ppopp22_tpu_torch.ops.bitpack import num_digits, pack_bits, unpack_bits
     from qgtc_ppopp22_tpu_torch.ops.digits import digit_levels, digit_pack, digit_unpack
     from qgtc_ppopp22_tpu_torch.ops.packmm import pack_rows, packed_levels, unpack_rows
     from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine, mega_block_sched
@@ -119,7 +136,7 @@ def main() -> int:
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
             entry = next((entry[entry.find(k):][:60] for k in ("gemm_kernel", "fused_model_kernel",
-                                                                  "fused_baseline_kernel")
+                                                                  "fused_baseline_kernel", "bitmm_kernel")
                           if k in entry), entry[-60:])
         elif "Used" in line:
             print(f"  ptxas: {entry}: {line.split(':', 1)[1].strip()}")
@@ -127,12 +144,17 @@ def main() -> int:
             print(f"  ptxas: {entry}: {line.strip()}")
 
     # -- phase 1: kernel vs plain --------------------------------------
-    err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0}
-    ncase = {"packmm": 0, "digitmm": 0, "fused_model": 0, "fused_baseline": 0}
+    err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0, "bitmm": 0.0}
+    ncase = {"packmm": 0, "digitmm": 0, "fused_model": 0, "fused_baseline": 0, "bitmm": 0}
     worst_rel = 0.0  # fused_baseline, random cases: the worst row's relative error
 
     def compare(kind, got, want, what):
-        if hasattr(got, "digits"):
+        if hasattr(got, "planes"):
+            if got.shape != want.shape or got.bits != want.bits or got.planes.shape != want.planes.shape:
+                raise AssertionError(f"{what}: container shapes differ")
+            diff = (unpack_bits(got).long() - unpack_bits(want).long()).abs().max().item()
+            same = torch.equal(got.planes, want.planes)
+        elif hasattr(got, "digits"):
             if got.shape != want.shape or got.digits.shape != want.digits.shape:
                 raise AssertionError(f"{what}: container shapes differ")
             diff = (digit_levels(got) - digit_levels(want)).abs().max().item()
@@ -224,6 +246,48 @@ def main() -> int:
                     worst_rel = max(worst_rel, rel)
                     if rel > BF16_REL_TOL:
                         raise AssertionError(f"{what}: relative error {rel} > {BF16_REL_TOL} in a row")
+    # the one-bit tensor-core kernel, word for word against plain
+    def on_bits(q, bits):
+        return pack_bits(torch.from_numpy(q).to(dev), bits)
+
+    def check_bits(a, b, tag, outs=(1, 2, 4, 8, None), tile_map=None):
+        for ob in outs:
+            got = (bitgemm.bitmm_to_int(a, b, tile_map=tile_map) if ob is None
+                   else bitgemm.bitmm_to_bits(a, b, ob, tile_map=tile_map))
+            compare("bitmm", got, bitgemm.bitmm_plain(a, b, ob, tile_map),
+                    f"bitmm {tag} out_bits={ob} tile_map={tile_map is not None}")
+
+    for a_bits, b_bits in ((1, 1), (1, 2), (2, 2), (3, 5), (4, 4), (8, 8), (1, 8)):
+        for (M, K, N) in ((2560, 2560, 16), (2560, 128, 16), (300, 520, 40)):
+            qa, qb = operands(SEED + 9 * a_bits + b_bits + M + N, M, K, N, a_bits, b_bits,
+                              min(b_bits, 4), 0)
+            check_bits(on_bits(qa, a_bits), on_bits(qb, b_bits), f"{a_bits}x{b_bits} M={M} K={K} N={N}")
+    for bits in (1, 2, 4, 8):
+        qa, qb = edge_operands(bits, 0)
+        check_bits(on_bits(qa, 1), on_bits(qb, bits), f"requant edges bits={bits}", outs=(bits,))
+        col0 = unpack_bits(bitgemm.bitmm_to_bits(on_bits(qa, 1), on_bits(qb, bits), bits))[:, 0]
+        ub = 1 << bits
+        if col0[ub - 1] != ub - 1 or col0[ub] != 0 or col0[ub + 1] != ub - 1:
+            raise AssertionError(f"bitmm requant edges bits={bits}: {col0[ub - 1:ub + 2].tolist()}")
+    rng = np.random.default_rng(SEED)
+    qd = np.zeros((2560, 2560), np.int32)  # block diagonal; row tile 2 empty (kcnt 0)
+    for s0 in (0, 512, 1536, 2048):
+        qd[s0:s0 + 512, s0:s0 + 512] = rng.random((512, 512)) < 0.02
+    bd, hb = on_bits(qd, 1), on_bits(rng.integers(0, 4, (2560, 16)).astype(np.int32), 2)
+    tmap = bitgemm.build_tile_map(bd)
+    if tmap.kcnt.tolist() != [1, 1, 0, 1, 1]:
+        raise AssertionError(f"block-diagonal tile map kcnt {tmap.kcnt.tolist()}")
+    check_bits(bd, hb, "block-diagonal A", outs=(2, None), tile_map=tmap)
+    if not torch.equal(bitgemm.bitmm_to_bits(bd, hb, 2, tile_map=tmap).planes,
+                       bitgemm.bitmm_to_bits(bd, hb, 2).planes):
+        raise AssertionError("bitmm: the occupancy map changed the product")
+    ad = on_bits((rng.random((2560, 2560)) < 0.02).astype(np.int32), 1)
+    full = bitgemm.build_tile_map(ad)
+    hand = bitgemm.TileMap(full.kidx, torch.tensor([2, 5, 0, 4, 1], dtype=torch.int32, device=dev),
+                           full.tile_m, full.tile_k)  # visits fewer than the 5 occupied K tiles
+    check_bits(ad, hb, "hand-made map", outs=(2, None), tile_map=hand)
+    if torch.equal(bitgemm.bitmm_to_int(ad, hb, tile_map=hand), bitgemm.bitmm_to_int(ad, hb)):
+        raise AssertionError("bitmm: a map that omits occupied tiles gave the dense product")
     print(f"phase 1: kernel == plain exactly in {ncase} cases (fused_baseline: the integer "
           f"and rounding ones; worst row's relative error of its random ones {worst_rel:.3e}) "
           f"({time.perf_counter() - t0:.1f} s); max abs err {err}")
@@ -242,12 +306,12 @@ def main() -> int:
     eng = QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gcn",
                      bit_width=2, seed=SEED, device=dev)
     eng.warmup(batcher)
-    packmm.LAUNCHES = digitmm.LAUNCHES = fused_model.LAUNCHES = 0
+    packmm.LAUNCHES = digitmm.LAUNCHES = fused_model.LAUNCHES = bitgemm.LAUNCHES = 0
     logits = eng.forward_all(batcher)
     torch.cuda.synchronize()
     launches = {"packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES,
-                "fused_model": fused_model.LAUNCHES}
-    if launches != {"packmm": 3 * nb, "digitmm": 3 * nb, "fused_model": 0}:
+                "fused_model": fused_model.LAUNCHES, "bitmm": bitgemm.LAUNCHES}
+    if launches != {"packmm": 3 * nb, "digitmm": 3 * nb, "fused_model": 0, "bitmm": 0}:
         raise AssertionError(f"main path launches {launches}, want 3 each per batch")
     ref = eng.forward_all(batcher, plain=True)
     for b, got, want in zip(batcher.batches, logits, ref):
@@ -327,6 +391,42 @@ def main() -> int:
     print(f"phase 2: GIN (hidden 64) mega logits of 4 batches == plain; "
           f"{fused_model.LAUNCHES} fused_model launch(es)")
 
+    # the bit-serial path: BitTensor planes throughout, one bitmm per GEMM
+    t0 = time.perf_counter()
+    beng4 = QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gcn",
+                       bit_width=2, seed=SEED, device=dev, fmt="bits")
+    beng4.warmup(batcher)
+    packmm.LAUNCHES = digitmm.LAUNCHES = fused_model.LAUNCHES = bitgemm.LAUNCHES = 0
+    blogits = beng4.forward_all(batcher)
+    torch.cuda.synchronize()
+    bits_launches = {"bitmm": bitgemm.LAUNCHES, "packmm": packmm.LAUNCHES,
+                     "digitmm": digitmm.LAUNCHES, "fused_model": fused_model.LAUNCHES}
+    if bits_launches != {"bitmm": 6 * nb, "packmm": 0, "digitmm": 0, "fused_model": 0}:
+        raise AssertionError(f"bits path launches {bits_launches}, want 6 bitmm per batch only")
+    bref = beng4.forward_all(batcher, plain=True)
+    for b, got, want, step in zip(batcher.batches, blogits, bref, logits):
+        if got.shape != (b.padded_nodes, ds.num_classes) or not torch.isfinite(got).all():
+            raise AssertionError(f"bits path: bad logits {tuple(got.shape)}")
+        if not torch.equal(got, want) or not torch.equal(got, step):
+            raise AssertionError("bits path: logits != plain / digit step engine logits")
+    if not np.array_equal(blogits[0].cpu().numpy(), golden[: b0.padded_nodes]):
+        raise AssertionError("bits path: batch 0 logits != NumPy integer reference")
+    print(f"phase 2: bits GCN logits of {nb} batches == plain == digit step engine == NumPy "
+          f"reference (batch 0); launches {bits_launches}; accuracy "
+          f"{beng4.evaluate(batcher, ds.labels):.4f} ({time.perf_counter() - t0:.1f} s)")
+    gin4 = QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gin",
+                      bit_width=2, seed=SEED, device=dev, fmt="bits")
+    bitgemm.LAUNCHES = 0
+    gl4 = [gin4.forward_batch(b) for b in batcher.batches[:4]]
+    torch.cuda.synchronize()
+    if bitgemm.LAUNCHES != 24:
+        raise AssertionError(f"bits GIN: {bitgemm.LAUNCHES} bitmm launches, want 24")
+    for b, got, dig in zip(batcher.batches[:4], gl4, gl):
+        if not torch.equal(got, gin4.forward_batch(b, plain=True)) or not torch.equal(got, dig):
+            raise AssertionError("bits GIN logits != plain / digit engine logits")
+    print("phase 2: bits GIN (hidden 64) logits of 4 batches == plain == digit engine; "
+          "24 bitmm launches")
+
     # the full-precision baseline: one fused_baseline launch per bucket
     t0 = time.perf_counter()
     beng = BaselineEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="sage",
@@ -382,8 +482,10 @@ def main() -> int:
     for rep in range(2):
         for resident in (True, False):
             st = eng.run_epochs(batcher, n_epochs=5, resident=resident)
-            print(f"phase 3: step engine GCN 2-bit arxiv, resident={resident}: "
-                  f"{st.avg_ms:.3f} ms/epoch over {st.n_batches} batches [{card}]")
+            st4 = beng4.run_epochs(batcher, n_epochs=5, resident=resident)
+            print(f"phase 3: step engine GCN 2-bit arxiv, resident={resident}: digits "
+                  f"{st.avg_ms:.3f}, bits {st4.avg_ms:.3f} ms/epoch over {st.n_batches} "
+                  f"batches [{card}]")
     for rep in range(2):
         for zj in (None, False):
             eng.zerotile_jump = zj
@@ -408,8 +510,13 @@ def main() -> int:
     qa, qh16 = operands(SEED, 2560, 2560, 16, 1, 2, 2, 0)
     qx, qw1 = operands(SEED, 2560, 128, 16, 2, 2, 2, 0)
     a, h16, x, w1 = on_card(qa, 1, True), on_card(qh16, 2), on_card(qx, 2), on_card(qw1, 2)
-    h40 = on_card(operands(SEED, 2560, 2560, 40, 1, 2, 2, 0)[1], 2)
-    w2 = on_card(operands(SEED, 16, 16, 16, 2, 2, 2, 0)[1], 2)
+    qh40 = operands(SEED, 2560, 2560, 40, 1, 2, 2, 0)[1]
+    h40 = on_card(qh40, 2)
+    # the same levels as bit planes, for bitmm
+    ab, hb16, xb, wb1, hb40 = (on_bits(q, bw) for q, bw in
+                               ((qa, 1), (qh16, 2), (qx, 2), (qw1, 2), (qh40, 2)))
+    qw2 = operands(SEED, 16, 16, 16, 2, 2, 2, 0)[1]
+    w2, wb2 = on_card(qw2, 2), on_bits(qw2, 2)
     timed = [
         ("packmm", "packmm_to_digits A[2560x2560] x H[2560x16]",
          lambda: packmm.packmm_to_digits(a, h16, 2), lambda: packmm.packmm_plain(a, h16, 2)),
@@ -419,6 +526,14 @@ def main() -> int:
          lambda: digitmm.digitmm_to_digits(x, w1, 2), lambda: digitmm.digitmm_plain(x, w1, 2)),
         ("digitmm", "digitmm_to_digits H[2560x16] x W[16x16]",
          lambda: digitmm.digitmm_to_digits(h16, w2, 2), lambda: digitmm.digitmm_plain(h16, w2, 2)),
+        ("bitmm", "bitmm_to_bits A[2560x2560] 1-bit x H[2560x16] 2-bit",
+         lambda: bitgemm.bitmm_to_bits(ab, hb16, 2), lambda: bitgemm.bitmm_plain(ab, hb16, 2)),
+        ("bitmm update", "bitmm_to_bits X[2560x128] x W[128x16], 2-bit",
+         lambda: bitgemm.bitmm_to_bits(xb, wb1, 2), lambda: bitgemm.bitmm_plain(xb, wb1, 2)),
+        ("bitmm update", "bitmm_to_bits H[2560x16] x W[16x16], 2-bit",
+         lambda: bitgemm.bitmm_to_bits(hb16, wb2, 2), lambda: bitgemm.bitmm_plain(hb16, wb2, 2)),
+        ("bitmm f32", "bitmm_to_int A[2560x2560] x H[2560x40]",
+         lambda: bitgemm.bitmm_to_int(ab, hb40), lambda: bitgemm.bitmm_plain(ab, hb40, None)),
     ]
     # the mega path's one launch per epoch, at its shapes, beside plain
     staged = eng._stage_mega(batcher)
@@ -448,10 +563,17 @@ def main() -> int:
     timed.append(("fused_baseline gin", "fused_baseline epoch, gin widths (hidden 64)",
                   lambda: fused_model.fused_baseline_epoch(*bfn.args[:2], bgin.weights, packed=p_gin),
                   None))
+    # the device work of one resident step epoch in each format (E1, E4)
+    for what, stepper in (("digits (E1)", eng), ("bits (E4)", beng4)):
+        staged_b = [stepper.put_batch(b) for b in batcher.batches]
+        timed.append(("step epoch", f"one resident step epoch, {what}, all its kernels",
+                      lambda st=stepper, sb=staged_b: [st._step(*t) for t in sb], None))
     # the library yardstick of packmm and digitmm: cuBLAS int8 on the
     # unpacked levels at the same shapes (the port never calls it)
     lib_ops = {"packmm": (unpack_rows(a).to(torch.int8), digit_unpack(h16).to(torch.int8)),
-               "digitmm": (digit_unpack(x).to(torch.int8), digit_unpack(w1).to(torch.int8))}
+               "digitmm": (digit_unpack(x).to(torch.int8), digit_unpack(w1).to(torch.int8)),
+               "bitmm": (unpack_bits(ab).to(torch.int8), unpack_bits(hb16).to(torch.int8)),
+               "bitmm update": (unpack_bits(xb).to(torch.int8), unpack_bits(wb1).to(torch.int8))}
     # device time per call from one profiler session, in turns:
     # plain, kernel, kernel, plain
     fns = {}
@@ -462,9 +584,11 @@ def main() -> int:
     for kind, (la, lb) in lib_ops.items():
         for rep in (0, 1):
             fns[(kind, "library", rep)] = lambda la=la, lb=lb: torch._int_mm(la, lb)
-    # plain versions run thousands of small ops per call, and a session
-    # that holds too many records can lose some: one call each
-    dt = device_times_ms(fns, iters={k: 1 if k[1] == "plain" else 5 for k in fns}, warmup=1)
+    # plain versions and step epochs run thousands of small ops per call,
+    # and a session that holds too many records can lose some: one call each
+    many = {i for i, t in enumerate(timed) if t[0] == "step epoch"}
+    dt = device_times_ms(fns, iters={k: 1 if k[1] == "plain" or k[0] in many else 5 for k in fns},
+                         warmup=1)
     times = {}
     for i, (kind, what, _, plain) in enumerate(timed):
         k_ms = min(dt[(i, "kernel", 0)], dt[(i, "kernel", 1)])
@@ -489,6 +613,20 @@ def main() -> int:
         "digitmm": bound(nbytes(x.digits, w1.digits, digitmm.digitmm_to_digits(x, w1, 2).digits),
                          2 * 2560 * 128 * 16, "int8"),
     }
+    # K6: the planes as passed; 2 M N K int8 operations per pair of
+    # base-16 digits on the logical shapes. The padded shapes' work (256
+    # columns for 16) is the kernel's own, printed beside, not its bound.
+    def bit_bound(lhs, rhs, what):
+        out = bitgemm.bitmm_to_bits(lhs, rhs, 2)
+        pairs = num_digits(lhs.bits) * num_digits(rhs.bits)
+        ops = 2 * lhs.shape[0] * rhs.shape[1] * lhs.shape[1] * pairs
+        padded = 2 * lhs.padded_rows * rhs.padded_cols * lhs.padded_cols * pairs
+        print(f"phase 3: {what}: {ops / 1e9:.3f} G int8 operations needed, {padded / 1e9:.3f} G "
+              f"on the padded shapes the kernel computes")
+        return bound(nbytes(lhs.planes, rhs.planes, out.planes), ops, "int8")
+
+    bounds["bitmm"] = bit_bound(ab, hb16, "bitmm A[2560x2560] x H[2560x16]")
+    bounds["bitmm update"] = bit_bound(xb, wb1, "bitmm X[2560x128] x W[128x16]")
     # K1: the aggregations count only the blocks its schedule lists
     a_st, x_st, ws_k1 = args[0], args[1], args[2]
     sched = kw["blk_sched"]
@@ -514,7 +652,8 @@ def main() -> int:
                "fused_model": ("fused_model.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
                                mega_launches),
                "fused_baseline": ("fused_baseline.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:1299",
-                                  base_launches)}
+                                  base_launches),
+               "bitmm": ("bitmm.cu", "qgtc_ppopp22_tpu/ops/bitgemm.py:266", bits_launches)}
     kernels = [
         {"name": k, "route": "cuda", "source": f"qgtc_ppopp22_tpu_torch/csrc/{src}",
          "replaces": rep_, "launches": counts[k], "max_abs_err": err[k], "ms": times[k][0],

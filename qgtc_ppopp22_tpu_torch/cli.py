@@ -3,7 +3,8 @@
 Usage mirrors the reference (``main_qgtc.py:21-41``)::
 
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --bit_width 2 \
-        --use_QGTC [--run_GIN] [--resident] [--mode mega [--zerotile_jump]]
+        --use_QGTC [--run_GIN] [--resident] [--fmt digits|bits] \
+        [--mode mega [--zerotile_jump]]
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --regular \
         [--run_GIN] [--resident] [--mode step|fused|mega] [--eval-accuracy]
 
@@ -11,7 +12,9 @@ Usage mirrors the reference (``main_qgtc.py:21-41``)::
 ``--mode step`` (default) one GEMM chain per batch, ``--mode mega`` one
 whole-model kernel launch per shape bucket
 (``QGTCEngine.run_epochs_mega``), where ``--zerotile_jump`` forces the
-compacted block schedule (absent: the auto gate). ``--regular`` runs the
+compacted block schedule (absent: the auto gate). ``--fmt bits`` runs the
+step engine over bit planes throughout (the one-bit tensor-core GEMM)
+instead of digit planes; the mega mode requires ``--fmt digits``. ``--regular`` runs the
 full-precision baseline (``BaselineEngine``, the DGL-driver role;
 ``--run_GIN`` picks its GIN model): ``--mode step``, ``fused`` (a loop
 over the buckets staged on the device) or ``mega`` (one
@@ -43,7 +46,7 @@ from qgtc_ppopp22_tpu_torch.graph.datasets import DEFAULT_PSIZE
 from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine
 
 NOT_PORTED = (
-    "--sparse", "--use-pp", "--fmt", "--mesh", "--sync-every-epoch",
+    "--sparse", "--use-pp", "--mesh", "--sync-every-epoch",
     "--bucket-rows", "--cache-dir", "--timing-split", "--quant-in-loop",
     "--json-out", "--weights", "--profile-dir",
 )
@@ -77,6 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--regular", action="store_true",
                    help="the full-precision baseline (DGL-driver role)")
     p.add_argument("--run_GIN", action="store_true")
+    p.add_argument("--fmt", choices=("digits", "bits"), default="digits",
+                   help="the quantized engine's working format: digit planes, "
+                        "or bit planes on the one-bit tensor cores (step mode)")
     p.add_argument("--resident", action="store_true",
                    help="step mode: move batches to the device once; time compute only")
     p.add_argument("--mode", choices=("step", "fused", "mega"), default="step",
@@ -104,6 +110,10 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.regular and args.zerotile_jump:
         parser.error("--zerotile_jump is the quantized engine's option")
+    if args.regular and args.fmt != "digits":
+        parser.error("--fmt is the quantized engine's option")
+    if args.fmt != "digits" and args.mode != "step":
+        parser.error(f"{args.mode} mode requires fmt='digits'")
     if args.mode != "mega" and args.zerotile_jump:
         parser.error("--zerotile_jump is not yet ported to the step engine (use --mode mega)")
     if args.mode == "fused" and not args.regular:
@@ -155,7 +165,8 @@ def main(argv=None) -> int:
         eng = QGTCEngine(
             feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model=model,
             bit_width=args.bit_width, hidden=args.hidden, num_layers=args.num_layers,
-            zerotile_jump=args.zerotile_jump, seed=args.rnd_seed, device=args.device,
+            zerotile_jump=args.zerotile_jump, fmt=args.fmt, seed=args.rnd_seed,
+            device=args.device,
         )
         if args.mode == "mega":
             stats = eng.run_epochs_mega(batcher, n_epochs=args.n_epochs)
@@ -166,7 +177,7 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     record = dict(
         dataset=ds.name, bit_width=args.bit_width, model=model,
-        engine=f"{'regular' if args.regular else 'qgtc'}-{args.mode}",
+        engine=f"{'regular' if args.regular else 'qgtc'}-{args.mode}", fmt=args.fmt,
         psize=psize, batch_size=args.batch_size, n_epochs=args.n_epochs,
         resident=args.resident, device=str(device),
         device_name=(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),

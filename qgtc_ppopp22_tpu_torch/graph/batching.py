@@ -10,14 +10,15 @@ moves each packed batch to the device inside the timed region
 columns are exact no-ops through the GEMM chain.
 
 The packed arrays are byte for byte the JAX batcher's (``a_words``,
-``bit_X.planes``, the zero-tile schedule), held as torch CPU tensors.
-The 1-bit ``bit_A`` planes are not built: only the ``BitTensor`` GEMM
-consumes them, and it is not ported yet.
+``bit_A.planes``, ``bit_X.planes``, the zero-tile schedule), held as
+torch CPU tensors. ``bit_A`` is packed from ``a_words`` on first use,
+since only the bit-plane GEMM (``fmt='bits'``) reads it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import random
 from typing import List, Optional, Tuple
 
@@ -29,7 +30,7 @@ from qgtc_ppopp22_tpu_torch.graph.csr import CSRGraph
 from qgtc_ppopp22_tpu_torch.graph.datasets import GraphDataset
 from qgtc_ppopp22_tpu_torch.graph.partition import get_partition_list
 from qgtc_ppopp22_tpu_torch.ops.bitpack import BitTensor, pack_bits_np, round_up
-from qgtc_ppopp22_tpu_torch.ops.packmm import build_tile_map_packed_np, pack_rows_np
+from qgtc_ppopp22_tpu_torch.ops.packmm import build_tile_map_packed_np, pack_rows_np, unpack_rows_np
 
 DEFAULT_BUCKET_ROWS = 512
 
@@ -49,9 +50,9 @@ class ClusterBatch:
     ``num_nodes`` is the real node count, ``padded_nodes`` the bucket
     size. ``a_words`` is the adjacency in the M-packed word layout the
     packed GEMM consumes (``ops/packmm.pack_rows_np``, int32[1, pn//32, pn]);
-    ``bit_X`` the features, (padded_nodes, feat_dim) at ``bit_width``
-    bits. ``tile_kidx``/``tile_kcnt`` is the zero-tile schedule over
-    ``a_words``'s (256 x 256) tiles, built at pack time.
+    ``bit_X`` the features, (padded_nodes, feat_dim)
+    at ``bit_width`` bits. ``tile_kidx``/``tile_kcnt`` is the zero-tile
+    schedule over ``a_words``'s (256 x 256) tiles, built at pack time.
     """
 
     nodes: np.ndarray  # int64[num_nodes] global node ids
@@ -61,6 +62,14 @@ class ClusterBatch:
     a_words: torch.Tensor  # int32[1, pn // 32, pn]
     tile_kidx: torch.Tensor  # int32[nm, nk]
     tile_kcnt: torch.Tensor  # int32[nm]
+
+    @functools.cached_property
+    def bit_A(self) -> BitTensor:
+        """The adjacency as 1-bit planes for the bit-plane GEMM
+        (``fmt='bits'``): unpacked from ``a_words`` and packed on first
+        use, then kept."""
+        pn = self.padded_nodes
+        return pack_bits_np(unpack_rows_np(self.a_words.numpy(), 1)[:pn, :pn], 1)
 
 
 class ClusterBatcher:

@@ -1,8 +1,9 @@
-"""Quantized GNN models in the digit domain (QGCN / QGIN).
+"""Quantized GNN models (QGCN / QGIN).
 
-Counterpart of ``qgtc_ppopp22_tpu/models/qmodels.py``, over
-``DigitTensor`` features and a ``PackedTensor`` adjacency (the
-``BitTensor`` path of the JAX package waits for its GEMM):
+Counterpart of ``qgtc_ppopp22_tpu/models/qmodels.py``, in two working
+formats: ``DigitTensor`` features with a ``PackedTensor`` adjacency
+(``fmt='digits'``), or ``BitTensor`` planes throughout (``fmt='bits'``,
+the reference's own bit-serial form):
 
 * QGCN, update then aggregate (``main_qgtc.py:146-154``):
   ``XW1 -> A(XW1) -> (.)W2 -> A(.) -> (.)W3 -> A(.) as float32``.
@@ -10,9 +11,11 @@ Counterpart of ``qgtc_ppopp22_tpu/models/qmodels.py``, over
   ``AX -> (AX)W1 -> A(.) -> (.)W2 -> A(.) -> (.)W3 as float32``.
 
 Each product goes to ``packmm`` when its left operand is the packed
-adjacency, else to ``digitmm``. ``plain=True`` runs their plain PyTorch
-versions instead of the kernels, on whatever device the operands are:
-the on-device reference the kernels are held against.
+adjacency, to ``bitgemm`` when it is a ``BitTensor``, else to
+``digitmm``. ``plain=True`` runs their plain PyTorch versions instead of
+the kernels, on whatever device the operands are: the on-device
+reference the kernels are held against. A ``tile_map`` (zero-tile
+jumping) goes to the aggregations only, and only ``bitgemm`` takes one.
 """
 
 from __future__ import annotations
@@ -23,12 +26,14 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from qgtc_ppopp22_tpu_torch.ops.bitgemm import TileMap, bitmm_plain, bitmm_to_bits, bitmm_to_int
+from qgtc_ppopp22_tpu_torch.ops.bitpack import BitTensor, pack_bits
 from qgtc_ppopp22_tpu_torch.ops.digitmm import (
     digitmm_plain,
     digitmm_to_digits,
     digitmm_to_f32,
 )
-from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor, digit_pack
+from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack
 from qgtc_ppopp22_tpu_torch.ops.packmm import (
     PackedTensor,
     packmm_plain,
@@ -38,7 +43,19 @@ from qgtc_ppopp22_tpu_torch.ops.packmm import (
 from qgtc_ppopp22_tpu_torch.ops.quantize import quantize
 
 
-def _mm_to_digits(a, b: DigitTensor, out_bits: int, shift: int, plain: bool) -> DigitTensor:
+def _mm_to_bits(a, b, out_bits: int, shift: int, plain: bool, tile_map=None):
+    """Container-dispatching requantized GEMM: packed adjacency, bit
+    planes or digit planes on the left."""
+    if isinstance(a, BitTensor):
+        if shift:
+            raise NotImplementedError(
+                "scaled requant is only on the digit path; the packed "
+                "bitgemm path keeps exact reference semantics (shift=0)"
+            )
+        if plain:
+            return bitmm_plain(a, b, out_bits, tile_map)
+        return bitmm_to_bits(a, b, out_bits, tile_map=tile_map)
+    _no_tile_map(tile_map)
     if isinstance(a, PackedTensor):
         if plain:
             return packmm_plain(a, b, out_bits, shift)
@@ -48,10 +65,21 @@ def _mm_to_digits(a, b: DigitTensor, out_bits: int, shift: int, plain: bool) -> 
     return digitmm_to_digits(a, b, out_bits, shift=shift)
 
 
-def _mm_to_f32(a, b: DigitTensor, plain: bool) -> torch.Tensor:
+def _mm_to_f32(a, b, plain: bool, tile_map=None) -> torch.Tensor:
+    if isinstance(a, BitTensor):
+        return bitmm_plain(a, b, None, tile_map) if plain else bitmm_to_int(a, b, tile_map=tile_map)
+    _no_tile_map(tile_map)
     if isinstance(a, PackedTensor):
         return packmm_plain(a, b) if plain else packmm_to_f32(a, b)
     return digitmm_plain(a, b) if plain else digitmm_to_f32(a, b)
+
+
+def _no_tile_map(tile_map) -> None:
+    if tile_map is not None:
+        raise NotImplementedError(
+            "the TileMap K skip of packmm / digitmm is not yet ported; "
+            "only the bit-plane GEMM (fmt='bits') takes a tile_map"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,15 +113,17 @@ def pack_weights(
     bit_width: int,
     fmt: str = "digits",
     quant_bits: Optional[int] = None,
-) -> List[DigitTensor]:
-    """Quantize and pack weights once (reference ``main_qgtc.py:108-110``).
+) -> List:
+    """Quantize and pack weights once (reference ``main_qgtc.py:108-110``):
+    ``DigitTensor``\\ s for ``fmt='digits'``, ``BitTensor``\\ s for
+    ``fmt='bits'``.
 
     ``quant_bits`` (default ``bit_width``) sets the quantization grid
     apart from the datapath width; a narrower grid wraps ``2^qb`` to 0
     as a ``qb``-plane pack would, so a wide engine runs a narrow model's
-    exact weights. Only ``fmt='digits'`` is ported."""
-    if fmt != "digits":
-        raise NotImplementedError(f"weight format {fmt!r} is not yet ported")
+    exact weights."""
+    if fmt not in ("digits", "bits"):
+        raise ValueError(f"unknown weight format {fmt!r}")
     qb = quant_bits or bit_width
     if qb > bit_width:
         raise ValueError(f"quant_bits ({qb}) must be <= bit_width")
@@ -102,16 +132,18 @@ def pack_weights(
         v = quantize(w, qb)
         return v % (1 << qb) if qb < bit_width else v
 
-    return [digit_pack(q(w), bit_width) for w in weights]
+    pack = pack_bits if fmt == "bits" else digit_pack
+    return [pack(q(w), bit_width) for w in weights]
 
 
 def weights_from_jax(
-    float_weights: Sequence[np.ndarray], bit_width: int, quant_bits: Optional[int] = None
-) -> List[DigitTensor]:
+    float_weights: Sequence[np.ndarray], bit_width: int, quant_bits: Optional[int] = None,
+    fmt: str = "digits",
+) -> List:
     """The JAX engine's float weights (``np.asarray(eng.float_weights[i])``)
-    -> this package's digit weights, so both compute the same model."""
+    -> this package's weights in ``fmt``, so both compute the same model."""
     ws = [torch.from_numpy(np.array(w, dtype=np.float32)) for w in float_weights]
-    return pack_weights(ws, bit_width, fmt="digits", quant_bits=quant_bits)
+    return pack_weights(ws, bit_width, fmt=fmt, quant_bits=quant_bits)
 
 
 def _shifts(shifts, n_layers: int) -> List[int]:
@@ -119,36 +151,41 @@ def _shifts(shifts, n_layers: int) -> List[int]:
 
 
 def qgcn_forward(
-    a: PackedTensor,
-    x: DigitTensor,
-    ws: Sequence[DigitTensor],
+    a,
+    x,
+    ws: Sequence,
     out_bits: int,
     shifts: Optional[Sequence[int]] = None,
     plain: bool = False,
+    tile_map: Optional[TileMap] = None,
 ) -> torch.Tensor:
-    """Cluster-GCN forward -> float32 logits [M, out_dim]. ``shifts``: the
-    optional per-GEMM requant shifts (2 per hidden layer + 1)."""
+    """Cluster-GCN forward -> float32 logits [M, out_dim], over a
+    ``PackedTensor`` adjacency with ``DigitTensor`` features and weights,
+    or ``BitTensor``\\ s throughout. ``shifts``: the optional per-GEMM
+    requant shifts (2 per hidden layer + 1, digit path only)."""
     sh = iter(_shifts(shifts, len(ws)))
     h = x
     for l, w in enumerate(ws):
-        h = _mm_to_digits(h, w, out_bits, next(sh), plain)
+        h = _mm_to_bits(h, w, out_bits, next(sh), plain)
         if l < len(ws) - 1:
-            h = _mm_to_digits(a, h, out_bits, next(sh), plain)
-    return _mm_to_f32(a, h, plain)
+            h = _mm_to_bits(a, h, out_bits, next(sh), plain, tile_map)
+    return _mm_to_f32(a, h, plain, tile_map)
 
 
 def qgin_forward(
-    a: PackedTensor,
-    x: DigitTensor,
-    ws: Sequence[DigitTensor],
+    a,
+    x,
+    ws: Sequence,
     out_bits: int,
     shifts: Optional[Sequence[int]] = None,
     plain: bool = False,
+    tile_map: Optional[TileMap] = None,
 ) -> torch.Tensor:
-    """Batched-GIN forward -> float32 logits [M, out_dim]."""
+    """Batched-GIN forward -> float32 logits [M, out_dim]; operands as in
+    :func:`qgcn_forward`."""
     sh = iter(_shifts(shifts, len(ws)))
-    h = _mm_to_digits(a, x, out_bits, next(sh), plain)
+    h = _mm_to_bits(a, x, out_bits, next(sh), plain, tile_map)
     for w in ws[:-1]:
-        h = _mm_to_digits(h, w, out_bits, next(sh), plain)
-        h = _mm_to_digits(a, h, out_bits, next(sh), plain)
+        h = _mm_to_bits(h, w, out_bits, next(sh), plain)
+        h = _mm_to_bits(a, h, out_bits, next(sh), plain, tile_map)
     return _mm_to_f32(h, ws[-1], plain)

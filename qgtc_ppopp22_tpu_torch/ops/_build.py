@@ -106,6 +106,10 @@ def library() -> ctypes.CDLL:
         # csrc/fused_baseline.cu.
         lib.qgtc_fused_baseline.argtypes = [p, p, p, p, p, p, i, p]
         lib.qgtc_fused_baseline.restype = i
+        # (out, a, b, kidx, kcnt, a_bits, b_bits, mp, kp, np, out_bits,
+        # tile_m, tile_k, stream); see csrc/bitmm.cu.
+        lib.qgtc_bitmm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.qgtc_bitmm.restype = i
         _lib = lib
     return _lib
 

@@ -1,14 +1,46 @@
-"""Zero-tile schedule container (counterpart of the ``TileMap`` in
-``qgtc_ppopp22_tpu/ops/bitgemm.py``).
+"""Bit-plane GEMM with the fused requantize + repack epilogue.
 
-The ``BitTensor`` GEMM of that module (``_bitmm``) is not ported yet.
+Counterpart of ``qgtc_ppopp22_tpu/ops/bitgemm.py`` (TPU kernel
+``_bitmm``): both operands are packed :class:`BitTensor`\\ s and
+
+    C = sum_{i < a_bits, j < b_bits} popc(A_i AND B_j) << (i + j)
+
+in int32 (wrapping as int32 does), then either requantized and repacked
+into ``out_bits`` bit planes (``bitmm_to_bits``, the reference's
+``bitMM2Bit``) or stored as float32 (``bitmm_to_int``, ``bitMM2Int``).
+An optional :class:`TileMap` skips the left operand's all-zero
+(tile_m x tile_k) tiles (zero-tile jumping).
+
+Dispatch: operands on the CPU run :func:`bitmm_plain`; operands on a
+CUDA device launch the one-bit tensor-core kernel of ``csrc/bitmm.cu``
+or raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
+
+from qgtc_ppopp22_tpu_torch.ops import _gemm
+from qgtc_ppopp22_tpu_torch.ops._build import check, library
+from qgtc_ppopp22_tpu_torch.ops.bitpack import (
+    ROWS_PER_WORD,
+    BitTensor,
+    pack_bits,
+    u32_to_i32,
+    unpack_bits,
+)
+from qgtc_ppopp22_tpu_torch.ops.quantize import requantize_wrapped
+
+LAUNCHES = 0  # kernel launches since the count was last reset to 0
+
+
+def flops_convention(m: int, n: int, k: int) -> int:
+    """Logical FLOPs of a bit-GEMM, reference convention: ``2*M*N*K``
+    whatever the bit widths (``QGTC_device.cu:420-422``)."""
+    return 2 * m * n * k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,3 +53,167 @@ class TileMap:
     kcnt: torch.Tensor  # int32[nm]
     tile_m: int
     tile_k: int
+
+
+def _pick_tile(total: int, candidates) -> int:
+    for c in candidates:
+        if total % c == 0:
+            return c
+    raise ValueError(f"no tile in {candidates} divides {total}")
+
+
+def lhs_tiles(a: BitTensor) -> Tuple[int, int]:
+    """(tile_m, tile_k) the GEMM uses for this left operand."""
+    _, mw, kp = a.planes.shape
+    return _pick_tile(mw, (16, 8)) * ROWS_PER_WORD, _pick_tile(kp, (512, 256))
+
+
+def build_tile_map(
+    a: BitTensor, tile_m: Optional[int] = None, tile_k: Optional[int] = None
+) -> TileMap:
+    """Occupancy map of ``a``'s (tile_m x tile_k) tiles, on ``a``'s
+    device. A tile is zero when every word of every plane inside it is
+    zero; ``kidx`` lists each row tile's occupied K tiles in order, its
+    tail repeating the last one (0 where none is occupied)."""
+    auto_m, auto_k = lhs_tiles(a)
+    tile_m = auto_m if tile_m is None else tile_m
+    tile_k = auto_k if tile_k is None else tile_k
+    bits, mw, kp = a.planes.shape
+    tmw = tile_m // ROWS_PER_WORD
+    if mw % tmw or kp % tile_k:
+        raise ValueError(f"tiles {(tile_m, tile_k)} do not divide planes {tuple(a.planes.shape)}")
+    nm, nk = mw // tmw, kp // tile_k
+    occ = (a.planes.reshape(bits, nm, tmw, nk, tile_k) != 0).any(dim=4).any(dim=2).any(dim=0)
+    kcnt = occ.sum(dim=1).to(torch.int32)
+    # A stable argsort of "not occupied" puts the occupied tiles first, in order.
+    order = torch.argsort((~occ).to(torch.int32), dim=1, stable=True)
+    t = torch.arange(nk, device=occ.device)[None, :]
+    clamp = torch.minimum(t, (kcnt.to(torch.int64) - 1).clamp(min=0)[:, None])
+    kidx = torch.gather(order, 1, clamp).to(torch.int32)
+    return TileMap(kidx=kidx, kcnt=kcnt, tile_m=tile_m, tile_k=tile_k)
+
+
+def zero_tile_stats(
+    a: BitTensor, tile_m: Optional[int] = None, tile_k: Optional[int] = None
+) -> dict:
+    """Zero-tile-jumping statistics (reference Figure 8b study):
+    ``total`` K-tile visits, ``processed`` the non-zero ones."""
+    tm = build_tile_map(a, tile_m, tile_k)
+    total = int(tm.kidx.numel())
+    processed = int(tm.kcnt.sum())
+    return {"total": total, "processed": processed, "ratio": processed / max(total, 1)}
+
+
+def _check(a: BitTensor, b: BitTensor, out_bits: Optional[int],
+           tile_map: Optional[TileMap]) -> Tuple[int, int]:
+    """The TPU kernel's shape checks (``bitgemm.py:273-296``) plus the
+    bit widths the kernel takes; returns its (tile_m, tile_k)."""
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"contraction mismatch: {a.shape} @ {b.shape}")
+    _, mw, kp = a.planes.shape
+    _, kw, np_ = b.planes.shape
+    if kp != kw * ROWS_PER_WORD:
+        raise ValueError(f"padded K mismatch: lhs {kp} vs rhs {kw * ROWS_PER_WORD}")
+    for name, bits in (("lhs bits", a.bits), ("rhs bits", b.bits), ("out_bits", out_bits)):
+        if bits is not None and not 1 <= bits <= 8:
+            raise ValueError(f"{name} must be in [1, 8], got {bits}")
+    if b.planes.device != a.planes.device:
+        raise ValueError(f"operands on {a.planes.device} and {b.planes.device}")
+    tm, tk = lhs_tiles(a)
+    _pick_tile(np_, (256, 128))
+    if tile_map is not None:
+        if (tile_map.tile_m, tile_map.tile_k) != (tm, tk):
+            raise ValueError(
+                f"tile_map built for {(tile_map.tile_m, tile_map.tile_k)}, kernel uses {(tm, tk)}"
+            )
+        nm, nk = mw * ROWS_PER_WORD // tm, kp // tk
+        if tuple(tile_map.kidx.shape) != (nm, nk) or tuple(tile_map.kcnt.shape) != (nm,):
+            raise ValueError(f"tile_map of shape {tuple(tile_map.kidx.shape)} for a {nm} x {nk} tile grid")
+        if tile_map.kidx.device != a.planes.device or tile_map.kcnt.device != a.planes.device:
+            raise ValueError(f"tile_map on {tile_map.kidx.device}, operands on {a.planes.device}")
+    return tm, tk
+
+
+def _tile_weights(tile_map: TileMap, rows: int, cols: int) -> torch.Tensor:
+    """How many times the schedule visits each element's tile: int64
+    [rows, cols]. The kernel adds a K tile once per visit; an index
+    outside the grid is skipped."""
+    kidx = tile_map.kidx.to(torch.int64)
+    nm, nk = kidx.shape
+    visit = torch.arange(nk, device=kidx.device)[None, :] < tile_map.kcnt.to(torch.int64)[:, None]
+    visit &= (kidx >= 0) & (kidx < nk)
+    counts = torch.zeros((nm, nk), dtype=torch.int64, device=kidx.device)
+    counts.scatter_add_(1, kidx.clamp(0, nk - 1), visit.to(torch.int64))
+    full = counts.repeat_interleave(tile_map.tile_m, 0).repeat_interleave(tile_map.tile_k, 1)
+    return full[:rows, :cols]
+
+
+def bitmm_plain(
+    a: BitTensor, b: BitTensor, out_bits: Optional[int], tile_map: Optional[TileMap] = None
+):
+    """Plain PyTorch version on any device: unpack both operands, the
+    exact integer product wrapped to int32, then the kernel's epilogue.
+    With a ``tile_map`` each tile of A counts as often as the map visits
+    it (once if listed, 0 if not). Returns what the matching wrapper
+    returns: a BitTensor for ``out_bits``, else float32 [M, N]."""
+    _check(a, b, out_bits, tile_map)
+    la = unpack_bits(a).to(torch.int64)
+    if tile_map is not None:
+        la = la * _tile_weights(tile_map, *la.shape)
+    acc = u32_to_i32(_gemm.plain_product(la, unpack_bits(b)) & 0xFFFFFFFF)
+    if out_bits is None:
+        return acc.to(torch.float32)
+    return pack_bits(requantize_wrapped(acc, out_bits), out_bits)
+
+
+def _launch(a: BitTensor, b: BitTensor, out_bits: Optional[int],
+            tile_map: Optional[TileMap], tm: int, tk: int) -> torch.Tensor:
+    """Run ``qgtc_bitmm``; the output is allocated here and written whole
+    by the kernel, padding included."""
+    dev = a.planes.device
+    mp, kp, np_ = a.padded_rows, a.padded_cols, b.padded_cols
+    if out_bits is None:
+        out = torch.empty((mp, np_), dtype=torch.float32, device=dev)
+    else:
+        out = torch.empty((out_bits, mp // ROWS_PER_WORD, np_), dtype=torch.int32, device=dev)
+    a_ptr = _gemm._operand(a.planes, torch.int32, "A planes")
+    b_ptr = _gemm._operand(b.planes, torch.int32, "B planes")
+    kidx = kcnt = None
+    if tile_map is not None:
+        kidx = _gemm._operand(tile_map.kidx, torch.int32, "tile_map.kidx")
+        kcnt = _gemm._operand(tile_map.kcnt, torch.int32, "tile_map.kcnt")
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.qgtc_bitmm(out.data_ptr(), a_ptr, b_ptr, kidx, kcnt, a.bits, b.bits,
+                             mp, kp, np_, out_bits or 0, tm, tk, stream)
+    check(err, "qgtc_bitmm")
+    return out
+
+
+def _bitmm(a: BitTensor, b: BitTensor, out_bits: Optional[int], tile_map: Optional[TileMap]):
+    global LAUNCHES
+    tm, tk = _check(a, b, out_bits, tile_map)
+    if not a.planes.is_cuda:
+        return bitmm_plain(a, b, out_bits, tile_map)
+    out = _launch(a, b, out_bits, tile_map, tm, tk)
+    LAUNCHES += 1
+    M, N = a.shape[0], b.shape[1]
+    if out_bits is None:
+        return out[:M, :N]
+    return BitTensor(planes=out, shape=(M, N), bits=out_bits)
+
+
+def bitmm_to_bits(
+    a: BitTensor, b: BitTensor, out_bits: int, tile_map: Optional[TileMap] = None
+) -> BitTensor:
+    """``requantize(A_levels @ B_levels, out_bits)`` packed into
+    ``out_bits`` planes (reference ``bitMM2Bit``); the output composes
+    as either operand of a following multiply."""
+    return _bitmm(a, b, out_bits, tile_map)
+
+
+def bitmm_to_int(a: BitTensor, b: BitTensor, tile_map: Optional[TileMap] = None) -> torch.Tensor:
+    """``A_levels @ B_levels`` as float32 [M, N], no requantization
+    (reference ``bitMM2Int``, the output layer)."""
+    return _bitmm(a, b, None, tile_map)

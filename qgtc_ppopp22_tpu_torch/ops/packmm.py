@@ -124,6 +124,17 @@ def pack_rows_np(q: np.ndarray, bits: int) -> np.ndarray:
     return out.view(np.int32)
 
 
+def unpack_rows_np(words: np.ndarray, bits: int) -> np.ndarray:
+    """Host-side inverse of :func:`pack_rows_np` for 1-4 bit levels:
+    int32 words [1, Mp/rpw, Kp] -> uint32 levels [Mp, Kp]."""
+    if packed_signed(bits):
+        raise ValueError(f"{bits}-bit levels pack as a byte plane, not as words")
+    f = field_width(bits)
+    g = words.view(np.uint32).reshape(-1, PACK_GROUP // (32 // f), words.shape[-1])
+    shifts = _shifts(f).astype(np.uint32)[None, :, :, :, None]
+    return ((g[:, None, :, None, :] >> shifts) & np.uint32((1 << f) - 1)).reshape(-1, words.shape[-1])
+
+
 def pack_rows(q: torch.Tensor, bits: int) -> PackedTensor:
     """Device packer: int levels (M, K) -> :class:`PackedTensor`."""
     f = field_width(bits)

@@ -4,18 +4,21 @@ Counterpart of ``qgtc_ppopp22_tpu/runtime.py::QGTCEngine`` (the
 reference's epoch machinery, ``main_qgtc.py:112-159``): iterate
 pre-packed cluster batches, move each packed batch to the device (the
 reference's ``cluster.cuda()`` boundary, ``main_qgtc.py:115``), convert
-the features to digit planes there, run the quantized GEMM chain, and
+the features to digit planes there (``fmt='digits'``) or keep them as
+bit planes (``fmt='bits'``), run the quantized GEMM chain, and
 synchronize once after all epochs.
 
 An engine runs on the ``device`` it is given (CUDA unless the caller
 asks for the CPU) and nowhere else. On a CUDA device every GEMM launches
 its kernel; on the CPU every GEMM runs its plain PyTorch version. Ported
-so far: ``fmt='digits'`` with dense GEMMs (the step engine), the mega
-engine (``run_epochs_mega``: one whole-model kernel launch per shape
-bucket, ``ops/fused_model.py``), and the full-precision
-``BaselineEngine`` (step, fused and mega modes, the last through the
-``fused_baseline`` kernel). The quantized engine's zero-tile K skip, and
-its fused (scan) and quant-in-loop modes are not.
+so far: the step engine in both formats, ``fmt='digits'`` (packmm and
+digitmm, dense K) and ``fmt='bits'`` (the bit-plane GEMM ``bitgemm`` on
+the one-bit tensor cores); the mega engine (``run_epochs_mega``, digits
+only: one whole-model kernel launch per shape bucket,
+``ops/fused_model.py``); and the full-precision ``BaselineEngine`` (step,
+fused and mega modes, the last through the ``fused_baseline`` kernel).
+The digit step engine's zero-tile K skip, and the quantized engine's
+fused (scan) and quant-in-loop modes are not.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -100,7 +103,9 @@ class QGTCEngine(_Engine):
 
     ``model``: ``'gcn'`` (update then aggregate, hidden 16 by default) or
     ``'gin'`` (aggregate then update, hidden 64), ``main_qgtc.py:127-154``.
-    Weights are drawn from ``torch.Generator().manual_seed(seed)``;
+    ``fmt``: ``'digits'`` (packed adjacency x digit planes, the step and
+    mega engines) or ``'bits'`` (bit planes throughout, the reference's
+    bit-serial form; step engine only). Weights are drawn from ``torch.Generator().manual_seed(seed)``;
     assign ``self.weights`` (e.g. from ``models.qmodels.weights_from_jax``)
     to run other weights.
     """
@@ -120,8 +125,8 @@ class QGTCEngine(_Engine):
     ):
         if model not in ("gcn", "gin"):
             raise ValueError(f"unknown model {model!r}")
-        if fmt != "digits":
-            raise NotImplementedError(f"fmt={fmt!r} is not yet ported")
+        if fmt not in ("digits", "bits"):
+            raise ValueError(f"unknown fmt {fmt!r}")
         self._set_device(device)
         if hidden is None:
             hidden = 16 if model == "gcn" else 64  # 0_7a…py:6 / 0_7b…py:6
@@ -130,15 +135,18 @@ class QGTCEngine(_Engine):
         # Tri-state, as in the JAX engine: True forces the mega kernel's
         # compacted block schedule, False forbids it, None = the auto gate
         # of run_epochs_mega. The step engine's zero-tile K skip is not
-        # ported: its entry points refuse True.
+        # ported: its entry points refuse True in either format (the JAX
+        # bits step engine passes no tile map either, runtime.py:158-163).
         self.zerotile_jump = zerotile_jump
+        self.fmt = fmt
         self.mega_buckets: List[dict] = []  # what run_epochs_mega staged
         self.cfg = QModelConfig(
             in_dim=feat_dim, hidden=hidden, out_dim=num_classes,
             bit_width=bit_width, num_layers=num_layers,
         )
         self.float_weights = init_weights(torch.Generator().manual_seed(seed), self.cfg)
-        self.weights = [w.to(self.device) for w in pack_weights(self.float_weights, bit_width)]
+        self.weights = [w.to(self.device)
+                        for w in pack_weights(self.float_weights, bit_width, fmt=fmt)]
         self._fwd = qgcn_forward if model == "gcn" else qgin_forward
 
     # -- single batch ---------------------------------------------------
@@ -147,17 +155,22 @@ class QGTCEngine(_Engine):
         if self.zerotile_jump:
             raise NotImplementedError(
                 "zerotile_jump=True in the step engine (its TileMap K skip) is "
-                "not yet ported; run_epochs_mega takes it"
+                "not yet ported; run_epochs_mega takes it with fmt='digits'"
             )
 
-    def put_batch(self, batch: ClusterBatch) -> Tuple[PackedTensor, BitTensor]:
-        """Host -> device transfer of the packed storage format."""
-        pn = batch.padded_nodes
-        a = PackedTensor(words=batch.a_words.to(self.device), shape=(pn, pn), bits=1)
+    def put_batch(self, batch: ClusterBatch) -> Tuple[Union[PackedTensor, BitTensor], BitTensor]:
+        """Host -> device transfer of the packed storage format: the
+        M-packed adjacency words (``fmt='digits'``) or its 1-bit planes
+        (``fmt='bits'``), and the feature planes."""
+        if self.fmt == "bits":
+            a = batch.bit_A.to(self.device)
+        else:
+            pn = batch.padded_nodes
+            a = PackedTensor(words=batch.a_words.to(self.device), shape=(pn, pn), bits=1)
         return a, batch.bit_X.to(self.device)
 
-    def _step(self, a: PackedTensor, bit_x: BitTensor, plain: bool = False) -> torch.Tensor:
-        x = to_digit_tensor(bit_x)
+    def _step(self, a, bit_x: BitTensor, plain: bool = False) -> torch.Tensor:
+        x = to_digit_tensor(bit_x) if self.fmt == "digits" else bit_x
         return self._fwd(a, x, self.weights, self.bit_width, plain=plain)
 
     def forward_batch(self, batch: ClusterBatch, plain: bool = False) -> torch.Tensor:
@@ -175,7 +188,11 @@ class QGTCEngine(_Engine):
 
     def warmup(self, batcher: ClusterBatcher) -> None:
         """Run one batch of every shape bucket outside the timed region
-        (on CUDA this builds and loads the kernel library)."""
+        (on CUDA this builds and loads the kernel library); with
+        ``fmt='bits'``, first pack every batch's ``bit_A`` on the host."""
+        if self.fmt == "bits":
+            for b in batcher.batches:
+                b.bit_A  # packed on first use, then kept
         seen = set()
         for b in batcher.batches:
             key = (b.padded_nodes, b.bit_X.shape[1])
@@ -235,6 +252,8 @@ class QGTCEngine(_Engine):
         from one fused_model kernel launch, or, for a bucket the kernel
         refuses, a list of the step engine's per-batch logits. Records
         each bucket's choices in ``self.mega_buckets``."""
+        if self.fmt != "digits":
+            raise ValueError("mega mode requires fmt='digits'")
         ws, dev, bw = self.weights, self.device, self.bit_width
         staged, self.mega_buckets = [], []
         for (pn, feat), idx, a_np, x_np in self._fused_groups(batcher):

@@ -50,7 +50,7 @@ def small():
     return _batchers(2)
 
 
-@pytest.mark.parametrize("bit_width,quant_bits", [(2, None), (8, None), (4, 2)])
+@pytest.mark.parametrize("bit_width,quant_bits", [(2, None), (8, None), (4, 2), (1, None)])
 def test_weights_from_jax_matches_pack_weights(bit_width, quant_bits):
     rng = np.random.default_rng(bit_width)
     fw = [rng.uniform(-1, (1 << bit_width) + 1, s).astype(np.float32) for s in [(128, 16), (16, 16), (16, 40)]]
@@ -59,8 +59,11 @@ def test_weights_from_jax_matches_pack_weights(bit_width, quant_bits):
     for p, r in zip(port, ref):
         assert p.shape == r.shape and p.bits == r.bits
         np.testing.assert_array_equal(p.digits.numpy(), np.asarray(r.digits))
-    with pytest.raises(NotImplementedError):
-        qmodels.pack_weights([torch.zeros(4, 4)], 2, fmt="bits")
+    port = qmodels.weights_from_jax(fw, bit_width, quant_bits, fmt="bits")
+    ref = jqmodels.pack_weights([jnp.asarray(w) for w in fw], bit_width, fmt="bits", quant_bits=quant_bits)
+    for p, r in zip(port, ref):
+        assert p.shape == r.shape and p.bits == r.bits
+        np.testing.assert_array_equal(p.planes.numpy().view(np.uint32), np.asarray(r.planes))
 
 
 def test_init_weights_shapes_and_range():
@@ -150,15 +153,18 @@ def test_engine_cuda_raises_without_cuda(small, monkeypatch):
 
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(zerotile_jump=True), NotImplementedError),
-    (dict(fmt="bits"), NotImplementedError),
+    (dict(fmt="bits"), ValueError),
     (dict(model="sage"), ValueError),
 ])
 def test_engine_rejects_unported_options(small, kwargs, exc):
-    # zerotile_jump=True is the mega engine's; the step engine refuses it
+    # zerotile_jump=True is the mega engine's; the step engine refuses it.
+    # fmt='bits' runs in the step engine; the mega engine refuses it.
     ds, it, _, _ = small
     with pytest.raises(exc):
-        QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, device="cpu",
-                   **kwargs).forward_batch(it.batches[0])
+        eng = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, device="cpu", **kwargs)
+        if eng.fmt == "bits":
+            eng.run_epochs_mega(it, n_epochs=1)
+        eng.forward_batch(it.batches[0])
 
 
 def test_package_never_imports_jax():

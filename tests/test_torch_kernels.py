@@ -6,7 +6,8 @@ environment variable keeps ``tests/conftest.py`` from importing it)::
 
     QGTC_TEST_BACKEND=cuda python -m pytest tests/test_torch_kernels.py -q
 
-Tolerance: exact equality, padded outputs included; for the bf16
+Tolerance: exact equality, padded outputs included (for ``bitmm``
+the output planes word for word); for the bf16
 baseline kernel exact equality on the "integer" and "rounding" cases,
 else max |kernel - plain| <= 2^-6 * max |plain| per row of logits
 (``torch_cases``).
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, synthesize
-from qgtc_ppopp22_tpu_torch.ops import digitmm, digits, fused_model, packmm
+from qgtc_ppopp22_tpu_torch.ops import bitgemm, digitmm, digits, fused_model, packmm
+from qgtc_ppopp22_tpu_torch.ops.bitpack import pack_bits, unpack_bits
 from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine, mega_block_sched
 from torch_cases import (  # tests/ is on sys.path
     BF16_REL_TOL,
@@ -273,3 +275,101 @@ def test_baseline_mega_on_card_matches_cpu(cuda, model):
     assert fused_model.BASELINE_LAUNCHES - before == len(gpu.mega_buckets)
     for b, g in zip(it.batches, got):
         assert bf16_rel_err(g.cpu().numpy(), cpu.forward_batch(b, ds).numpy()) <= BF16_REL_TOL
+
+
+# -- bitmm: BitTensor planes on the one-bit tensor cores -------------------
+
+BIT_PAIRS = [(1, 1), (1, 2), (2, 2), (3, 5), (4, 4), (8, 8), (1, 8)]
+# C1's aggregation and first update, and a ragged shape
+BIT_SHAPES = [(2560, 2560, 16), (2560, 128, 16), (300, 520, 40)]
+
+
+def _bt(q, bits, dev):
+    return pack_bits(torch.from_numpy(q).to(dev), bits)
+
+
+def _check_bits(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.bits == want.bits
+    assert torch.equal(got.planes, want.planes)
+
+
+@pytest.mark.parametrize("pair", BIT_PAIRS)
+@pytest.mark.parametrize("shape", BIT_SHAPES)
+def test_bitmm_kernel_equals_plain(cuda, pair, shape):
+    a_bits, b_bits = pair
+    m, k, n = shape
+    qa, qb = operands(a_bits * 9 + b_bits + m + n, m, k, n, a_bits, b_bits, min(b_bits, 4), 0)
+    a, b = _bt(qa, a_bits, cuda), _bt(qb, b_bits, cuda)
+    for out_bits in (1, 2, 4, 8):
+        before = bitgemm.LAUNCHES
+        got = bitgemm.bitmm_to_bits(a, b, out_bits)
+        assert bitgemm.LAUNCHES == before + 1
+        _check_bits(got, bitgemm.bitmm_plain(a, b, out_bits))
+    _check(bitgemm.bitmm_to_int(a, b), bitgemm.bitmm_plain(a, b, None))
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_bitmm_requant_edges_on_card(cuda, bits):
+    qa, qb = edge_operands(bits, 0)
+    a, b = _bt(qa, 1, cuda), _bt(qb, bits, cuda)
+    got = bitgemm.bitmm_to_bits(a, b, bits)
+    _check_bits(got, bitgemm.bitmm_plain(a, b, bits))
+    ub = 1 << bits
+    col0 = unpack_bits(got)[:, 0].cpu().numpy()
+    assert col0[ub - 1] == ub - 1 and col0[ub] == 0 and col0[ub + 1] == ub - 1
+
+
+def test_bitmm_tile_maps_on_card(cuda):
+    """Block-diagonal A with empty tiles and an empty row tile: the map
+    changes nothing. A map that omits an occupied tile: the kernel
+    computes the listed tiles only, as plain does."""
+    rng = np.random.default_rng(5)
+    qa = np.zeros((2560, 2560), np.int32)
+    for s0 in range(0, 2560, 512):
+        if s0 != 1024:  # row tile 2 stays empty: kcnt 0
+            qa[s0:s0 + 512, s0:s0 + 512] = rng.random((512, 512)) < 0.02
+    qb = rng.integers(0, 4, (2560, 16)).astype(np.int32)
+    a, b = _bt(qa, 1, cuda), _bt(qb, 2, cuda)
+    tm = bitgemm.build_tile_map(a)
+    assert tm.kcnt.tolist() == [1, 1, 0, 1, 1]
+    dense = bitgemm.bitmm_to_bits(a, b, 2)
+    _check_bits(bitgemm.bitmm_to_bits(a, b, 2, tile_map=tm), dense)
+    _check(bitgemm.bitmm_to_int(a, b, tile_map=tm), bitgemm.bitmm_to_int(a, b))
+    full = bitgemm.build_tile_map(_bt(np.ones((2560, 2560), np.int32), 1, cuda))
+    kcnt = full.kcnt.clone()
+    kcnt[0] = 2  # row tile 0 visits K tiles 0 and 1 of 5
+    hand = bitgemm.TileMap(full.kidx, kcnt, full.tile_m, full.tile_k)
+    qd = (rng.random((2560, 2560)) < 0.02).astype(np.int32)
+    d = _bt(qd, 1, cuda)
+    got = bitgemm.bitmm_to_int(d, b, tile_map=hand)
+    _check(got, bitgemm.bitmm_plain(d, b, None, hand))
+    assert not torch.equal(got, bitgemm.bitmm_to_int(d, b))
+    _check_bits(bitgemm.bitmm_to_bits(d, b, 2, tile_map=hand), bitgemm.bitmm_plain(d, b, 2, hand))
+
+
+def test_bitmm_kernel_is_repeatable_and_checks_devices(cuda):
+    qa, qb = operands(11, 2560, 2560, 16, 1, 2, 2, 0)
+    a, b = _bt(qa, 1, cuda), _bt(qb, 2, cuda)
+    first = bitgemm.bitmm_to_bits(a, b, 2)
+    for _ in range(5):
+        _check_bits(bitgemm.bitmm_to_bits(a, b, 2), first)
+    with pytest.raises(ValueError, match="operands on"):
+        bitgemm.bitmm_to_int(a, _bt(qb, 2, "cpu"))
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_bits_engine_on_card_equals_cpu_and_digits(cuda, model):
+    ds = synthesize("Proteins", scale=0.05, seed=5)
+    it = ClusterBatcher(ds, 8, 2, bit_width=2, seed=5, partition_method="bfs")
+    kw = dict(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4)
+    gpu = QGTCEngine(fmt="bits", device=cuda, **kw)
+    cpu = QGTCEngine(fmt="bits", device="cpu", **kw)
+    dig = QGTCEngine(device=cuda, **kw)
+    for b in it.batches:
+        before = bitgemm.LAUNCHES
+        got = gpu.forward_batch(b)
+        assert bitgemm.LAUNCHES - before == 6
+        assert torch.equal(got, gpu.forward_batch(b, plain=True))
+        np.testing.assert_array_equal(got.cpu().numpy(), cpu.forward_batch(b).numpy())
+        assert torch.equal(got, dig.forward_batch(b))
