@@ -30,6 +30,18 @@ Runs, and stops with a non-zero exit at the first failure:
    2^b + 1; and with a TileMap: block-diagonal A with empty tiles and a
    row tile of kcnt 0 (equal to dense), and a hand-made map that omits
    occupied tiles (equal to plain's masked product, not to dense).
+   Then the PreparedRHS kernel ``packmm_signed`` against
+   ``packmm_signed_plain``, whole outputs padding included: f32, i32,
+   digits (2/4/8 bits, shifts 0 and 2), the signed byte plane (8 bits,
+   out_cols none and N) and low-bit packed words (1/2/4 bits, out_cols N)
+   at M=700 K=300 N in {60, 120} (ragged; 120 is the last free lane),
+   Fig. 8a's (1024, 1024, 16) and (4096, 4096, 64), A at level 0 or 255
+   against B at 255, and M=256 K=32640 N=16 at 255 throughout (the
+   largest K the int32 guard accepts); and ``packmm``'s packed-words
+   epilogue: A at 1/2/4/8 bits x B at 1/2/4/8 bits to 1/2/4/8-bit packed
+   out (8: the signed plane), out_cols none and N, at C1's (2560, 2560,
+   16), ragged (300, 520, 40) and wide N 512 and 300, with f32 out_cols,
+   and an 8-bit packed output fed back as the next product's A.
 2. The main path: 2-bit 3-layer Cluster-GCN (hidden 16) on the
    full-scale synthetic ogbn-arxiv stand-in, psize 1500, batch 20, 75
    batches, through ``QGTCEngine.forward_all``; launch counts are reset
@@ -52,6 +64,13 @@ Runs, and stops with a non-zero exit at the first failure:
    launch; logits equal to the plain versions', to the digit step
    engine's and, for the first batch, to the NumPy reference; then 4
    batches of GIN (hidden 64) against the digit engine and plain.
+   Then the kernel sweep (``qgtc_ppopp22_tpu_torch.benchmarks.kernel_sweep``,
+   figures 8a, 8c, int8 and profile, each from ``default_rng(0)``):
+   counts reset before each figure; its 8-bit rows must launch
+   ``packmm_signed`` once and nothing else, its other packed rows
+   ``packmm`` once and nothing else, its int8 rows (``torch._int_mm``)
+   neither; every row's output equals plain (the 32768-row profile
+   shapes on their first 2048 rows).
 3. Timing: ms/epoch of the step engine (host clock around all epochs
    and one synchronize, resident and transfer-inclusive, twice each,
    each beside the bits step engine's),
@@ -60,7 +79,11 @@ Runs, and stops with a non-zero exit at the first failure:
    fused and mega modes beside the quantized mega engine's (twice each);
    and the device time of each kernel beside its plain version at the
    slice's shapes (torch.profiler), with ``torch._int_mm`` on the same
-   operands as the library yardstick of packmm, digitmm and bitmm.
+   operands as the library yardstick of packmm, digitmm and bitmm; K4
+   and K2's packed out at Fig. 8a's (4096, 4096, 64) beside plain,
+   bound and ``torch._int_mm``; and every sweep row's us and TFLOP/s
+   beside ``BASELINE.md``'s sm_86 figure for it, in the same profiler
+   session.
 
 Test operands come from ``tests/torch_cases.py``. Each kernel's bound
 is the larger of its bytes (inputs read once, outputs written once) over
@@ -75,6 +98,7 @@ and power limit, the second ``{"kernels": [...]}``; the last line is
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +108,26 @@ import numpy as np
 SEED = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peaks (NVIDIA's data sheet)
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
+
+
+# BASELINE.md: the reference's TFLOP/s on sm_86 (an RTX 3090) for each
+# kernel-sweep row, keyed (figure, bits, M = K, N)
+SM86 = {("profile", 1, 32768, 16): 12.359, ("profile", 1, 32768, 64): 26.431}
+for _bits, _vals in {1: (5.847, 16.605, 40.627, 11.724, 32.666, 35.032, 23.219, 37.438, 46.768),
+                     2: (3.934, 10.086, 20.764, 7.864, 19.762, 20.951, 15.429, 25.055, 26.818),
+                     4: (2.488, 6.561, 12.409, 4.456, 12.807, 13.929, 10.683, 12.328, 14.196),
+                     8: (1.541, 3.483, 6.763, 3.074, 6.816, 7.366, 5.046, 6.165, 7.324)}.items():
+    for _i, _v in enumerate(_vals):  # N outer, M = K inner
+        SM86[("8a", _bits, (1024, 2048, 4096)[_i % 3], (16, 32, 64)[_i // 3])] = _v
+for _mk, _vals in {1024: (5.831, 11.717, 23.158, 28.417, 32.089, 41.743, 37.954),
+                   2048: (16.323, 32.027, 37.444, 40.646, 44.151, 49.687, 52.970),
+                   4096: (34.425, 40.175, 46.759, 52.517, 59.508, 64.172, 66.490)}.items():
+    for _n, _v in zip((16, 32, 64, 128, 256, 512, 1024), _vals):
+        SM86[("8c", 1, _mk, _n)] = _v
+for _mk, _vals in {1024: (0.55, 3.89, 4.38), 2048: (2.58, 5.49, 6.30),
+                   4096: (3.60, 6.49, 6.65)}.items():
+    for _n, _v in zip((16, 32, 64), _vals):
+        SM86[("int8", 8, _mk, _n)] = _v
 
 
 def bound(nbytes, ops, kind):
@@ -112,11 +156,12 @@ def main() -> int:
     from types import SimpleNamespace
 
     from torch_cases import BF16_REL_TOL, baseline_case, bf16_rel_err, edge_operands, mega_case, operands
+    from qgtc_ppopp22_tpu_torch.benchmarks import kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.ops import _build, bitgemm, digitmm, fused_model, packmm
     from qgtc_ppopp22_tpu_torch.ops.bitpack import num_digits, pack_bits, unpack_bits
     from qgtc_ppopp22_tpu_torch.ops.digits import digit_levels, digit_pack, digit_unpack
-    from qgtc_ppopp22_tpu_torch.ops.packmm import pack_rows, packed_levels, unpack_rows
+    from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, pack_rows, packed_levels, prepare_rhs, unpack_rows
     from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine, mega_block_sched
     from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms
 
@@ -132,20 +177,29 @@ def main() -> int:
     _build.library()
     print(f"phase 0: built {_build.LIB_PATH.name} in {secs:.1f} s")
     entry = ""
+    corr = {"0": "", "1": ", signed A", "2": ", PreparedRHS"}
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-            entry = next((entry[entry.find(k):][:60] for k in ("gemm_kernel", "fused_model_kernel",
-                                                                  "fused_baseline_kernel", "bitmm_kernel")
-                          if k in entry), entry[-60:])
+            t = re.search(r"gemm_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ENS_\d+([A-Za-z0-9]+?)(?:ILi(\d)E)?E", entry)
+            if t:  # the digitmm, packmm and packmm_signed instances
+                entry = (f"gemm_kernel<{t[1]}x{t[2]} planes{corr[t[3]]}, "
+                         f"{'256-row packed out' if t[4] == '1' else '64-row'}> {t[5]}"
+                         + (f"<{t[6]}>" if t[6] else ""))
+            else:
+                entry = next((entry[entry.find(k):][:60] for k in ("fused_model_kernel",
+                                                                      "fused_baseline_kernel",
+                                                                      "bitmm_kernel")
+                              if k in entry), entry[-60:])
         elif "Used" in line:
             print(f"  ptxas: {entry}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
             print(f"  ptxas: {entry}: {line.strip()}")
 
     # -- phase 1: kernel vs plain --------------------------------------
-    err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0, "bitmm": 0.0}
-    ncase = {"packmm": 0, "digitmm": 0, "fused_model": 0, "fused_baseline": 0, "bitmm": 0}
+    err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0, "bitmm": 0.0,
+           "packmm_signed": 0.0, "int_mm": 0.0}
+    ncase = dict.fromkeys(err, 0)
     worst_rel = 0.0  # fused_baseline, random cases: the worst row's relative error
 
     def compare(kind, got, want, what):
@@ -154,14 +208,21 @@ def main() -> int:
                 raise AssertionError(f"{what}: container shapes differ")
             diff = (unpack_bits(got).long() - unpack_bits(want).long()).abs().max().item()
             same = torch.equal(got.planes, want.planes)
+        elif hasattr(got, "words"):
+            if got.shape != want.shape or got.bits != want.bits or got.words.shape != want.words.shape \
+                    or got.words.dtype != want.words.dtype:
+                raise AssertionError(f"{what}: container shapes differ")
+            diff = (packed_levels(got) - packed_levels(want)).abs().max().item()
+            same = torch.equal(got.words, want.words)
         elif hasattr(got, "digits"):
             if got.shape != want.shape or got.digits.shape != want.digits.shape:
                 raise AssertionError(f"{what}: container shapes differ")
             diff = (digit_levels(got) - digit_levels(want)).abs().max().item()
             same = torch.equal(got.digits, want.digits)
         else:
-            if got.shape != want.shape:
-                raise AssertionError(f"{what}: {tuple(got.shape)} vs {tuple(want.shape)}")
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                                     f"{tuple(want.shape)} {want.dtype}")
             diff = (got.double() - want.double()).abs().max().item()
             same = torch.equal(got, want)
         torch.cuda.synchronize()
@@ -288,6 +349,63 @@ def main() -> int:
     check_bits(ad, hb, "hand-made map", outs=(2, None), tile_map=hand)
     if torch.equal(bitgemm.bitmm_to_int(ad, hb, tile_map=hand), bitgemm.bitmm_to_int(ad, hb)):
         raise AssertionError("bitmm: a map that omits occupied tiles gave the dense product")
+    # K4: the PreparedRHS kernel against packmm_signed_plain, whole outputs
+    def check_signed(qa, qb, tag):
+        a = pack_rows(torch.from_numpy(qa).to(dev), 8)
+        bp = prepare_rhs(digit_pack(torch.from_numpy(qb).to(dev), 8))
+        n = qb.shape[1]
+        forms = [(None, "f32", 0, False, None), (None, "f32", 0, True, None)]
+        forms += [(ob, "digits", sh, False, None) for ob in (2, 4, 8) for sh in (0, 2)]
+        forms += [(8, "packed", 0, False, oc) for oc in (None, n)]
+        forms += [(ob, "packed", 0, False, n) for ob in (1, 2, 4)]
+        for ob, form, sh, raw, oc in forms:
+            if ob is None:
+                got = packmm.packmm_to_i32(a, bp) if raw else packmm.packmm_to_f32(a, bp)
+            elif form == "digits":
+                got = packmm.packmm_to_digits(a, bp, ob, shift=sh)
+            else:
+                got = packmm.packmm_to_packed(a, bp, ob, shift=sh, out_cols=oc)
+            compare("packmm_signed", got, packmm.packmm_signed_plain(a, bp, ob, form, sh, raw, oc),
+                    f"packmm_signed {tag} out_bits={ob} {form} shift={sh} i32={raw} out_cols={oc}")
+
+    before = packmm.SIGNED_LAUNCHES
+    for (M, K, N) in ((700, 300, 60), (700, 300, 120), (1024, 1024, 16), (4096, 4096, 64)):
+        check_signed(*operands(SEED + M + N, M, K, N, 8, 8, 8, 0), f"M={M} K={K} N={N}")
+    full = np.full((300, 60), 255, np.int32)
+    check_signed(np.zeros((700, 300), np.int32), full, "A at level 0, B at 255")
+    check_signed(np.full((700, 300), 255, np.int32), full, "A and B at 255")
+    check_signed(np.full((256, 32640), 255, np.int32), np.full((32640, 16), 255, np.int32),
+                 "K=32640 (largest the guard accepts), A and B at 255")
+    if packmm.SIGNED_LAUNCHES - before != ncase["packmm_signed"]:
+        raise AssertionError("packmm_signed: a case did not launch the kernel")
+    # K2's packed-words epilogue: bit in, bit out, against plain
+    for a_bits in (1, 2, 4, 8):
+        for b_bits in (1, 2, 4, 8):
+            for (M, K, N) in ((2560, 2560, 16), (300, 520, 40), (512, 512, 512), (512, 512, 300)):
+                qa, qb = operands(SEED + 9 * a_bits + b_bits + M + N, M, K, N, a_bits, b_bits,
+                                  min(b_bits, 4), 0)
+                a = pack_rows(torch.from_numpy(qa).to(dev), a_bits)
+                b = digit_pack(torch.from_numpy(qb).to(dev), b_bits)
+                tag = f"{a_bits}-bit A x {b_bits}-bit B M={M} K={K} N={N}"
+                for ob in (1, 2, 4, 8):
+                    for oc in (None, N):
+                        compare("packmm", packmm.packmm_to_packed(a, b, ob, out_cols=oc),
+                                packmm.packmm_plain(a, b, ob, out_form="packed", out_cols=oc),
+                                f"packmm_to_packed {tag} out_bits={ob} out_cols={oc}")
+                compare("packmm", packmm.packmm_to_f32(a, b, out_cols=N),
+                        packmm.packmm_plain(a, b, out_form="f32", out_cols=N),
+                        f"packmm_to_f32 {tag} out_cols={N}")
+    # the chain: an 8-bit packed (signed plane) output fed back as A
+    rng = np.random.default_rng(SEED)
+    qx, qw = rng.integers(0, 256, (200, 256)), rng.integers(0, 256, (256, 60))
+    qw2 = rng.integers(0, 256, (64, 40))
+    x = pack_rows(torch.from_numpy(qx).to(dev), 8)
+    w, w2 = (digit_pack(torch.from_numpy(q).to(dev), 8) for q in (qw, qw2))
+    xw = packmm.packmm_to_packed(x, w, 8)
+    compare("packmm", xw, packmm.packmm_plain(x, w, 8, out_form="packed"), "chain: packed 8-bit out")
+    xw2 = PackedTensor(words=xw.words, shape=(200, 64), bits=8)
+    compare("packmm", packmm.packmm_to_f32(xw2, w2), packmm.packmm_plain(xw2, w2),
+            "chain: the packed output as the next A")
     print(f"phase 1: kernel == plain exactly in {ncase} cases (fused_baseline: the integer "
           f"and rounding ones; worst row's relative error of its random ones {worst_rel:.3e}) "
           f"({time.perf_counter() - t0:.1f} s); max abs err {err}")
@@ -477,6 +595,40 @@ def main() -> int:
           f"the step baseline (worst row's relative error {gin_rel:.3e}); "
           f"{fused_model.BASELINE_LAUNCHES} fused_baseline launch(es)")
 
+    # the kernel sweep: each figure's rows through the port's own
+    # functions, counts reset before each figure
+    t0 = time.perf_counter()
+    sweep, sweep_launches = {}, {"packmm": 0, "packmm_signed": 0}
+    for fig in kernel_sweep.FIGURES:
+        cases = kernel_sweep.figure_cases(fig, np.random.default_rng(0), dev)
+        packmm.LAUNCHES = packmm.SIGNED_LAUNCHES = digitmm.LAUNCHES = bitgemm.LAUNCHES = 0
+        for c in cases:
+            before = (packmm.LAUNCHES, packmm.SIGNED_LAUNCHES)
+            out = c.run()
+            got = (packmm.LAUNCHES - before[0], packmm.SIGNED_LAUNCHES - before[1])
+            want = (0, 0) if c.int8 else (0, 1) if c.bits == 8 else (1, 0)
+            if got != want:
+                raise AssertionError(f"sweep {fig} {c.row(1.0)}: (packmm, packmm_signed) launches "
+                                     f"{got}, want {want}")
+            what = f"sweep {fig} bits={c.bits} M={c.M} K={c.K} N={c.N}"
+            if c.M > 4096:  # the profile shapes: the first 2048 rows, whole 256-row groups
+                want_out = c.plain(2048)
+                out = PackedTensor(words=out.words[:, :want_out.words.shape[1]], shape=want_out.shape,
+                                   bits=out.bits)
+                compare("packmm", out, want_out, f"{what} (first 2048 rows)")
+            else:
+                compare("int_mm" if c.int8 else "packmm_signed" if c.bits == 8 else "packmm", out,
+                        c.plain(), what)
+        if digitmm.LAUNCHES or bitgemm.LAUNCHES:
+            raise AssertionError(f"sweep {fig}: digitmm / bitmm launched")
+        sweep[fig] = cases
+        sweep_launches["packmm"] += packmm.LAUNCHES
+        sweep_launches["packmm_signed"] += packmm.SIGNED_LAUNCHES
+        print(f"phase 2: kernel sweep figure {fig}: {len(cases)} rows == plain; launches packmm "
+              f"{packmm.LAUNCHES}, packmm_signed {packmm.SIGNED_LAUNCHES}")
+    print(f"phase 2: kernel sweep {sum(map(len, sweep.values()))} rows, launches {sweep_launches} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
     # -- phase 3: timing ------------------------------------------------
     print(f"phase 3 starts {time.perf_counter() - start:.0f} s into the run")
     for rep in range(2):
@@ -568,12 +720,23 @@ def main() -> int:
         staged_b = [stepper.put_batch(b) for b in batcher.batches]
         timed.append(("step epoch", f"one resident step epoch, {what}, all its kernels",
                       lambda st=stepper, sb=staged_b: [st._step(*t) for t in sb], None))
+    # the kernel sweep's K4 and K2 packed-out rows at Fig. 8a's largest shape
+    k4c = next(c for c in sweep["8a"] if (c.bits, c.M, c.N) == (8, 4096, 64))
+    k2c = next(c for c in sweep["8a"] if (c.bits, c.M, c.N) == (1, 4096, 64))
+    timed.append(("packmm_signed", "packmm_to_packed 8-bit A[4096x4096] x PreparedRHS[4096x64] "
+                  "to the signed plane, out_cols=64", k4c.run, k4c.plain))
+    timed.append(("packmm packed", "packmm_to_packed 1-bit A[4096x4096] x B[4096x64] to 1-bit words",
+                  k2c.run, k2c.plain))
     # the library yardstick of packmm and digitmm: cuBLAS int8 on the
     # unpacked levels at the same shapes (the port never calls it)
     lib_ops = {"packmm": (unpack_rows(a).to(torch.int8), digit_unpack(h16).to(torch.int8)),
                "digitmm": (digit_unpack(x).to(torch.int8), digit_unpack(w1).to(torch.int8)),
                "bitmm": (unpack_bits(ab).to(torch.int8), unpack_bits(hb16).to(torch.int8)),
-               "bitmm update": (unpack_bits(xb).to(torch.int8), unpack_bits(wb1).to(torch.int8))}
+               "bitmm update": (unpack_bits(xb).to(torch.int8), unpack_bits(wb1).to(torch.int8)),
+               # K4: the signed plane's N real columns (the ones lane and
+               # the padding are the TPU layout's, not the product's)
+               "packmm_signed": (k4c.a.words[0], k4c.b.plane[:, :k4c.N].contiguous()),
+               "packmm packed": (unpack_rows(k2c.a).to(torch.int8), digit_unpack(k2c.b).to(torch.int8))}
     # device time per call from one profiler session, in turns:
     # plain, kernel, kernel, plain
     fns = {}
@@ -584,11 +747,15 @@ def main() -> int:
     for kind, (la, lb) in lib_ops.items():
         for rep in (0, 1):
             fns[(kind, "library", rep)] = lambda la=la, lb=lb: torch._int_mm(la, lb)
+    # every kernel-sweep row, in the same session
+    for fig, cases in sweep.items():
+        for i, c in enumerate(cases):
+            fns[("sweep", fig, i)] = c.run
     # plain versions and step epochs run thousands of small ops per call,
     # and a session that holds too many records can lose some: one call each
     many = {i for i, t in enumerate(timed) if t[0] == "step epoch"}
-    dt = device_times_ms(fns, iters={k: 1 if k[1] == "plain" or k[0] in many else 5 for k in fns},
-                         warmup=1)
+    dt = device_times_ms(fns, iters={k: 1 if k[1] == "plain" or k[0] in many else
+                                     10 if k[0] == "sweep" else 5 for k in fns}, warmup=1)
     times = {}
     for i, (kind, what, _, plain) in enumerate(timed):
         k_ms = min(dt[(i, "kernel", 0)], dt[(i, "kernel", 1)])
@@ -602,6 +769,11 @@ def main() -> int:
     lib_ms = {kind: min(dt[(kind, "library", 0)], dt[(kind, "library", 1)]) for kind in lib_ops}
     print(f"phase 3: torch._int_mm on the unpacked int8 operands (library yardstick): "
           + ", ".join(f"{k} shape {lib_ms[k] * 1e3:.1f} us" for k in lib_ms) + f" [{card}]")
+    for fig, cases in sweep.items():
+        for i, c in enumerate(cases):
+            r = c.row(dt[("sweep", fig, i)])
+            print(f"phase 3: sweep {fig} bits={r['bits']} M=K={r['M']} N={r['N']}: {r['us']} us, "
+                  f"{r['tflops']} TFLOP/s [{card}]; sm_86 {SM86[(fig, c.bits, c.M, c.N)]} TFLOP/s")
 
     # bounds at the timed shapes: inputs read once, outputs written once
     def nbytes(*ts):
@@ -625,6 +797,14 @@ def main() -> int:
               f"on the padded shapes the kernel computes")
         return bound(nbytes(lhs.planes, rhs.planes, out.planes), ops, "int8")
 
+    # K4 and K2 packed out: 2 M N K int8 operations on the logical shapes;
+    # of B only the N real columns (and of K4's corr its N entries), since
+    # the padding and the ones lane are layout, not work of the function
+    k4_out, k2_out = k4c.run(), k2c.run()
+    bounds["packmm_signed"] = bound(nbytes(k4c.a.words, k4c.b.plane[:, :k4c.N], k4c.b.corr[0, :k4c.N],
+                                           k4_out.words), 2 * k4c.M * k4c.N * k4c.K, "int8")
+    bounds["packmm packed"] = bound(nbytes(k2c.a.words, k2c.b.digits[:, :, :k2c.N], k2_out.words),
+                                    2 * k2c.M * k2c.N * k2c.K, "int8")
     bounds["bitmm"] = bit_bound(ab, hb16, "bitmm A[2560x2560] x H[2560x16]")
     bounds["bitmm update"] = bit_bound(xb, wb1, "bitmm X[2560x128] x W[128x16]")
     # K1: the aggregations count only the blocks its schedule lists
@@ -645,7 +825,9 @@ def main() -> int:
                                for w in bws)
     bounds["fused_baseline"] = bound(nbytes(ba, bx, *bws, bfn()), k5_ops, "bf16")
     for k, (b_ms, by) in bounds.items():
-        print(f"phase 3: {k} bound {b_ms * 1e3:.2f} us ({by}); kernel {times[k][0] * 1e3:.1f} us")
+        lib = f", library {lib_ms[k] * 1e3:.1f} us" if k in lib_ms else ""
+        print(f"phase 3: {k} bound {b_ms * 1e3:.2f} us ({by}); kernel {times[k][0] * 1e3:.1f} us, "
+              f"plain {times[k][1] * 1e3:.1f} us{lib} [{card}]")
 
     sources = {"packmm": ("packmm.cu", "qgtc_ppopp22_tpu/ops/packmm.py:664", launches),
                "digitmm": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", launches),
@@ -653,7 +835,9 @@ def main() -> int:
                                mega_launches),
                "fused_baseline": ("fused_baseline.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:1299",
                                   base_launches),
-               "bitmm": ("bitmm.cu", "qgtc_ppopp22_tpu/ops/bitgemm.py:266", bits_launches)}
+               "bitmm": ("bitmm.cu", "qgtc_ppopp22_tpu/ops/bitgemm.py:266", bits_launches),
+               "packmm_signed": ("packmm_signed.cu", "qgtc_ppopp22_tpu/ops/packmm.py:473",
+                                 sweep_launches)}
     kernels = [
         {"name": k, "route": "cuda", "source": f"qgtc_ppopp22_tpu_torch/csrc/{src}",
          "replaces": rep_, "launches": counts[k], "max_abs_err": err[k], "ms": times[k][0],

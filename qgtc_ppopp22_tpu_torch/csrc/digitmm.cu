@@ -17,18 +17,24 @@
 
 using namespace qgtc;
 
-// a: int8[nd_a][mp][kp], b: int8[nd_b][kp][np]; see gemm_core.cuh.
+// a: int8[nd_a][mp][kp], b: int8[nd_b][kp][np]; f32 / i32 out stores ocp
+// columns; see gemm_core.cuh. Packed words out is packmm's alone.
 extern "C" int qgtc_digitmm(void* out, const void* a, const void* b, int nd_a,
                             int nd_b, int mp, int kp, int np, int out_kind,
-                            int out_bits, int shift, void* stream) {
-  if (!shapes_ok(mp, kp, np, out_kind, out_bits, shift))
+                            int out_bits, int shift, int ocp, void* stream) {
+  if (!shapes_ok(mp, kp, np, out_kind, out_bits, shift, ocp) ||
+      out_kind == OUT_PACKED)
     return (int)cudaErrorInvalidValue;
-  const Epilogue ep{out, mp, np, out_kind, out_bits, shift};
+  const Epilogue ep{out, mp, np, out_kind, out_bits, shift, ocp, np, nullptr};
   const Int8Loader la{static_cast<const int8_t*>(a), mp, kp};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nd_a == 1 && nd_b == 1) return launch<1, 1, false>(la, b, mp, kp, np, ep, s);
-  if (nd_a == 1 && nd_b == 2) return launch<1, 2, false>(la, b, mp, kp, np, ep, s);
-  if (nd_a == 2 && nd_b == 1) return launch<2, 1, false>(la, b, mp, kp, np, ep, s);
-  if (nd_a == 2 && nd_b == 2) return launch<2, 2, false>(la, b, mp, kp, np, ep, s);
+  if (nd_a == 1 && nd_b == 1)
+    return launch_tiles<1, 1, CORR_NONE, false>(la, b, mp, kp, np, ep, s);
+  if (nd_a == 1 && nd_b == 2)
+    return launch_tiles<1, 2, CORR_NONE, false>(la, b, mp, kp, np, ep, s);
+  if (nd_a == 2 && nd_b == 1)
+    return launch_tiles<2, 1, CORR_NONE, false>(la, b, mp, kp, np, ep, s);
+  if (nd_a == 2 && nd_b == 2)
+    return launch_tiles<2, 2, CORR_NONE, false>(la, b, mp, kp, np, ep, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,24 +1,41 @@
-// Integer tile-GEMM core shared by the digitmm and packmm kernels.
+// Integer tile-GEMM core shared by the digitmm, packmm and packmm_signed
+// kernels.
 //
-// C = sum_{d<ND_A, e<ND_B} dot(A_d, B_e) << 4*(d+e), exact in int32,
-// followed by one fused epilogue: requantize to base-16 digit planes, or
-// store the raw sum as float32 / int32. The two kernels differ only in
-// how an A tile reaches shared memory (the ALoader template argument).
+// C = sum_{d<ND_A, e<ND_B} dot(A_d, B_e) << 4*(d+e), exact in int32, plus
+// an optional offset correction (CORR), followed by one fused epilogue:
+// requantize to base-16 digit planes, to M-packed words or to the
+// offset-signed byte plane, or store the raw sum as float32 / int32. The
+// kernels differ only in how an A tile reaches shared memory (the ALoader
+// template argument) and in the correction.
 //
 // Shape contract (checked by the C entry points and the Python wrappers):
 //   A: rows mp, contraction kp; B: int8[ND_B][kp][np] digit planes;
-//   mp % BM == 0, np % BN == 0, kp % BK == 0; every padded row and column
-//   of A and B holds level 0, so the padded outputs come out as 0.
-// Output: digits int8[nd_o][mp][np], or f32 / i32 [mp][np]. The kernel
-// writes every element, padding included.
+//   mp % BM == 0, np % BN == 0, kp % BK == 0 (mp % 256 == 0 for packed
+//   words out); every padded row and column of A and B holds level 0, so
+//   the padded outputs come out as 0.
+// Output (the kernel writes every element, padding included):
+//   OUT_DIGITS  int8[nd_o][mp][np];
+//   OUT_F32 / OUT_I32  [mp][ocp];
+//   OUT_PACKED  int8[1][mp][ocp] of level - 128 for 5-8 bit out, else
+//               int32 words [1][mp / (32 / f)][ocp] of f-bit fields
+//               (f = 1, 2 or 4; layout below).
+// ocp (a multiple of 8, at most np) is the stored width of the terminal
+// forms; columns >= mask_n are stored as level 0 (sum 0).
 //
-// Design: a CTA of 4 warps owns one BM x BN output tile and loops over
-// the whole contraction itself (nothing carries across CTAs). Per BK
-// step it stages the A and B tiles in shared memory, B transposed to
-// [n][k] so that both mma.sync fragments are plain 32-bit loads, and
-// runs int8 mma.sync.m16n8k32 with one int32 accumulator set per digit
-// shift 4*(d+e). This is the simple, single-stage form; cp.async/TMA
-// rings and wgmma are later work.
+// Design: a CTA owns ROWS x BN outputs, ROWS = 64 (4 warps) or, for packed
+// words, one whole 256-row group (16 warps), and loops over the whole
+// contraction itself (nothing carries across CTAs). Per BK step it stages
+// the A and B tiles in shared memory, B transposed to [n][k] so that both
+// mma.sync fragments are plain 32-bit loads, and runs int8
+// mma.sync.m16n8k32 with one int32 accumulator set per digit shift
+// 4*(d+e); each warp owns a 32 x 32 tile. This is the simple, single-stage
+// form; cp.async/TMA rings and wgmma are later work.
+//
+// Packed words: within each 256-row group, row q*4*gw + 4*i + k of the
+// output sits in bits [8k + f*q, 8k + f*(q+1)) of word row i, gw = 8 * f
+// word rows per group. One word gathers rows from the whole group, so a
+// CTA owns the group: it requantizes its accumulators into a byte tile in
+// shared memory and then builds whole words from it.
 #pragma once
 
 #include <cstdint>
@@ -26,23 +43,45 @@
 
 namespace qgtc {
 
-constexpr int BM = 64;        // output rows per CTA
+constexpr int BM = 64;        // output rows per CTA (digits, f32, i32,
+                              // signed byte plane)
 constexpr int BN = 64;        // output columns per CTA
 constexpr int BK = 64;        // contraction depth per shared-memory stage
 constexpr int LDS = BK + 16;  // smem row stride in bytes (20 words: the
                               // 8 rows x 4 words of a fragment load fall
                               // in 32 distinct banks)
 constexpr int THREADS = 128;  // 4 warps as 2 x 2, each a 32 x 32 tile
+constexpr int GROUP = 256;    // rows per packing group (ops/packmm.py)
 
-enum OutKind { OUT_DIGITS = 0, OUT_F32 = 1, OUT_I32 = 2 };
+enum OutKind { OUT_DIGITS = 0, OUT_F32 = 1, OUT_I32 = 2, OUT_PACKED = 3 };
+
+// The offset correction added to every sum.
+enum Corr {
+  CORR_NONE = 0,
+  // A holds offset-signed bytes (level - 128): + 128 * colsum(B levels)
+  // over the whole contraction (padded A columns hold level 0 and cancel
+  // against it).
+  CORR_COLSUM = 1,
+  // A and B both offset-signed (a PreparedRHS plane): + 128 * rowsum(A)
+  // + corr[n], corr = 128 * colsum(plane) + 128^2 * kp.
+  CORR_PREPARED = 2,
+};
 
 struct Epilogue {
   void* out;
   int mp, np;
-  int kind;      // OutKind
-  int out_bits;  // OUT_DIGITS only
-  int shift;     // OUT_DIGITS only: arithmetic >> before the clamp
+  int kind;         // OutKind
+  int out_bits;     // OUT_DIGITS, OUT_PACKED
+  int shift;        // OUT_DIGITS, OUT_PACKED: arithmetic >> before the clamp
+  int ocp;          // stored columns of OUT_F32 / OUT_I32 / OUT_PACKED
+  int mask_n;       // columns >= mask_n are stored as level 0
+  const int* corr;  // CORR_PREPARED: int32 [np] (row 0 of corr[8][np])
 };
+
+// True when the output is M-packed words (one CTA per 256-row group).
+__host__ __device__ inline bool group_out(int kind, int out_bits) {
+  return kind == OUT_PACKED && out_bits <= 4;
+}
 
 // Plain int8 rows, [ND][mp][kp]: digit planes, or the one offset-signed
 // byte plane of a 5-8 bit packed A.
@@ -50,11 +89,11 @@ struct Int8Loader {
   const int8_t* __restrict__ a;
   int mp, kp;
 
-  template <int ND>
-  __device__ __forceinline__ void load(int8_t (*As)[BM][LDS], int m0, int k0,
+  template <int ND, int ROWS>
+  __device__ __forceinline__ void load(int8_t (*As)[ROWS][LDS], int m0, int k0,
                                        int tid) const {
     constexpr int CH = BK / 16;  // 16-byte chunks per row
-    for (int c = tid; c < BM * CH; c += THREADS) {
+    for (int c = tid; c < ROWS * CH; c += 2 * ROWS) {
       const int r = c / CH, kc = (c % CH) * 16;
 #pragma unroll
       for (int d = 0; d < ND; ++d) {
@@ -66,23 +105,21 @@ struct Int8Loader {
   }
 };
 
-// M-packed A (ops/packmm.py layout): within each 256-row group, logical
-// row q*4*gw + 4*i + k sits in bits [8k + F*q, 8k + F*(q+1)) of word row i,
-// gw = 8 * F word rows per group. Decodes int32 words [mp / (32 / F)][kp]
-// of F-bit fields into the int8 A tile.
+// M-packed A (ops/packmm.py layout, above): decodes int32 words
+// [mp / (32 / F)][kp] of F-bit fields into the int8 A tile.
 template <int F>
 struct PackedLoader {
   const int32_t* __restrict__ w;
   int kp;
 
-  template <int ND>
-  __device__ __forceinline__ void load(int8_t (*As)[BM][LDS], int m0, int k0,
+  template <int ND, int ROWS>
+  __device__ __forceinline__ void load(int8_t (*As)[ROWS][LDS], int m0, int k0,
                                        int tid) const {
     static_assert(ND == 1, "packed A holds one digit plane");
     constexpr int GW = 8 * F;  // word rows per 256-row group
     constexpr uint32_t MASK = (1u << F) - 1;
     constexpr int CH = BK / 4;  // chunks of 4 columns (one int4 of words)
-    for (int c = tid; c < BM * CH; c += THREADS) {
+    for (int c = tid; c < ROWS * CH; c += 2 * ROWS) {
       const int r = c / CH, kc = (c % CH) * 4;
       const int m = m0 + r;
       const int rr = m & 255;
@@ -100,12 +137,12 @@ struct PackedLoader {
   }
 };
 
-template <int ND_B>
+template <int ND_B, int NT = THREADS>
 __device__ __forceinline__ void load_b(int8_t (*Bs)[BN][LDS],
                                        const int8_t* __restrict__ b, int kp,
                                        int np, int k0, int n0, int tid) {
   constexpr int CH = BN / 16;
-  for (int c = tid; c < BK * CH; c += THREADS) {
+  for (int c = tid; c < BK * CH; c += NT) {
     const int k = c / CH, nc = (c % CH) * 16;
 #pragma unroll
     for (int e = 0; e < ND_B; ++e) {
@@ -157,38 +194,52 @@ __device__ __forceinline__ void store_digits(int8_t* o, size_t plane,
   }
 }
 
+// Store two adjacent (masked) sums at (row, col): every kind but packed
+// words. col is even and ocp a multiple of 8, so a pair is stored whole or
+// not at all.
 __device__ __forceinline__ void store_pair(const Epilogue& ep, int row,
                                            int col, int v0, int v1) {
-  const size_t idx = (size_t)row * ep.np + col;
+  if (ep.kind == OUT_DIGITS) {
+    store_digits(static_cast<int8_t*>(ep.out), (size_t)ep.mp * ep.np,
+                 (size_t)row * ep.np + col, (ep.out_bits + 3) / 4,
+                 ep.out_bits, ep.shift, v0, v1);
+    return;
+  }
+  if (col >= ep.ocp) return;
+  const size_t idx = (size_t)row * ep.ocp + col;
   if (ep.kind == OUT_F32) {
     *reinterpret_cast<float2*>(static_cast<float*>(ep.out) + idx) =
         make_float2((float)v0, (float)v1);
   } else if (ep.kind == OUT_I32) {
     *reinterpret_cast<int2*>(static_cast<int*>(ep.out) + idx) =
         make_int2(v0, v1);
-  } else {
-    store_digits(static_cast<int8_t*>(ep.out), (size_t)ep.mp * ep.np, idx,
-                 (ep.out_bits + 3) / 4, ep.out_bits, ep.shift, v0, v1);
+  } else {  // OUT_PACKED, 5-8 bits: the offset-signed byte plane
+    char2 c;
+    c.x = (char)(requant(v0, ep.out_bits, ep.shift) - 128);
+    c.y = (char)(requant(v1, ep.out_bits, ep.shift) - 128);
+    *reinterpret_cast<char2*>(static_cast<int8_t*>(ep.out) + idx) = c;
   }
 }
 
-// A_SIGNED: A holds offset-signed bytes (level - 128); the epilogue adds
-// the exact rank-1 correction 128 * colsum(B levels) over the whole
-// contraction (padded A columns hold level 0 and cancel against it).
-template <int ND_A, int ND_B, bool A_SIGNED, class ALoader>
-__global__ void __launch_bounds__(THREADS)
+// PACK: the CTA owns one 256-row group and writes packed words; otherwise
+// a 64-row tile stored pair by pair.
+template <int ND_A, int ND_B, int CORR, bool PACK, class ALoader>
+__global__ void __launch_bounds__(PACK ? 2 * GROUP : THREADS)
     gemm_kernel(ALoader la, const int8_t* __restrict__ b, int kp,
                 Epilogue ep) {
-  __shared__ __align__(16) int8_t As[ND_A][BM][LDS];
+  constexpr int ROWS = PACK ? GROUP : BM;
+  constexpr int NT = 2 * ROWS;  // 4 warps per 64 rows
+  __shared__ __align__(16) int8_t As[ND_A][ROWS][LDS];
   __shared__ __align__(16) int8_t Bs[ND_B][BN][LDS];  // [n][k]
-  __shared__ int colsum[BN];
+  __shared__ int colsum[CORR == CORR_COLSUM ? BN : 1];
+  __shared__ int rowsum[CORR == CORR_PREPARED ? ROWS : 1];
 
   constexpr int NS = ND_A + ND_B - 1;  // distinct digit shifts
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;  // mma groupID / thread-in-group
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * ROWS, n0 = blockIdx.x * BN;
 
   int acc[NS][2][4][4];
 #pragma unroll
@@ -199,16 +250,21 @@ __global__ void __launch_bounds__(THREADS)
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[s][mt][nt][i] = 0;
-  int cs = 0;
+  int cs = 0;  // CORR_COLSUM: column tid's B sum; CORR_PREPARED: row tid's A sum
 
   for (int k0 = 0; k0 < kp; k0 += BK) {
-    la.template load<ND_A>(As, m0, k0, tid);
-    load_b<ND_B>(Bs, b, kp, ep.np, k0, n0, tid);
+    la.template load<ND_A, ROWS>(As, m0, k0, tid);
+    load_b<ND_B, NT>(Bs, b, kp, ep.np, k0, n0, tid);
     __syncthreads();
-    if (A_SIGNED && tid < BN) {
+    if (CORR == CORR_COLSUM && tid < BN) {
 #pragma unroll
       for (int e = 0; e < ND_B; ++e)
         for (int k = 0; k < BK; ++k) cs += (int)Bs[e][tid][k] << (4 * e);
+    }
+    if (CORR == CORR_PREPARED && tid < ROWS) {
+      const int* row = reinterpret_cast<const int*>(&As[0][tid][0]);
+#pragma unroll
+      for (int w = 0; w < BK / 4; ++w) cs = __dp4a(row[w], 0x01010101, cs);
     }
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 32) {
@@ -244,50 +300,102 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
   }
-  if (A_SIGNED) {
+  if (CORR == CORR_COLSUM) {
     if (tid < BN) colsum[tid] = cs;
     __syncthreads();
   }
+  if (CORR == CORR_PREPARED) {
+    if (tid < ROWS) rowsum[tid] = cs;
+    __syncthreads();
+  }
 
+  // PACK: requantized levels [ROWS][BN], in the A tile's shared memory
+  // (free after the last __syncthreads of the K loop)
+  uint8_t* stage = reinterpret_cast<uint8_t*>(&As[0][0][0]);
+  static_assert(!PACK || sizeof(As) >= GROUP * BN, "stage fits in As");
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+        const int row = wm + mt * 16 + g + 8 * h;
         const int col = wn + nt * 8 + t4 * 2;
-        uint32_t v[2];
+        int v[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           uint32_t s = 0;  // unsigned: the shifted sum wraps like int32
 #pragma unroll
           for (int si = 0; si < NS; ++si)
             s += (uint32_t)acc[si][mt][nt][2 * h + j] << (4 * si);
-          if (A_SIGNED) s += (uint32_t)colsum[col + j] << 7;
-          v[j] = s;
+          if (CORR == CORR_COLSUM) s += (uint32_t)colsum[col + j] << 7;
+          if (CORR == CORR_PREPARED)
+            s += ((uint32_t)rowsum[row] << 7) + (uint32_t)ep.corr[n0 + col + j];
+          v[j] = n0 + col + j < ep.mask_n ? (int)s : 0;
         }
-        store_pair(ep, m0 + wm + mt * 16 + g + 8 * h, n0 + col, (int)v[0],
-                   (int)v[1]);
+        if (PACK) {
+          stage[row * BN + col] = (uint8_t)requant(v[0], ep.out_bits, ep.shift);
+          stage[row * BN + col + 1] =
+              (uint8_t)requant(v[1], ep.out_bits, ep.shift);
+        } else {
+          store_pair(ep, m0 + row, n0 + col, v[0], v[1]);
+        }
       }
+  if (PACK) {
+    __syncthreads();
+    // f-bit fields: whole words of the group, padding rows included
+    const int f = ep.out_bits <= 2 ? ep.out_bits : 4;
+    const int gw = 8 * f, P = 8 / f;
+    int32_t* out = static_cast<int32_t*>(ep.out);
+    for (int w = tid; w < gw * BN; w += NT) {
+      const int i = w / BN, n = w % BN;
+      if (n0 + n >= ep.ocp) continue;
+      uint32_t word = 0;
+      for (int q = 0; q < P; ++q)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          word |= (uint32_t)stage[(q * 4 * gw + 4 * i + k) * BN + n]
+                  << (8 * k + f * q);
+      out[(size_t)(blockIdx.y * gw + i) * ep.ocp + n0 + n] = (int32_t)word;
+    }
+  }
 }
 
-template <int ND_A, int ND_B, bool A_SIGNED, class ALoader>
-int launch(const ALoader& la, const void* b, int mp, int kp, int np,
-           const Epilogue& ep, cudaStream_t stream) {
-  const dim3 grid(np / BN, mp / BM);
-  gemm_kernel<ND_A, ND_B, A_SIGNED, ALoader><<<grid, THREADS, 0, stream>>>(
+// One kernel instantiation: PACK chooses the 256-row CTA. Digit planes
+// keep their padding, so they take every column tile; the terminal kinds
+// take only the tiles that hold stored columns (< ocp): a tile past them
+// would stream all of A through the K loop for sums nobody stores.
+template <int ND_A, int ND_B, int CORR, bool PACK, class ALoader>
+int launch_tiles(const ALoader& la, const void* b, int mp, int kp, int np,
+                 const Epilogue& ep, cudaStream_t stream) {
+  constexpr int ROWS = PACK ? GROUP : BM;
+  const int col_tiles = ep.kind == OUT_DIGITS ? np / BN : (ep.ocp + BN - 1) / BN;
+  const dim3 grid(col_tiles, mp / ROWS);
+  gemm_kernel<ND_A, ND_B, CORR, PACK, ALoader><<<grid, 2 * ROWS, 0, stream>>>(
       la, static_cast<const int8_t*>(b), kp, ep);
   return (int)cudaGetLastError();
 }
 
+// Every output kind, packed words included.
+template <int ND_A, int ND_B, int CORR, class ALoader>
+int launch(const ALoader& la, const void* b, int mp, int kp, int np,
+           const Epilogue& ep, cudaStream_t stream) {
+  if (group_out(ep.kind, ep.out_bits))
+    return launch_tiles<ND_A, ND_B, CORR, true>(la, b, mp, kp, np, ep, stream);
+  return launch_tiles<ND_A, ND_B, CORR, false>(la, b, mp, kp, np, ep, stream);
+}
+
 inline bool shapes_ok(int mp, int kp, int np, int kind, int out_bits,
-                      int shift) {
+                      int shift, int ocp) {
   if (mp <= 0 || kp <= 0 || np <= 0) return false;
   if (mp % BM || kp % BK || np % BN) return false;
-  if (kind < OUT_DIGITS || kind > OUT_I32) return false;
-  if (kind == OUT_DIGITS && (out_bits < 1 || out_bits > 8 || shift < 0 ||
-                             shift > 31))
+  if (kind < OUT_DIGITS || kind > OUT_PACKED) return false;
+  if ((kind == OUT_DIGITS || kind == OUT_PACKED) &&
+      (out_bits < 1 || out_bits > 8 || shift < 0 || shift > 31))
     return false;
+  if (ocp <= 0 || ocp > np || ocp % 8) return false;
+  if (kind == OUT_DIGITS && ocp != np) return false;
+  if (group_out(kind, out_bits) && mp % GROUP) return false;
   return true;
 }
 

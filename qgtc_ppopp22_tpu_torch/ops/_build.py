@@ -91,13 +91,18 @@ def library() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(str(LIB_PATH))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # 12 arguments: (out, a, b, a_arg, nd_b, mp, kp, np, out_kind,
-        # out_bits, shift, stream), a_arg being nd_a for digitmm and the
-        # field width for packmm; see csrc/gemm_core.cuh.
-        lib.qgtc_digitmm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+        # 13 arguments: (out, a, b, a_arg, nd_b, mp, kp, np, out_kind,
+        # out_bits, shift, ocp, stream), a_arg being nd_a for digitmm and
+        # the field width for packmm, ocp the stored columns of the f32,
+        # i32 and packed outputs; see csrc/gemm_core.cuh.
+        lib.qgtc_digitmm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.qgtc_digitmm.restype = i
-        lib.qgtc_packmm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.qgtc_packmm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.qgtc_packmm.restype = i
+        # (out, a, plane, corr, mp, kp, np, out_kind, out_bits, shift, ocp,
+        # mask_n, stream); see csrc/packmm_signed.cu.
+        lib.qgtc_packmm_signed.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.qgtc_packmm_signed.restype = i
         # (out, a, x, w, sched, scratch, meta, n_meta, stream); meta is a
         # host int array, laid out in csrc/fused_model.cu.
         lib.qgtc_fused_model.argtypes = [p, p, p, p, p, p, p, i, p]

@@ -1,5 +1,5 @@
-"""Plumbing shared by the two GEMM modules (``digitmm``, ``packmm``):
-the int32 accumulator guard, the plain epilogue and the kernel launch."""
+"""Plumbing shared by the GEMM modules (``digitmm``, ``packmm``): the
+int32 accumulator guard, the plain epilogue and the kernel launch."""
 
 from __future__ import annotations
 
@@ -8,11 +8,11 @@ from typing import Optional, Tuple
 import torch
 
 from qgtc_ppopp22_tpu_torch.ops._build import check, library
-from qgtc_ppopp22_tpu_torch.ops.bitpack import DIGIT_BITS, num_digits
+from qgtc_ppopp22_tpu_torch.ops.bitpack import DIGIT_BITS, field_width, num_digits, packed_signed
 from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor, split_digits
 from qgtc_ppopp22_tpu_torch.ops.quantize import requantize_wrapped
 
-OUT_DIGITS, OUT_F32, OUT_I32 = 0, 1, 2  # csrc/gemm_core.cuh OutKind
+OUT_DIGITS, OUT_F32, OUT_I32, OUT_PACKED = 0, 1, 2, 3  # csrc/gemm_core.cuh OutKind
 TILE = 64  # the kernels' BM = BN = BK; padded extents must be multiples
 
 
@@ -51,16 +51,21 @@ def plain_epilogue(
     out_bits: Optional[int],
     shift: int,
     raw_i32: bool,
+    ocp: Optional[int] = None,
 ):
-    """The kernels' epilogue on a whole padded int accumulator."""
+    """The kernels' epilogue on a whole padded int accumulator: float32 or
+    int32 over the ``ocp`` stored columns (all if None), returned as
+    ``[:M, :N]``, or requantized digit planes."""
     M, N = shape
     if out_bits is None:
-        return (acc.to(torch.int32) if raw_i32 else acc.to(torch.float32))[:M, :N]
+        v = acc if ocp is None else acc[:, :ocp]
+        return (v.to(torch.int32) if raw_i32 else v.to(torch.float32))[:M, :N]
     levels = requantize_wrapped(acc, out_bits, shift)
     return DigitTensor(digits=split_digits(levels, out_bits), shape=shape, bits=out_bits)
 
 
 def _operand(t: torch.Tensor, dtype: torch.dtype, name: str) -> int:
+    """The data pointer of a kernel operand, after the kernels' checks."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
@@ -70,47 +75,64 @@ def _operand(t: torch.Tensor, dtype: torch.dtype, name: str) -> int:
     return t.data_ptr()
 
 
+def output(out_bits: Optional[int], out_form: str, raw_i32: bool, mp: int, np_: int, ocp: int,
+           device) -> Tuple[int, torch.Tensor]:
+    """The output kind (``OutKind``) and the buffer the kernel writes whole:
+    digit planes [nd, mp, np]; f32 / i32 [mp, ocp]; packed (``out_form
+    'packed'``) as the signed byte plane int8[1, mp, ocp] for 5-8 bits,
+    else int32 words [1, mp / (32 / f), ocp] (``ops/packmm.py`` layout)."""
+    if out_bits is None:
+        kind = OUT_I32 if raw_i32 else OUT_F32
+        return kind, torch.empty((mp, ocp), dtype=torch.int32 if raw_i32 else torch.float32,
+                                 device=device)
+    if out_form != "packed":
+        return OUT_DIGITS, torch.empty((num_digits(out_bits), mp, np_), dtype=torch.int8,
+                                       device=device)
+    if packed_signed(out_bits):
+        return OUT_PACKED, torch.empty((1, mp, ocp), dtype=torch.int8, device=device)
+    rpw = 32 // field_width(out_bits)
+    return OUT_PACKED, torch.empty((1, mp // rpw, ocp), dtype=torch.int32, device=device)
+
+
 def launch(
     entry: str,
     a: torch.Tensor,
     a_dtype: torch.dtype,
-    a_arg: int,
     b: torch.Tensor,
     mp: int,
     shape: Tuple[int, int],
     out_bits: Optional[int],
+    out_form: str,
     shift: int,
     raw_i32: bool,
+    ocp: Optional[int] = None,
+    head: tuple = (),
+    tail: tuple = (),
 ):
-    """Run the CUDA entry point ``entry`` of the kernel library.
+    """Run the CUDA entry point ``entry`` of the kernel library, whose C
+    arguments are ``(out, A, B, *head, mp, kp, np, out_kind, out_bits,
+    shift, ocp, *tail, stream)``.
 
-    ``a_arg`` is the entry's A descriptor (digit count for digitmm,
-    field width for packmm); ``b`` is int8[nd_b, kp, np]. The output is
-    allocated here and written whole by the kernel, padding included."""
+    ``b`` is int8[nd_b, kp, np]; ``ocp`` the stored columns of an f32, i32
+    or packed output (np if None). The output is allocated here
+    (:func:`output`) and the kernel writes it whole, padding included.
+    Returns a ``DigitTensor``, the f32 / i32 ``[:M, :N]``, or the packed
+    payload as it is."""
     if b.device != a.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
-    nd_b, kp, np_ = b.shape
+    _, kp, np_ = b.shape
     if mp % TILE or kp % TILE or np_ % TILE:
         raise ValueError(f"padded extents {(mp, kp, np_)} are not multiples of {TILE}")
-    if out_bits is None:
-        kind = OUT_I32 if raw_i32 else OUT_F32
-        out = torch.empty(
-            (mp, np_), dtype=torch.int32 if raw_i32 else torch.float32, device=a.device
-        )
-    else:
-        kind = OUT_DIGITS
-        out = torch.empty((num_digits(out_bits), mp, np_), dtype=torch.int8, device=a.device)
-    a_ptr = _operand(a, a_dtype, "A")
-    b_ptr = _operand(b, torch.int8, "B")
+    ocp = np_ if ocp is None else ocp
+    kind, out = output(out_bits, out_form, raw_i32, mp, np_, ocp, a.device)
     lib = library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = getattr(lib, entry)(
-            out.data_ptr(), a_ptr, b_ptr, a_arg, nd_b, mp, kp, np_, kind,
-            out_bits or 0, shift, stream,
+            out.data_ptr(), _operand(a, a_dtype, "A"), _operand(b, torch.int8, "B"), *head,
+            mp, kp, np_, kind, out_bits or 0, shift, ocp, *tail, stream,
         )
     check(err, entry)
-    M, N = shape
-    if out_bits is None:
-        return out[:M, :N]
-    return DigitTensor(digits=out, shape=shape, bits=out_bits)
+    if kind == OUT_DIGITS:
+        return DigitTensor(digits=out, shape=shape, bits=out_bits)
+    return out if kind == OUT_PACKED else out[: shape[0], : shape[1]]

@@ -40,6 +40,22 @@ def num_digits(bits: int) -> int:
     return -(-bits // DIGIT_BITS)
 
 
+def field_width(bits: int) -> int:
+    """Packed field bits per value within one digit plane of an M-packed
+    tensor (``ops/packmm.py``; 8 = the offset-signed byte plane of 5-8
+    bit levels)."""
+    if bits <= 2:
+        return bits
+    if bits <= DIGIT_BITS:
+        return DIGIT_BITS
+    return 8
+
+
+def packed_signed(bits: int) -> bool:
+    """True when ``bits`` packs as the single offset-signed byte plane."""
+    return field_width(bits) == 8
+
+
 def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in ``[0, 2^32)`` -> int32 with the same 32 bits."""
     return (x - ((x >> 31) & 1) * (1 << 32)).to(torch.int32)

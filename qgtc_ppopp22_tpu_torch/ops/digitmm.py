@@ -52,8 +52,9 @@ def _digitmm(a: DigitTensor, b: DigitTensor, out_bits, shift, raw_i32):
     if not a.digits.is_cuda:
         return digitmm_plain(a, b, out_bits, shift, raw_i32)
     out = _gemm.launch(
-        "qgtc_digitmm", a.digits, torch.int8, a.ndigits, b.digits,
-        a.padded_rows, (a.shape[0], b.shape[1]), out_bits, shift, raw_i32,
+        "qgtc_digitmm", a.digits, torch.int8, b.digits, a.padded_rows,
+        (a.shape[0], b.shape[1]), out_bits, "digits", shift, raw_i32,
+        head=(a.ndigits, b.ndigits),
     )
     LAUNCHES += 1
     return out

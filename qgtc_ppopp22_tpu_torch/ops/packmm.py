@@ -1,8 +1,9 @@
 """M-packed A x digit planes, and the packed container it consumes.
 
-Counterpart of ``qgtc_ppopp22_tpu/ops/packmm.py`` (TPU kernel
-``_packmm``). It carries every aggregation ``A x H`` of the step engine
-and the final ``A x H -> f32``.
+Counterpart of ``qgtc_ppopp22_tpu/ops/packmm.py`` (TPU kernels
+``_packmm`` and ``_packmm_signed_stream``). It carries every aggregation
+``A x H`` of the step engine and the final ``A x H -> f32``, and the
+kernel sweep's bit-in/bit-out products (``packmm_to_packed``).
 
 Layout (``PackedTensor``, byte for byte the JAX one): per digit plane,
 values are packed ``P = 8 // f`` rows per byte (f = field bits: 1 for
@@ -13,43 +14,42 @@ lives in bits ``[8k + f*q, 8k + f*(q+1))`` of word row ``i``, with
 offset-signed bytes (``level - 128``); a GEMM against it adds the exact
 rank-1 correction ``128 * colsum(B_levels)``.
 
-Dispatch: operands on the CPU run :func:`packmm_plain`; operands on a
-CUDA device launch the kernel of ``csrc/packmm.cu`` or raise. The
-zero-tile K skip, the packed-words output and ``PreparedRHS`` are not
-ported.
+A :class:`PreparedRHS` (a weight-like B as one offset-signed byte plane
+with a ones lane, :func:`prepare_rhs`) pairs with a 5-8 bit A and runs
+one int8 pass with the whole offset correction in the epilogue.
+
+Dispatch: operands on the CPU run :func:`packmm_plain` (which takes a
+``PreparedRHS`` to :func:`packmm_signed_plain`); operands on a CUDA
+device launch the kernel of ``csrc/packmm.cu`` (``LAUNCHES``), or of
+``csrc/packmm_signed.cu`` for a ``PreparedRHS`` (``SIGNED_LAUNCHES``),
+or raise. The zero-tile K skip (``tile_map``) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from qgtc_ppopp22_tpu_torch.ops import _gemm
-from qgtc_ppopp22_tpu_torch.ops.bitpack import DIGIT_BITS, num_digits, round_up, u32_to_i32
-from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor, digit_levels
+from qgtc_ppopp22_tpu_torch.ops.bitpack import (
+    DIGIT_BITS,
+    field_width,
+    num_digits,
+    packed_signed,
+    round_up,
+    u32_to_i32,
+)
+from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor, digit_levels, digit_unpack, split_digits
+from qgtc_ppopp22_tpu_torch.ops.quantize import requantize_wrapped
 
 PACK_GROUP = 256  # rows per permutation group (layout contract)
 _OFFSET = 128  # signed-plane offset: stored byte = level - 128
 
-LAUNCHES = 0  # kernel launches since the count was last reset to 0
-
-
-def field_width(bits: int) -> int:
-    """Packed field bits per value within one digit plane (8 = the
-    offset-signed byte plane of 5-8 bit levels)."""
-    if bits <= 2:
-        return bits
-    if bits <= DIGIT_BITS:
-        return DIGIT_BITS
-    return 8
-
-
-def packed_signed(bits: int) -> bool:
-    """True when ``bits`` packs as the single offset-signed byte plane."""
-    return field_width(bits) == 8
+LAUNCHES = 0  # csrc/packmm.cu launches since the count was last reset to 0
+SIGNED_LAUNCHES = 0  # csrc/packmm_signed.cu launches, likewise
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,25 +135,39 @@ def unpack_rows_np(words: np.ndarray, bits: int) -> np.ndarray:
     return ((g[:, None, :, None, :] >> shifts) & np.uint32((1 << f) - 1)).reshape(-1, words.shape[-1])
 
 
-def pack_rows(q: torch.Tensor, bits: int) -> PackedTensor:
-    """Device packer: int levels (M, K) -> :class:`PackedTensor`."""
-    f = field_width(bits)
-    M, K = q.shape
-    Mp, Kp = round_up(max(M, 1), PACK_GROUP), round_up(max(K, 1), 128)
-    lv = torch.zeros((Mp, Kp), dtype=torch.int64, device=q.device)
-    lv[:M, :K] = q.to(torch.int64) & ((1 << bits) - 1)
+def _pack_levels(lv: torch.Tensor, bits: int) -> torch.Tensor:
+    """Levels ``[Mp, C]`` in ``[0, 2^bits)``, Mp a multiple of 256 -> the
+    ``PackedTensor`` payload over all of them (int32 words, or the int8
+    signed plane for 5-8 bits): the kernels' packed-words epilogue."""
+    lv = lv.to(torch.int64)
     if packed_signed(bits):
-        return PackedTensor(words=(lv - _OFFSET).to(torch.int8)[None], shape=(M, K), bits=bits)
+        return (lv - _OFFSET).to(torch.int8)[None]
+    f = field_width(bits)
     P, rpw = 8 // f, 32 // f
     gw = PACK_GROUP // rpw
-    shifts = torch.as_tensor(_shifts(f), device=q.device)[None, :, :, :, None]
+    Mp, C = lv.shape
+    shifts = torch.as_tensor(_shifts(f), device=lv.device)[None, :, :, :, None]
     planes = []
     for d in range(num_digits(bits)):
         width = min(DIGIT_BITS, bits - d * DIGIT_BITS)
         dig = (lv >> (d * DIGIT_BITS)) & ((1 << width) - 1)
-        words = (dig.view(-1, P, gw, 4, Kp) << shifts).sum(dim=(1, 3))
-        planes.append(words.reshape(Mp // rpw, Kp))
-    return PackedTensor(words=u32_to_i32(torch.stack(planes)), shape=(M, K), bits=bits)
+        words = (dig.reshape(-1, P, gw, 4, C) << shifts).sum(dim=(1, 3))
+        planes.append(words.reshape(Mp // rpw, C))
+    return u32_to_i32(torch.stack(planes))
+
+
+def pack_rows(q: torch.Tensor, bits: int) -> PackedTensor:
+    """Device packer: int levels (M, K) -> :class:`PackedTensor`."""
+    M, K = q.shape
+    Mp, Kp = round_up(max(M, 1), PACK_GROUP), round_up(max(K, 1), 128)
+    lv = torch.zeros((Mp, Kp), dtype=torch.int64, device=q.device)
+    lv[:M, :K] = q.to(torch.int64) & ((1 << bits) - 1)
+    return PackedTensor(words=_pack_levels(lv, bits), shape=(M, K), bits=bits)
+
+
+def pack_digit_tensor(dt: DigitTensor) -> PackedTensor:
+    """DigitTensor -> PackedTensor."""
+    return pack_rows(digit_unpack(dt), dt.bits)
 
 
 def packed_levels(pt: PackedTensor) -> torch.Tensor:
@@ -208,65 +222,214 @@ def build_tile_map_packed_np(
 
 
 # ---------------------------------------------------------------------------
+# PreparedRHS: the signed-plane right operand
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedRHS:
+    """Pack-time form of a weight-like (K, N) right operand for a 5-8 bit
+    (signed-plane) A.
+
+    ``plane``: int8[Kp, Np] = B levels - 128 (padding is level 0, -128),
+    with lane ``Np - 1`` set to 1, so a dot against it also yields
+    ``rowsum(A - 128)`` in that lane. ``corr``: int32[8, Np], row 0 =
+    ``128 * colsum(plane) + 128^2 * Kp`` (rows 1-7 zero): with the rowsum,
+    the remaining terms of ``A@B = (A-128)(B-128) + 128 rowsum(A-128) +
+    128 colsum(B-128) + 128^2 K``."""
+
+    plane: torch.Tensor
+    corr: torch.Tensor
+    shape: Tuple[int, int]
+    bits: int
+
+    def to(self, device) -> "PreparedRHS":
+        return dataclasses.replace(self, plane=self.plane.to(device), corr=self.corr.to(device))
+
+
+def prepare_rhs(b: DigitTensor) -> PreparedRHS:
+    """The :class:`PreparedRHS` form of ``b``. It needs a free lane (real
+    width rounded to 8 below the padded width) for the ones column."""
+    K, N = b.shape
+    _, kp, np_ = b.digits.shape
+    if round_up(max(N, 1), 8) >= np_:
+        raise ValueError(f"prepare_rhs needs a free lane: N={N} fills the {np_}-lane tile")
+    sb = digit_levels(b).to(torch.int64) - _OFFSET
+    sb[:, np_ - 1] = 1
+    corr = torch.zeros((8, np_), dtype=torch.int64, device=sb.device)
+    corr[0] = (sb.sum(dim=0) << 7) + _OFFSET * _OFFSET * kp
+    return PreparedRHS(plane=sb.to(torch.int8), corr=corr.to(torch.int32), shape=(K, N), bits=b.bits)
+
+
+Rhs = Union[DigitTensor, PreparedRHS]
+
+
+# ---------------------------------------------------------------------------
 # GEMM
 # ---------------------------------------------------------------------------
 
 
-def _check(a: PackedTensor, b: DigitTensor) -> None:
+def _stored_cols(out_form: str, out_cols: Optional[int], np_: int) -> int:
+    """Columns a terminal (f32, i32, packed) output stores: ``out_cols``
+    rounded up to 8, at most the padded width."""
+    if out_cols is None:
+        return np_
+    if out_form == "digits":
+        raise ValueError(
+            "out_cols is for terminal outputs (f32/packed); digit outputs feed "
+            "chained GEMMs and keep their padding"
+        )
+    return min(round_up(max(int(out_cols), 1), 8), np_)
+
+
+def _check(a: PackedTensor, b: DigitTensor, out_form: str = "digits",
+           out_cols: Optional[int] = None) -> int:
+    """The K2 checks; returns the stored columns."""
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"contraction mismatch: {a.shape} @ {b.shape}")
     nd_a, _, kp = a.words.shape
-    nd_b, kp_b, _ = b.digits.shape
+    nd_b, kp_b, np_ = b.digits.shape
     if kp != kp_b:
         raise ValueError(f"padded K mismatch: lhs {kp} vs rhs {kp_b}")
     if nd_a != 1:
         raise ValueError(f"a packed A holds one plane, got {nd_a}")
     _gemm.check_accumulator(nd_a, nd_b, kp, signed=packed_signed(a.bits))
+    return _stored_cols(out_form, out_cols, np_)
+
+
+def _check_signed(a: PackedTensor, bp: PreparedRHS, out_form: str,
+                  out_cols: Optional[int]) -> Tuple[int, bool]:
+    """The K4 checks; returns the stored columns and whether the lanes
+    >= N of the stored region are masked back to level 0 (the ones lane's
+    junk and the padding columns)."""
+    if not packed_signed(a.bits):
+        raise ValueError("PreparedRHS pairs with a signed-plane A (bits 5-8)")
+    M, Ka = a.shape
+    Kb, N = bp.shape
+    if Ka != Kb:
+        raise ValueError(f"contraction mismatch: {a.shape} @ {bp.shape}")
+    kp = a.words.shape[2]
+    kpb, np_ = bp.plane.shape
+    if kp != kpb:
+        raise ValueError(f"padded K mismatch: lhs {kp} vs rhs {kpb}")
+    # dot + rowsum + colsum + constant, each <= 128^2 * kp
+    if 4 * 128 * 128 * kp >= (1 << 31):
+        raise ValueError(f"padded K={kp} can overflow the int32 accumulator; split the contraction")
+    ocp = _stored_cols(out_form, out_cols, np_)
+    need_mask = ocp > round_up(max(N, 1), 8) or N % 8 != 0 or (out_cols is None and np_ > N)
+    return ocp, need_mask
+
+
+def packmm_signed_plain(
+    a: PackedTensor,
+    bp: PreparedRHS,
+    out_bits: Optional[int] = None,
+    out_form: str = "digits",
+    shift: int = 0,
+    raw_i32: bool = False,
+    out_cols: Optional[int] = None,
+):
+    """Plain PyTorch version of the PreparedRHS product on any device: the
+    offset algebra literally (the dot in float64, exact below 2^53, then
+    int64), the lane mask of the TPU kernel (digit outputs always, the
+    others under ``need_mask``), then its stores. Returns what the
+    wrapper returns, padding included: rows >= M come out as level 0."""
+    ocp, need_mask = _check_signed(a, bp, out_form, out_cols)
+    M, N = a.shape[0], bp.shape[1]
+    np_ = bp.plane.shape[1]
+    acc = _gemm.plain_product(a.words[0], bp.plane)
+    acc = acc + (acc[:, np_ - 1:] << 7) + bp.corr[0].to(torch.int64)
+    real = torch.arange(np_, device=acc.device) < N
+
+    def mask(v, force=False):
+        return torch.where(real, v, torch.zeros_like(v)) if need_mask or force else v
+
+    if out_bits is None:
+        return _gemm.plain_epilogue(mask(acc), (M, N), None, 0, raw_i32, ocp)
+    r = requantize_wrapped(acc, out_bits, shift)
+    if out_form == "digits":
+        return DigitTensor(digits=split_digits(mask(r, force=True), out_bits), shape=(M, N), bits=out_bits)
+    return PackedTensor(words=_pack_levels(mask(r)[:, :ocp], out_bits), shape=(M, N), bits=out_bits)
 
 
 def packmm_plain(
     a: PackedTensor,
-    b: DigitTensor,
+    b: Rhs,
     out_bits: Optional[int] = None,
     shift: int = 0,
     raw_i32: bool = False,
+    out_form: str = "digits",
+    out_cols: Optional[int] = None,
 ):
     """Plain PyTorch version on any device: decode A to levels, take the
     levels product, then the kernel's epilogue. Returns what the matching
-    wrapper returns."""
-    _check(a, b)
+    wrapper returns; a :class:`PreparedRHS` goes to
+    :func:`packmm_signed_plain`."""
+    if isinstance(b, PreparedRHS):
+        return packmm_signed_plain(a, b, out_bits, out_form, shift, raw_i32, out_cols)
+    ocp = _check(a, b, out_form, out_cols)
     acc = _gemm.plain_product(packed_levels(a), digit_levels(b))
-    return _gemm.plain_epilogue(acc, (a.shape[0], b.shape[1]), out_bits, shift, raw_i32)
+    shape = (a.shape[0], b.shape[1])
+    if out_bits is None or out_form != "packed":
+        return _gemm.plain_epilogue(acc, shape, out_bits, shift, raw_i32, ocp)
+    levels = requantize_wrapped(acc, out_bits, shift)[:, :ocp]
+    return PackedTensor(words=_pack_levels(levels, out_bits), shape=shape, bits=out_bits)
 
 
-def _packmm(a: PackedTensor, b: DigitTensor, out_bits, shift, raw_i32):
-    global LAUNCHES
-    _check(a, b)
-    if not a.words.is_cuda:
-        return packmm_plain(a, b, out_bits, shift, raw_i32)
-    signed = packed_signed(a.bits)
-    out = _gemm.launch(
-        "qgtc_packmm", a.words, torch.int8 if signed else torch.int32,
-        field_width(a.bits), b.digits, a.padded_rows, (a.shape[0], b.shape[1]),
-        out_bits, shift, raw_i32,
-    )
-    LAUNCHES += 1
+def _packmm(a: PackedTensor, b: Rhs, out_bits, out_form, shift, raw_i32, out_cols=None):
+    global LAUNCHES, SIGNED_LAUNCHES
+    shape = (a.shape[0], b.shape[1])
+    if isinstance(b, PreparedRHS):
+        ocp, need_mask = _check_signed(a, b, out_form, out_cols)
+        if not a.words.is_cuda:
+            return packmm_signed_plain(a, b, out_bits, out_form, shift, raw_i32, out_cols)
+        np_ = b.plane.shape[1]
+        if b.corr.device != a.words.device or b.corr.shape != (8, np_):
+            raise ValueError(f"corr {tuple(b.corr.shape)} on {b.corr.device} does not fit")
+        digits_out = out_bits is not None and out_form == "digits"
+        mask_n = b.shape[1] if need_mask or digits_out else np_
+        out = _gemm.launch(
+            "qgtc_packmm_signed", a.words, torch.int8, b.plane[None], a.padded_rows, shape,
+            out_bits, out_form, shift, raw_i32, ocp,
+            head=(_gemm._operand(b.corr, torch.int32, "corr"),), tail=(mask_n,),
+        )
+        SIGNED_LAUNCHES += 1
+    else:
+        ocp = _check(a, b, out_form, out_cols)
+        if not a.words.is_cuda:
+            return packmm_plain(a, b, out_bits, shift, raw_i32, out_form, out_cols)
+        out = _gemm.launch(
+            "qgtc_packmm", a.words, torch.int8 if packed_signed(a.bits) else torch.int32,
+            b.digits, a.padded_rows, shape, out_bits, out_form, shift, raw_i32, ocp,
+            head=(field_width(a.bits), b.ndigits),
+        )
+        LAUNCHES += 1
+    if out_bits is not None and out_form == "packed":
+        return PackedTensor(words=out, shape=shape, bits=out_bits)
     return out
 
 
-def packmm_to_digits(
-    a: PackedTensor, b: DigitTensor, out_bits: int, shift: int = 0
-) -> DigitTensor:
+def packmm_to_digits(a: PackedTensor, b: Rhs, out_bits: int, shift: int = 0) -> DigitTensor:
     """Packed-A GEMM, requantized digit-plane output over the whole
     padded extent (``bitMM2Bit`` role with the fused epilogue)."""
-    return _packmm(a, b, out_bits, shift, False)
+    return _packmm(a, b, out_bits, "digits", shift, False)
 
 
-def packmm_to_f32(a: PackedTensor, b: DigitTensor) -> torch.Tensor:
-    """Packed-A GEMM, float32 [M, N] output (``bitMM2Int`` role)."""
-    return _packmm(a, b, None, 0, False)
+def packmm_to_f32(a: PackedTensor, b: Rhs, out_cols: Optional[int] = None) -> torch.Tensor:
+    """Packed-A GEMM, float32 [M, N] output (``bitMM2Int`` role);
+    ``out_cols`` narrows the store to the real column count."""
+    return _packmm(a, b, None, "f32", 0, False, out_cols)
 
 
-def packmm_to_i32(a: PackedTensor, b: DigitTensor) -> torch.Tensor:
+def packmm_to_i32(a: PackedTensor, b: Rhs) -> torch.Tensor:
     """Packed-A GEMM, raw int32 accumulator [M, N]."""
-    return _packmm(a, b, None, 0, True)
+    return _packmm(a, b, None, "f32", 0, True)
+
+
+def packmm_to_packed(
+    a: PackedTensor, b: Rhs, out_bits: int, shift: int = 0, out_cols: Optional[int] = None
+) -> PackedTensor:
+    """Packed-A GEMM, M-packed output: bit in, bit out (the reference's
+    ``bitMM2Bit_profile`` op): requantize, then repack in the kernel.
+    ``out_cols`` narrows the store to the real column count."""
+    return _packmm(a, b, out_bits, "packed", shift, False, out_cols)

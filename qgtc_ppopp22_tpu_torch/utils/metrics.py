@@ -1,13 +1,17 @@
-"""Classification metrics (reference ``utils.py:43-50``, ``calc_f1``).
+"""Classification metrics (reference ``utils.py:43-50``, ``calc_f1``) and
+results output.
 
 NumPy copy of ``f1_score`` and ``multilabel_f1`` from
 ``qgtc_ppopp22_tpu/utils/metrics.py``: micro / macro F1 over argmax
-predictions, and the multilabel branch that thresholds logits at 0.
+predictions, and the multilabel branch that thresholds logits at 0; and
+its ``write_csv``, which writes the same bytes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import csv
+import os
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 
@@ -53,3 +57,14 @@ def multilabel_f1(logits: np.ndarray, labels: np.ndarray, average: str = "micro"
     if average == "micro":
         return float(_f1_from_counts(tp.sum(), fp.sum(), fn.sum()))
     return float(np.mean(_f1_from_counts(tp, fp, fn)))
+
+
+def write_csv(path: str, rows: Iterable[Dict], fieldnames: List[str]) -> None:
+    """Structured results output (replaces the reference's ``parse_time.py``
+    scraping): a header line, then one line per row."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=fieldnames)
+        w.writeheader()
+        for r in rows:
+            w.writerow(r)

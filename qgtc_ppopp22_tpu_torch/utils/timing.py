@@ -15,6 +15,7 @@ from typing import Callable, Dict, Hashable, Union
 import torch
 
 _MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep
+_SESSIONS = 3  # profiler sessions tried before a lost marker is an error
 
 
 def device_times_ms(
@@ -34,8 +35,10 @@ def device_times_ms(
     assigned to functions by their order on the device, between markers:
     the profiler's device timestamps can sit a millisecond or more off
     the host's clock, so host-side ranges would drop or misplace the
-    first kernels of a function. Requires a CUDA device; every function
-    must run on the current stream."""
+    first kernels of a function. A session that lost markers (the
+    profiler can drop a session's last records) is run again, up to
+    ``_SESSIONS`` in all. Requires a CUDA device; every function must run
+    on the current stream."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -47,24 +50,27 @@ def device_times_ms(
         for _ in range(warmup):
             fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for name in names:
-            torch.cuda._sleep(1)
-            for _ in range(counts[name]):
-                fns[name]()
-            torch.cuda.synchronize()
-    device = sorted(
-        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
-        key=lambda e: e.time_range.start,
-    )
-    total_us = [0.0] * len(names)
-    i = -1
-    for e in device:
-        if _MARKER in e.name:
-            i += 1
-        elif i >= 0:
-            total_us[i] += e.time_range.elapsed_us()
-    if i != len(names) - 1:
+    for _ in range(_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for name in names:
+                torch.cuda._sleep(1)
+                for _ in range(counts[name]):
+                    fns[name]()
+                torch.cuda.synchronize()
+        device = sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start,
+        )
+        total_us = [0.0] * len(names)
+        i = -1
+        for e in device:
+            if _MARKER in e.name:
+                i += 1
+            elif i >= 0:
+                total_us[i] += e.time_range.elapsed_us()
+        if i == len(names) - 1:
+            break
+    else:
         raise RuntimeError(f"the profiler recorded {i + 1} markers for {len(names)} functions")
     empty = [names[i] for i, t in enumerate(total_us) if t <= 0]
     if empty:

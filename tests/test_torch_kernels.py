@@ -7,7 +7,7 @@ environment variable keeps ``tests/conftest.py`` from importing it)::
     QGTC_TEST_BACKEND=cuda python -m pytest tests/test_torch_kernels.py -q
 
 Tolerance: exact equality, padded outputs included (for ``bitmm``
-the output planes word for word); for the bf16
+the output planes word for word, for packed outputs the words); for the bf16
 baseline kernel exact equality on the "integer" and "rounding" cases,
 else max |kernel - plain| <= 2^-6 * max |plain| per row of logits
 (``torch_cases``).
@@ -51,7 +51,10 @@ def _pt(q, bits, dev):
 
 def _check(got, want):
     torch.cuda.synchronize()
-    if isinstance(want, digits.DigitTensor):
+    if isinstance(want, packmm.PackedTensor):
+        assert got.shape == want.shape and got.bits == want.bits
+        assert got.words.dtype == want.words.dtype and torch.equal(got.words, want.words)
+    elif isinstance(want, digits.DigitTensor):
         assert got.shape == want.shape and torch.equal(got.digits, want.digits)
     else:
         assert got.dtype == want.dtype and torch.equal(got, want)
@@ -139,6 +142,91 @@ def test_device_times_ms(cuda):
     t2 = device_times_ms({"kernel": lambda: packmm.packmm_to_f32(a, b),
                           "plain": lambda: packmm.packmm_plain(a, b)}, iters={"kernel": 5, "plain": 1})
     assert 0.5 < t2["plain"] / t["plain"] < 2 and 0.5 < t2["kernel"] / t["kernel"] < 2
+
+
+# -- packmm_signed (PreparedRHS) and packmm's packed-words output ---------
+
+
+def _signed(qa, qb, dev):
+    return _pt(qa, 8, dev), packmm.prepare_rhs(_dt(qb, 8, dev))
+
+
+def _check_signed_forms(a, bp, n):
+    """Every output form of the PreparedRHS kernel against plain."""
+    plain = packmm.packmm_signed_plain
+    _check(packmm.packmm_to_f32(a, bp), plain(a, bp))
+    _check(packmm.packmm_to_f32(a, bp, out_cols=n), plain(a, bp, out_form="f32", out_cols=n))
+    _check(packmm.packmm_to_i32(a, bp), plain(a, bp, raw_i32=True))
+    for ob in (2, 4, 8):
+        for sh in (0, 2):
+            _check(packmm.packmm_to_digits(a, bp, ob, shift=sh), plain(a, bp, ob, "digits", sh))
+    for oc in (None, n):
+        _check(packmm.packmm_to_packed(a, bp, 8, out_cols=oc), plain(a, bp, 8, "packed", out_cols=oc))
+    for ob in (1, 2, 4):
+        _check(packmm.packmm_to_packed(a, bp, ob, out_cols=n), plain(a, bp, ob, "packed", out_cols=n))
+
+
+@pytest.mark.parametrize("shape", [(700, 300, 60), (700, 300, 120), (1024, 1024, 16), (4096, 4096, 64)])
+def test_packmm_signed_kernel_equals_plain(cuda, shape):
+    m, k, n = shape
+    a, bp = _signed(*operands(m + n, m, k, n, 8, 8, 8, 0), cuda)
+    before = (packmm.LAUNCHES, packmm.SIGNED_LAUNCHES)
+    packmm.packmm_to_packed(a, bp, 8, out_cols=n)
+    assert (packmm.LAUNCHES, packmm.SIGNED_LAUNCHES) == (before[0], before[1] + 1)
+    _check_signed_forms(a, bp, n)
+
+
+@pytest.mark.parametrize("case", ["A at 0", "A and B at 255", "K 32640 at 255"])
+def test_packmm_signed_extremes(cuda, case):
+    """Level 0 and 255 everywhere, and the deepest K the int32 guard takes."""
+    m, k, n = (256, 32640, 16) if case.startswith("K") else (700, 300, 60)
+    qa = np.zeros((m, k), np.int32) if case == "A at 0" else np.full((m, k), 255, np.int32)
+    _check_signed_forms(*_signed(qa, np.full((k, n), 255, np.int32), cuda), n)
+
+
+@pytest.mark.parametrize("shape", [(2560, 2560, 16), (300, 520, 40), (512, 512, 512), (512, 512, 300)])
+@pytest.mark.parametrize("b_bits", BITS)
+@pytest.mark.parametrize("a_bits", BITS)
+def test_packmm_packed_out_equals_plain(cuda, a_bits, b_bits, shape):
+    m, k, n = shape
+    qa, qb = operands(a_bits * 9 + b_bits + m + n, m, k, n, a_bits, b_bits, min(b_bits, 4), 0)
+    a, b = _pt(qa, a_bits, cuda), _dt(qb, b_bits, cuda)
+    for ob in BITS:
+        for oc in (None, n):
+            before = packmm.LAUNCHES
+            got = packmm.packmm_to_packed(a, b, ob, out_cols=oc)
+            assert packmm.LAUNCHES == before + 1
+            _check(got, packmm.packmm_plain(a, b, ob, out_form="packed", out_cols=oc))
+    _check(packmm.packmm_to_f32(a, b, out_cols=n), packmm.packmm_plain(a, b, out_form="f32", out_cols=n))
+
+
+def test_packmm_signed_packed_output_chains(cuda):
+    """An 8-bit packed output (the signed plane) as the next product's A."""
+    rng = np.random.default_rng(4)
+    qx, qw = rng.integers(0, 256, (200, 256)), rng.integers(0, 256, (256, 60))
+    x, w, w2 = _pt(qx, 8, cuda), _dt(qw, 8, cuda), _dt(rng.integers(0, 256, (64, 40)), 8, cuda)
+    xw = packmm.packmm_to_packed(x, w, 8)
+    _check(xw, packmm.packmm_plain(x, w, 8, out_form="packed"))
+    xw2 = packmm.PackedTensor(words=xw.words, shape=(200, 64), bits=8)
+    _check(packmm.packmm_to_f32(xw2, w2), packmm.packmm_plain(xw2, w2))
+
+
+def test_kernel_sweep_on_card(cuda, monkeypatch):
+    """Fig. 8a's rows at M = K = 1024: each packed row launches one
+    kernel (the 8-bit ones packmm_signed), equals plain and is timed."""
+    from qgtc_ppopp22_tpu_torch.benchmarks import kernel_sweep
+
+    monkeypatch.setattr(kernel_sweep, "MK", (1024,))
+    cases = kernel_sweep.figure_cases("8a", np.random.default_rng(0), cuda)
+    for c in cases:
+        before = (packmm.LAUNCHES, packmm.SIGNED_LAUNCHES)
+        out = c.run()
+        after = (packmm.LAUNCHES - before[0], packmm.SIGNED_LAUNCHES - before[1])
+        assert after == ((0, 1) if c.bits == 8 else (1, 0))
+        _check(out, c.plain())
+    rows = kernel_sweep.time_cases(cases, iters=3)
+    assert [(r["bits"], r["N"]) for r in rows] == [(c.bits, c.N) for c in cases]
+    assert all(r["us"] > 0 and r["tflops"] > 0 for r in rows)
 
 
 # -- fused_model: the whole chain in one launch --------------------------
