@@ -41,7 +41,14 @@ Runs, and stops with a non-zero exit at the first failure:
    epilogue: A at 1/2/4/8 bits x B at 1/2/4/8 bits to 1/2/4/8-bit packed
    out (8: the signed plane), out_cols none and N, at C1's (2560, 2560,
    16), ragged (300, 520, 40) and wide N 512 and 300, with f32 out_cols,
-   and an 8-bit packed output fed back as the next product's A.
+   and an 8-bit packed output fed back as the next product's A. Then
+   zero-tile jumping, the ``TileMap`` K skip of ``packmm`` (A at 1/2/4/8
+   bits, every output form, tiles (256 | 512) x (256 | 128), C1's shape
+   and two multi-row-tile ragged ones) and of ``digitmm`` (1 and 2 digit
+   planes each side, tiles (256 | 128)^2) against plain, with the
+   builders' maps (equal to dense) and hand-made ones (occupied tiles left
+   out, a tile listed twice, kcnt 0, -1 and past the grid, entries outside
+   it); each call must launch once with its map.
 2. The main path: 2-bit 3-layer Cluster-GCN (hidden 16) on the
    full-scale synthetic ogbn-arxiv stand-in, psize 1500, batch 20, 75
    batches, through ``QGTCEngine.forward_all``; launch counts are reset
@@ -64,7 +71,16 @@ Runs, and stops with a non-zero exit at the first failure:
    launch; logits equal to the plain versions', to the digit step
    engine's and, for the first batch, to the NumPy reference; then 4
    batches of GIN (hidden 64) against the digit engine and plain.
-   Then the kernel sweep (``qgtc_ppopp22_tpu_torch.benchmarks.kernel_sweep``,
+   Then zero-tile jumping: ``QGTCEngine(zerotile_jump=True).forward_all``
+   on the same 75 batches, counts reset just before: 3 packmm launches
+   with the batch's map and 3 digitmm per batch; logits equal to plain,
+   the dense step engine's and the NumPy reference; the maps' processed /
+   total tiles; the accuracy after the mega engine's epochs with the
+   flag equal to the dense engine's; 4 batches of GCN over the adjacency
+   as a digit plane with its map (``digitmm``'s K skip); and
+   ``fused_model_epoch(chunk_occ=)`` at C1, 1-D and 2-D, real and
+   hand-made maps, and ``resident_a=False``, against the dense launch
+   and plain. Then the kernel sweep (``qgtc_ppopp22_tpu_torch.benchmarks.kernel_sweep``,
    figures 8a, 8c, int8 and profile, each from ``default_rng(0)``):
    counts reset before each figure; its 8-bit rows must launch
    ``packmm_signed`` once and nothing else, its other packed rows
@@ -73,7 +89,8 @@ Runs, and stops with a non-zero exit at the first failure:
    shapes on their first 2048 rows).
 3. Timing: ms/epoch of the step engine (host clock around all epochs
    and one synchronize, resident and transfer-inclusive, twice each,
-   each beside the bits step engine's),
+   each beside the same engine with zero-tile jumping and the bits step
+   engine),
    the mega engine's ms/epoch with and without the compacted block
    schedule (twice each); the baseline's ms/epoch in step (resident),
    fused and mega modes beside the quantized mega engine's (twice each);
@@ -83,7 +100,11 @@ Runs, and stops with a non-zero exit at the first failure:
    and K2's packed out at Fig. 8a's (4096, 4096, 64) beside plain,
    bound and ``torch._int_mm``; and every sweep row's us and TFLOP/s
    beside ``BASELINE.md``'s sm_86 figure for it, in the same profiler
-   session.
+   session; and the K skip at C1 (batch 0's adjacency and its map:
+   ``packmm_to_digits``, ``packmm_to_f32`` and ``digitmm_to_digits`` over
+   the adjacency as a digit plane), each beside the same call without the
+   map, plain, ``torch._int_mm`` and a bound that counts only the listed
+   tiles, and one resident step epoch's device time with the maps.
 
 Test operands come from ``tests/torch_cases.py``. Each kernel's bound
 is the larger of its bytes (inputs read once, outputs written once) over
@@ -155,14 +176,18 @@ def main() -> int:
     sys.path.insert(0, os.path.join(root, "tests"))
     from types import SimpleNamespace
 
-    from torch_cases import BF16_REL_TOL, baseline_case, bf16_rel_err, edge_operands, mega_case, operands
+    from torch_cases import (BF16_REL_TOL, baseline_case, bf16_rel_err, blocky_levels, edge_operands, hand_map,
+                             mega_case, operands)
     from qgtc_ppopp22_tpu_torch.benchmarks import kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
+    from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward
     from qgtc_ppopp22_tpu_torch.ops import _build, bitgemm, digitmm, fused_model, packmm
     from qgtc_ppopp22_tpu_torch.ops.bitpack import num_digits, pack_bits, unpack_bits
-    from qgtc_ppopp22_tpu_torch.ops.digits import digit_levels, digit_pack, digit_unpack
+    from qgtc_ppopp22_tpu_torch.ops.digits import (DigitTensor, digit_levels, digit_pack, digit_unpack,
+                                                   to_digit_tensor)
     from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, pack_rows, packed_levels, prepare_rhs, unpack_rows
-    from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine, mega_block_sched
+    from qgtc_ppopp22_tpu_torch.runtime import (BaselineEngine, QGTCEngine, mega_block_occ, mega_block_sched,
+                                                mega_chunk_occ)
     from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms
 
     dev = torch.device("cuda")
@@ -181,11 +206,13 @@ def main() -> int:
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-            t = re.search(r"gemm_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ENS_\d+([A-Za-z0-9]+?)(?:ILi(\d)E)?E", entry)
+            t = re.search(r"gemm_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)ENS_\d+([A-Za-z0-9]+?)"
+                          r"(?:ILi(\d)E)?E", entry)
             if t:  # the digitmm, packmm and packmm_signed instances
                 entry = (f"gemm_kernel<{t[1]}x{t[2]} planes{corr[t[3]]}, "
-                         f"{'256-row packed out' if t[4] == '1' else '64-row'}> {t[5]}"
-                         + (f"<{t[6]}>" if t[6] else ""))
+                         f"{'256-row packed out' if t[4] == '1' else '64-row'}"
+                         f"{', mapped' if t[5] == '1' else ''}> {t[6]}"
+                         + (f"<{t[7]}>" if t[7] else ""))
             else:
                 entry = next((entry[entry.find(k):][:60] for k in ("fused_model_kernel",
                                                                       "fused_baseline_kernel",
@@ -198,7 +225,7 @@ def main() -> int:
 
     # -- phase 1: kernel vs plain --------------------------------------
     err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0, "bitmm": 0.0,
-           "packmm_signed": 0.0, "int_mm": 0.0}
+           "packmm_signed": 0.0, "int_mm": 0.0, "packmm_skip": 0.0, "digitmm_skip": 0.0}
     ncase = dict.fromkeys(err, 0)
     worst_rel = 0.0  # fused_baseline, random cases: the worst row's relative error
 
@@ -406,6 +433,68 @@ def main() -> int:
     xw2 = PackedTensor(words=xw.words, shape=(200, 64), bits=8)
     compare("packmm", packmm.packmm_to_f32(xw2, w2), packmm.packmm_plain(xw2, w2),
             "chain: the packed output as the next A")
+
+    # zero-tile jumping: K2's and K3's TileMap K skip against plain, with
+    # maps from the builders and hand-made ones (occupied tiles left out,
+    # a tile listed twice, rows of kcnt 0, -1 and past nk, entries outside
+    # the grid), on A whose occupied 256 x 256 tiles are known
+    def mapped(mod, kind, tag, run, plain):
+        before = (mod.LAUNCHES, mod.MAPPED_LAUNCHES)
+        got = run()
+        if (mod.LAUNCHES - before[0], mod.MAPPED_LAUNCHES - before[1]) != (1, 1):
+            raise AssertionError(f"{tag}: {mod.__name__} did not launch once with its map")
+        compare(kind, got, plain(), tag)
+
+    skip_shapes = ((2560, 2560, 16), (2560, 1280, 40), (1792, 1280, 200))  # C1; multi-row-tile, odd remainders
+    for a_bits in (1, 2, 4, 8):
+        for (M, K, N) in skip_shapes:
+            qa = blocky_levels(SEED + a_bits + M + N, M, K, a_bits)
+            qb = operands(SEED + N, M, K, N, 1, 2, 2, 0)[1]
+            a = pack_rows(torch.from_numpy(qa).to(dev), a_bits)
+            b = digit_pack(torch.from_numpy(qb).to(dev), 2)
+            for tmk in ((256, 256), (512, 256), (256, 128), (512, 128)):
+                if a.padded_rows % tmk[0] or a.padded_cols % tmk[1]:
+                    continue
+                real = packmm.build_tile_map_packed(a, *tmk)
+                for mkind, tm in (("real", real), ("hand", hand_map(real))):
+                    tag = f"packmm K skip {a_bits}-bit A M={M} K={K} N={N} tiles={tmk} {mkind} map"
+                    mapped(packmm, "packmm_skip", f"{tag} digits",
+                           lambda: packmm.packmm_to_digits(a, b, 2, tm, shift=1),
+                           lambda: packmm.packmm_plain(a, b, 2, 1, tile_map=tm))
+                    mapped(packmm, "packmm_skip", f"{tag} f32",
+                           lambda: packmm.packmm_to_f32(a, b, tm, out_cols=N),
+                           lambda: packmm.packmm_plain(a, b, out_form="f32", out_cols=N, tile_map=tm))
+                    mapped(packmm, "packmm_skip", f"{tag} i32", lambda: packmm.packmm_to_i32(a, b, tm),
+                           lambda: packmm.packmm_plain(a, b, raw_i32=True, tile_map=tm))
+                    for ob in (1, 2, 4, 8):  # words; 8: the signed byte plane
+                        mapped(packmm, "packmm_skip", f"{tag} packed {ob}-bit",
+                               lambda: packmm.packmm_to_packed(a, b, ob, tm, out_cols=N),
+                               lambda: packmm.packmm_plain(a, b, ob, out_form="packed", out_cols=N,
+                                                           tile_map=tm))
+                    if mkind == "real" and not torch.equal(packmm.packmm_to_i32(a, b, tm),
+                                                           packmm.packmm_to_i32(a, b)):
+                        raise AssertionError(f"{tag}: the occupancy map changed the product")
+                    if mkind == "hand" and torch.equal(packmm.packmm_to_i32(a, b, tm),
+                                                       packmm.packmm_to_i32(a, b)):
+                        raise AssertionError(f"{tag}: a map that leaves tiles out gave the dense product")
+    for a_bits in (2, 8):  # 1 and 2 digit planes on each side
+        for b_bits in (2, 8):
+            M, K, N = 1280, 1536, 40
+            qa = blocky_levels(SEED + a_bits * 3 + b_bits, M, K, a_bits, density=0.01)
+            qb = operands(SEED + b_bits, M, K, N, 1, b_bits, b_bits, 0)[1]
+            da = digit_pack(torch.from_numpy(qa).to(dev), a_bits)
+            b = digit_pack(torch.from_numpy(qb).to(dev), b_bits)
+            for tmk in ((256, 256), (128, 128), (256, 128), (128, 256)):
+                real = digitmm.build_tile_map_digits(da, *tmk)
+                for mkind, tm in (("real", real), ("hand", hand_map(real))):
+                    tag = f"digitmm K skip {a_bits}x{b_bits} bits tiles={tmk} {mkind} map"
+                    mapped(digitmm, "digitmm_skip", f"{tag} digits",
+                           lambda: digitmm.digitmm_to_digits(da, b, b_bits, tm, shift=2),
+                           lambda: digitmm.digitmm_plain(da, b, b_bits, 2, tile_map=tm))
+                    mapped(digitmm, "digitmm_skip", f"{tag} f32", lambda: digitmm.digitmm_to_f32(da, b, tm),
+                           lambda: digitmm.digitmm_plain(da, b, tile_map=tm))
+                    mapped(digitmm, "digitmm_skip", f"{tag} i32", lambda: digitmm.digitmm_to_i32(da, b, tm),
+                           lambda: digitmm.digitmm_plain(da, b, raw_i32=True, tile_map=tm))
     print(f"phase 1: kernel == plain exactly in {ncase} cases (fused_baseline: the integer "
           f"and rounding ones; worst row's relative error of its random ones {worst_rel:.3e}) "
           f"({time.perf_counter() - t0:.1f} s); max abs err {err}")
@@ -455,9 +544,87 @@ def main() -> int:
     if not np.array_equal(logits[0].cpu().numpy(), golden[: b0.padded_nodes]):
         raise AssertionError("main path: batch 0 logits != NumPy integer reference")
     nz = sum(int((lg[:bb.num_nodes] != 0).sum()) for lg, bb in zip(logits, batcher.batches))
+    accuracy = eng.evaluate(batcher, ds.labels)
     print(f"phase 2: GCN logits of {nb} batches == plain == NumPy reference (batch 0); "
-          f"launches {launches}; nonzero logits {nz}; "
-          f"accuracy {eng.evaluate(batcher, ds.labels):.4f}")
+          f"launches {launches}; nonzero logits {nz}; accuracy {accuracy:.4f}")
+
+    # zero-tile jumping on the same batches: the step engine with each
+    # batch's pack-time TileMap, every aggregation one mapped packmm launch
+    t0 = time.perf_counter()
+    zeng = QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gcn",
+                      bit_width=2, seed=SEED, device=dev, zerotile_jump=True)
+    zeng.warmup(batcher)
+    packmm.LAUNCHES = packmm.MAPPED_LAUNCHES = digitmm.LAUNCHES = digitmm.MAPPED_LAUNCHES = 0
+    fused_model.LAUNCHES = bitgemm.LAUNCHES = 0
+    zlogits = zeng.forward_all(batcher)
+    torch.cuda.synchronize()
+    zero_launches = {"packmm": packmm.LAUNCHES, "packmm with a map": packmm.MAPPED_LAUNCHES,
+                     "digitmm": digitmm.LAUNCHES, "digitmm with a map": digitmm.MAPPED_LAUNCHES,
+                     "fused_model": fused_model.LAUNCHES, "bitmm": bitgemm.LAUNCHES}
+    if zero_launches != {"packmm": 3 * nb, "packmm with a map": 3 * nb, "digitmm": 3 * nb,
+                         "digitmm with a map": 0, "fused_model": 0, "bitmm": 0}:
+        raise AssertionError(f"zero-tile path launches {zero_launches}, want 3 mapped packmm and "
+                             f"3 digitmm per batch")
+    for got, want, dense in zip(zlogits, zeng.forward_all(batcher, plain=True), logits):
+        if not torch.equal(got, want) or not torch.equal(got, dense):
+            raise AssertionError("zero-tile path: logits != plain / dense step engine logits")
+    if not np.array_equal(zlogits[0].cpu().numpy(), golden[: b0.padded_nodes]):
+        raise AssertionError("zero-tile path: batch 0 logits != NumPy integer reference")
+    tiles_processed, tiles_total = batcher.tile_counts()
+    # evaluation after the mega engine's epochs with zerotile_jump=True
+    zeng.run_epochs_mega(batcher, n_epochs=1)
+    zaccuracy = zeng.evaluate(batcher, ds.labels)
+    if zaccuracy != accuracy or not zeng.mega_buckets[0]["compact"]:
+        raise AssertionError(f"zero-tile accuracy {zaccuracy} != {accuracy}, or mega not compact")
+    print(f"phase 2: zero-tile GCN logits of {nb} batches == plain == dense step engine == NumPy "
+          f"reference (batch 0); launches {zero_launches}; tiles processed "
+          f"{tiles_processed}/{tiles_total} (jumped {1 - tiles_processed / tiles_total:.1%}); "
+          f"accuracy {zaccuracy:.4f} == dense, after the mega engine's epochs too "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # K3's skip on the slice: the adjacency as a digit plane (qgcn_forward
+    # with a digit-plane A and its map), 4 batches
+    packmm.LAUNCHES = digitmm.LAUNCHES = digitmm.MAPPED_LAUNCHES = 0
+    for b, dense in zip(batcher.batches[:4], logits):
+        a_b, x_b, _ = eng.put_batch(b)
+        da = DigitTensor(digits=packed_levels(a_b).to(torch.int8)[None], shape=a_b.shape, bits=1)
+        got = qgcn_forward(da, to_digit_tensor(x_b), eng.weights, 2,
+                           tile_map=digitmm.build_tile_map_digits(da))
+        if not torch.equal(got, dense):
+            raise AssertionError("digit-plane A with its map: logits != the step engine's")
+    digit_a_launches = {"digitmm": digitmm.LAUNCHES, "digitmm_skip": digitmm.MAPPED_LAUNCHES,
+                        "packmm": packmm.LAUNCHES}
+    if digit_a_launches != {"digitmm": 24, "digitmm_skip": 12, "packmm": 0}:
+        raise AssertionError(f"digit-plane A launches {digit_a_launches}")
+    print(f"phase 2: GCN over a digit-plane A with its map, 4 batches == step engine; launches "
+          f"{digit_a_launches}")
+    # K1's chunk_occ at C1: the JAX kernel's predicated map, compacted onto
+    # the block-schedule launch; resident_a=False, the same launch
+    mfn = eng._stage_mega(batcher)[0][1]
+    a_st, x_st, ws_st = mfn.args[:3]
+    mkw = dict(mfn.keywords, blk_sched=None)
+    k1_dense = fused_model.fused_model_epoch(a_st, x_st, ws_st, 2, **mkw)
+    aw_np = a_st.cpu().numpy()
+    occ1 = torch.from_numpy(np.stack([mega_chunk_occ(w[None], 512) for w in aw_np]))
+    occ2 = torch.from_numpy(np.stack([mega_block_occ(w[None], 512, 512) for w in aw_np]))
+    hand1, hand2 = occ1.clone(), occ2.clone()
+    hand1[0, int(occ1[0].nonzero()[0])] = 0  # an occupied chunk flagged 0
+    hand2[1, 0, int(occ2[1, 0].nonzero()[0])] = 0  # an occupied block flagged 0
+    fused_model.LAUNCHES = 0
+    for what, occ in (("1-D", occ1), ("2-D", occ2), ("1-D hand-made", hand1), ("2-D hand-made", hand2)):
+        occ = occ.to(dev)
+        got = fused_model.fused_model_epoch(a_st, x_st, ws_st, 2, **mkw, chunk_occ=occ)
+        compare("fused_model", got, fused_model.fused_model_epoch_plain(a_st, x_st, ws_st, 2, **mkw,
+                                                                       chunk_occ=occ),
+                f"fused_model chunk_occ {what} at C1")
+        if torch.equal(got, k1_dense) == what.endswith("hand-made"):
+            raise AssertionError(f"fused_model chunk_occ {what}: dense equality wrong way round")
+    compare("fused_model", fused_model.fused_model_epoch(a_st, x_st, ws_st, 2, **mkw, resident_a=False),
+            k1_dense, "fused_model resident_a=False at C1")
+    if fused_model.LAUNCHES != 5:
+        raise AssertionError(f"chunk_occ / resident_a: {fused_model.LAUNCHES} fused_model launches")
+    print(f"phase 2: fused_model chunk_occ at C1 (1-D {tuple(occ1.shape)}, 2-D {tuple(occ2.shape)}, "
+          f"{int(occ2.sum())} of {occ2.numel()} blocks flagged) == dense launch == plain; hand-made "
+          f"maps == plain; resident_a=False == dense")
 
     # the mega path: one fused_model launch per shape bucket
     packmm.LAUNCHES = digitmm.LAUNCHES = fused_model.LAUNCHES = 0
@@ -634,10 +801,11 @@ def main() -> int:
     for rep in range(2):
         for resident in (True, False):
             st = eng.run_epochs(batcher, n_epochs=5, resident=resident)
+            stz = zeng.run_epochs(batcher, n_epochs=5, resident=resident)
             st4 = beng4.run_epochs(batcher, n_epochs=5, resident=resident)
             print(f"phase 3: step engine GCN 2-bit arxiv, resident={resident}: digits "
-                  f"{st.avg_ms:.3f}, bits {st4.avg_ms:.3f} ms/epoch over {st.n_batches} "
-                  f"batches [{card}]")
+                  f"{st.avg_ms:.3f}, digits with zero-tile jumping {stz.avg_ms:.3f}, bits "
+                  f"{st4.avg_ms:.3f} ms/epoch over {st.n_batches} batches [{card}]")
     for rep in range(2):
         for zj in (None, False):
             eng.zerotile_jump = zj
@@ -715,8 +883,33 @@ def main() -> int:
     timed.append(("fused_baseline gin", "fused_baseline epoch, gin widths (hidden 64)",
                   lambda: fused_model.fused_baseline_epoch(*bfn.args[:2], bgin.weights, packed=p_gin),
                   None))
+    # zero-tile jumping at C1's shape: batch 0's real adjacency with its
+    # map, beside the same call without it (K2; K3 over the adjacency as
+    # a digit plane, with the digit builder's map)
+    a0, _, tm0 = zeng.put_batch(b0)
+    pn0 = a0.padded_rows
+    da0 = DigitTensor(digits=packed_levels(a0).to(torch.int8)[None], shape=a0.shape, bits=1)
+    tmd0 = digitmm.build_tile_map_digits(da0)
+    hs16, hs40 = (on_card(operands(SEED, pn0, pn0, n, 1, 2, 2, 0)[1], 2) for n in (16, 40))
+    shp = f"A(batch 0)[{pn0}x{pn0}]"
+    timed += [
+        ("packmm_skip", f"packmm_to_digits {shp} with its map x H[{pn0}x16]",
+         lambda: packmm.packmm_to_digits(a0, hs16, 2, tm0), lambda: packmm.packmm_plain(a0, hs16, 2, tile_map=tm0)),
+        ("packmm_skip dense", f"packmm_to_digits {shp} x H[{pn0}x16], no map",
+         lambda: packmm.packmm_to_digits(a0, hs16, 2), None),
+        ("packmm_skip f32", f"packmm_to_f32 {shp} with its map x H[{pn0}x40]",
+         lambda: packmm.packmm_to_f32(a0, hs40, tm0), lambda: packmm.packmm_plain(a0, hs40, tile_map=tm0)),
+        ("packmm_skip f32 dense", f"packmm_to_f32 {shp} x H[{pn0}x40], no map",
+         lambda: packmm.packmm_to_f32(a0, hs40), None),
+        ("digitmm_skip", f"digitmm_to_digits {shp} digit plane with its map x H[{pn0}x16]",
+         lambda: digitmm.digitmm_to_digits(da0, hs16, 2, tmd0),
+         lambda: digitmm.digitmm_plain(da0, hs16, 2, tile_map=tmd0)),
+        ("digitmm_skip dense", f"digitmm_to_digits {shp} digit plane x H[{pn0}x16], no map",
+         lambda: digitmm.digitmm_to_digits(da0, hs16, 2), None),
+    ]
     # the device work of one resident step epoch in each format (E1, E4)
-    for what, stepper in (("digits (E1)", eng), ("bits (E4)", beng4)):
+    for what, stepper in (("digits (E1)", eng), ("digits with zero-tile jumping (E1)", zeng),
+                          ("bits (E4)", beng4)):
         staged_b = [stepper.put_batch(b) for b in batcher.batches]
         timed.append(("step epoch", f"one resident step epoch, {what}, all its kernels",
                       lambda st=stepper, sb=staged_b: [st._step(*t) for t in sb], None))
@@ -736,7 +929,11 @@ def main() -> int:
                # K4: the signed plane's N real columns (the ones lane and
                # the padding are the TPU layout's, not the product's)
                "packmm_signed": (k4c.a.words[0], k4c.b.plane[:, :k4c.N].contiguous()),
-               "packmm packed": (unpack_rows(k2c.a).to(torch.int8), digit_unpack(k2c.b).to(torch.int8))}
+               "packmm packed": (unpack_rows(k2c.a).to(torch.int8), digit_unpack(k2c.b).to(torch.int8)),
+               # the K skip's shapes: batch 0's adjacency, dense in int8
+               "packmm_skip": (unpack_rows(a0).to(torch.int8), digit_unpack(hs16).to(torch.int8)),
+               "packmm_skip f32": (unpack_rows(a0).to(torch.int8), digit_unpack(hs40).to(torch.int8))}
+    lib_ops["digitmm_skip"] = lib_ops["packmm_skip"]
     # device time per call from one profiler session, in turns:
     # plain, kernel, kernel, plain
     fns = {}
@@ -756,9 +953,10 @@ def main() -> int:
     many = {i for i, t in enumerate(timed) if t[0] == "step epoch"}
     dt = device_times_ms(fns, iters={k: 1 if k[1] == "plain" or k[0] in many else
                                      10 if k[0] == "sweep" else 5 for k in fns}, warmup=1)
-    times = {}
+    times, kernel_ms = {}, {}
     for i, (kind, what, _, plain) in enumerate(timed):
         k_ms = min(dt[(i, "kernel", 0)], dt[(i, "kernel", 1)])
+        kernel_ms.setdefault(kind, k_ms)
         if plain is None:
             print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us device time per call [{card}]")
             continue
@@ -824,6 +1022,26 @@ def main() -> int:
     k5_ops = ba.shape[0] * sum(2 * ba.shape[1] ** 2 * w.shape[0] + 2 * ba.shape[1] * w.shape[0] * w.shape[1]
                                for w in bws)
     bounds["fused_baseline"] = bound(nbytes(ba, bx, *bws, bfn()), k5_ops, "bf16")
+
+    # the K skip: only the listed tiles' bytes of A (and of B the rows of
+    # the K tiles some row tile lists) and 2 * tile_m * tile_k * N
+    # operations per listed tile, N the logical columns
+    def skip_bound(tm, a_tile_bytes, b, out, n):
+        kcnt = tm.kcnt.clamp(0, tm.kidx.shape[1])
+        visit = torch.arange(tm.kidx.shape[1], device=dev)[None, :] < kcnt[:, None]
+        listed, k_tiles = int(kcnt.sum()), int(tm.kidx[visit].unique().numel())
+        b_bytes = k_tiles * tm.tile_k * b.digits.shape[0] * b.digits.shape[2]
+        ops = 2 * tm.tile_m * tm.tile_k * n * listed
+        return bound(listed * a_tile_bytes + b_bytes + nbytes(out), ops, "int8"), listed
+
+    (bounds["packmm_skip"], listed0) = skip_bound(tm0, 256 * 256 // 8, hs16,
+                                                  packmm.packmm_to_digits(a0, hs16, 2, tm0).digits, 16)
+    bounds["packmm_skip f32"] = skip_bound(tm0, 256 * 256 // 8, hs40, packmm.packmm_to_f32(a0, hs40, tm0), 40)[0]
+    bounds["digitmm_skip"] = skip_bound(tmd0, 256 * 256, hs16,
+                                        digitmm.digitmm_to_digits(da0, hs16, 2, tmd0).digits, 16)[0]
+    print(f"phase 3: K skip at C1, batch 0: {listed0} of {tm0.kidx.numel()} tiles listed; "
+          + "; ".join(f"{k} {kernel_ms[k] * 1e3:.1f} us with its map, {kernel_ms[k + ' dense'] * 1e3:.1f} "
+                      f"without" for k in ("packmm_skip", "packmm_skip f32", "digitmm_skip")) + f" [{card}]")
     for k, (b_ms, by) in bounds.items():
         lib = f", library {lib_ms[k] * 1e3:.1f} us" if k in lib_ms else ""
         print(f"phase 3: {k} bound {b_ms * 1e3:.2f} us ({by}); kernel {times[k][0] * 1e3:.1f} us, "
@@ -837,7 +1055,11 @@ def main() -> int:
                                   base_launches),
                "bitmm": ("bitmm.cu", "qgtc_ppopp22_tpu/ops/bitgemm.py:266", bits_launches),
                "packmm_signed": ("packmm_signed.cu", "qgtc_ppopp22_tpu/ops/packmm.py:473",
-                                 sweep_launches)}
+                                 sweep_launches),
+               # the TileMap K skip: the zero-tile path's mapped launches
+               "packmm_skip": ("packmm.cu", "qgtc_ppopp22_tpu/ops/packmm.py:664",
+                               {"packmm_skip": zero_launches["packmm with a map"]}),
+               "digitmm_skip": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", digit_a_launches)}
     kernels = [
         {"name": k, "route": "cuda", "source": f"qgtc_ppopp22_tpu_torch/csrc/{src}",
          "replaces": rep_, "launches": counts[k], "max_abs_err": err[k], "ms": times[k][0],

@@ -4,15 +4,19 @@ Usage mirrors the reference (``main_qgtc.py:21-41``)::
 
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --bit_width 2 \
         --use_QGTC [--run_GIN] [--resident] [--fmt digits|bits] \
-        [--mode mega [--zerotile_jump]]
+        [--mode step|mega] [--zerotile_jump]
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --regular \
         [--run_GIN] [--resident] [--mode step|fused|mega] [--eval-accuracy]
 
 ``--use_QGTC`` (the default engine) runs the quantized engine:
 ``--mode step`` (default) one GEMM chain per batch, ``--mode mega`` one
 whole-model kernel launch per shape bucket
-(``QGTCEngine.run_epochs_mega``), where ``--zerotile_jump`` forces the
-compacted block schedule (absent: the auto gate). ``--fmt bits`` runs the
+(``QGTCEngine.run_epochs_mega``). ``--zerotile_jump`` forces zero-tile
+skipping: in the digit step engine each aggregation visits only the
+adjacency's occupied 256 x 256 tiles, in mega mode the kernel takes the
+compacted block schedule (absent: off in step mode, the auto gate in
+mega mode); the record then carries the batches' ``tiles_total`` and
+``tiles_processed``, as the JAX CLI's does. ``--fmt bits`` runs the
 step engine over bit planes throughout (the one-bit tensor-core GEMM)
 instead of digit planes; the mega mode requires ``--fmt digits``. ``--regular`` runs the
 full-precision baseline (``BaselineEngine``, the DGL-driver role;
@@ -92,9 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-accuracy", action="store_true",
                    help="report accuracy (and micro/macro F1 on multilabel data)")
     p.add_argument("--zerotile_jump", action="store_true", default=None,
-                   help="mega mode: force the compacted zero-block schedule "
-                        "(absent: auto, on at >=45%% skippable blocks, "
-                        "pn >= 2048, <= 4 bits)")
+                   help="force zero-tile skipping: the step engine's TileMap K "
+                        "skip (digits), the mega kernel's compacted schedule "
+                        "(absent: off in step mode; in mega mode auto, on at "
+                        ">=45%% skippable blocks, pn >= 2048, <= 4 bits)")
     p.add_argument("--partition-method", type=str, default="auto")
     p.add_argument("--rnd_seed", type=int, default=3)
     p.add_argument("--device", type=str, default="cuda",
@@ -114,8 +119,6 @@ def main(argv=None) -> int:
         parser.error("--fmt is the quantized engine's option")
     if args.fmt != "digits" and args.mode != "step":
         parser.error(f"{args.mode} mode requires fmt='digits'")
-    if args.mode != "mega" and args.zerotile_jump:
-        parser.error("--zerotile_jump is not yet ported to the step engine (use --mode mega)")
     if args.mode == "fused" and not args.regular:
         parser.error("--mode fused is not yet ported to the quantized engine")
     if args.mode != "step" and args.resident:
@@ -187,6 +190,12 @@ def main(argv=None) -> int:
     record["epoch_ms"] = stats.epoch_ms
     if args.mode == "mega":
         record["buckets"] = eng.mega_buckets
+    if args.zerotile_jump:
+        # the reference's tile counters (print_counter, kernel.h:17-28), a
+        # host-side sum of the maps shipped with the batches
+        processed, total = batcher.tile_counts()
+        record["tiles_total"], record["tiles_processed"] = total, processed
+        print(f"zero-tile: processed {processed}/{total} (jumped {1 - processed / max(total, 1):.1%})")
     if args.eval_accuracy:
         record["accuracy"] = evaluate(ds.labels)
         print(f"accuracy: {record['accuracy']:.4f}")

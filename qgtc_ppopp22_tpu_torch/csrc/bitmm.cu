@@ -52,9 +52,8 @@ struct Args {
   void* out;             // f32 [mp][np], or int32 planes [out_bits][mp/32][np]
   const uint32_t* a;     // int32 planes [a_bits][mp/32][kp]
   const uint32_t* b;     // int32 planes [b_bits][kp/32][np]
-  const int* kidx;       // TileMap [mp/tile_m][kp/tile_k], or null (dense)
-  const int* kcnt;       // TileMap [mp/tile_m], or null
-  int a_bits, b_bits, mp, kp, np, out_bits, tile_m, tile_k;
+  KMap map;              // the TileMap, or null pointers (dense)
+  int a_bits, b_bits, mp, kp, np, out_bits;
 };
 
 __device__ __forceinline__ void mma_b1(int (&d)[4], const uint32_t (&a)[4],
@@ -99,21 +98,12 @@ __global__ void __launch_bounds__(THREADS) bitmm_kernel(Args p) {
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
 
   // The K tiles to visit: the whole contraction as one tile, or the
-  // TileMap row of this CTA's rows (the TPU kernel's sequential grid axis
-  // guarded by t < kcnt[i], as a loop).
-  int ntiles = 1, tile_k = p.kp, nk = 1;
-  const int* list = nullptr;
-  if (p.kcnt != nullptr) {
-    const int i = m0 / p.tile_m;
-    nk = p.kp / p.tile_k;
-    ntiles = min(p.kcnt[i], nk);
-    list = p.kidx + (size_t)i * nk;
-    tile_k = p.tile_k;
-  }
-  for (int t = 0; t < ntiles; ++t) {
-    const int kt = list != nullptr ? list[t] : 0;
-    if (kt < 0 || kt >= nk) continue;  // outside the grid: nothing to read
-    for (int k0 = kt * tile_k; k0 < (kt + 1) * tile_k; k0 += KC) {
+  // TileMap row of this CTA's rows (gemm_core.cuh KTiles).
+  const KTiles kt(p.map, m0, p.kp);
+  for (int t = 0; t < kt.n; ++t) {
+    const int kb = kt.start(t);
+    if (kb < 0) continue;  // outside the grid: nothing to read
+    for (int k0 = kb; k0 < kb + kt.depth; k0 += KC) {
       // A: one 32 x 32 bit block (32 rows x 32 k) per warp step; lane L
       // reads the word of column k0 + 32c + L and keeps row 32r + L.
       const int nblk = p.a_bits * (BM / 32) * KW;
@@ -211,19 +201,17 @@ extern "C" int qgtc_bitmm(void* out, const void* a, const void* b,
                           int b_bits, int mp, int kp, int np, int out_bits,
                           int tile_m, int tile_k, void* stream) {
   using namespace qgtc::bitmm;
-  const bool sparse = kidx != nullptr || kcnt != nullptr;
+  const qgtc::KMap map{static_cast<const int*>(kidx), static_cast<const int*>(kcnt),
+                       tile_m, tile_k};
   if (out == nullptr || a == nullptr || b == nullptr) return (int)cudaErrorInvalidValue;
   if (a_bits < 1 || a_bits > MAX_BITS || b_bits < 1 || b_bits > MAX_BITS ||
       out_bits < 0 || out_bits > MAX_BITS)
     return (int)cudaErrorInvalidValue;
-  if (mp <= 0 || kp <= 0 || np <= 0 || mp % BM || kp % KC || np % BN)
-    return (int)cudaErrorInvalidValue;
-  if (sparse && (kidx == nullptr || kcnt == nullptr || tile_m <= 0 || tile_k <= 0 ||
-                 tile_m % BM || tile_k % KC || mp % tile_m || kp % tile_k))
+  if (mp <= 0 || kp <= 0 || np <= 0 || mp % BM || kp % KC || np % BN ||
+      !qgtc::map_ok(map, mp, kp, BM, KC))
     return (int)cudaErrorInvalidValue;
   const Args args{out, static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-                  static_cast<const int*>(kidx), static_cast<const int*>(kcnt),
-                  a_bits, b_bits, mp, kp, np, out_bits, tile_m, tile_k};
+                  map, a_bits, b_bits, mp, kp, np, out_bits};
   const dim3 grid(np / BN, mp / BM);
   bitmm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(args);
   return (int)cudaGetLastError();

@@ -4,9 +4,11 @@
 // fused_model_epoch (kernel at :616, pallas_call at :1279): the dense
 // digit chain and the occupancy-compacted block schedule (blk_sched),
 // with 1 or 2 base-16 digit planes per operand, per-GEMM requantize
-// shifts and the out_cols store slice. The >4-bit offset-signed chain
-// (x_levels_bits), the predicated chunk_occ form, the streamed adjacency
-// and the lane stacking of digit planes are not ported.
+// shifts and the out_cols store slice. The predicated chunk_occ form
+// runs as a block schedule (ops/fused_model.py compacts the map on the
+// host), and the streamed adjacency is this launch too. The >4-bit
+// offset-signed chain (x_levels_bits) is not ported yet; the lane
+// stacking of digit planes is a TPU mechanism with nothing to port.
 //
 // Chain per batch (ops/fused_model.py):
 //   GCN: XW1 -> A(.) -> (.)W2 -> A(.) -> (.)W3 -> A(.) [f32 out]

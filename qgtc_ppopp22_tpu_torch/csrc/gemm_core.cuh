@@ -22,9 +22,15 @@
 // ocp (a multiple of 8, at most np) is the stored width of the terminal
 // forms; columns >= mask_n are stored as level 0 (sum 0).
 //
+// Zero-tile jumping (KMap, the TPU kernels' TileMap): with a map, a CTA
+// loops over the K tiles that its row tile's map row lists instead of the
+// whole contraction; the epilogue runs either way, so every output
+// element is written, rows whose kcnt is 0 included.
+//
 // Design: a CTA owns ROWS x BN outputs, ROWS = 64 (4 warps) or, for packed
 // words, one whole 256-row group (16 warps), and loops over the whole
-// contraction itself (nothing carries across CTAs). Per BK step it stages
+// contraction (or its listed K tiles) itself (nothing carries across
+// CTAs). Per BK step it stages
 // the A and B tiles in shared memory, B transposed to [n][k] so that both
 // mma.sync fragments are plain 32-bit loads, and runs int8
 // mma.sync.m16n8k32 with one int32 accumulator set per digit shift
@@ -81,6 +87,50 @@ struct Epilogue {
 // True when the output is M-packed words (one CTA per 256-row group).
 __host__ __device__ inline bool group_out(int kind, int out_bits) {
   return kind == OUT_PACKED && out_bits <= 4;
+}
+
+// A zero-tile schedule over A's (tile_m x tile_k) tiles (ops/bitgemm.py
+// TileMap): row tile i visits K tiles kidx[i][t] for t < kcnt[i]. Null
+// pointers: the whole contraction.
+struct KMap {
+  const int* kidx;  // int32 [mp / tile_m][kp / tile_k]
+  const int* kcnt;  // int32 [mp / tile_m]
+  int tile_m, tile_k;
+};
+
+// The K ranges one CTA visits: the first min(kcnt[i], nk) entries of its
+// row tile i's map row (the TPU kernel's sequential grid axis guarded by
+// t < kcnt[i], as a loop), or the whole contraction as one range.
+struct KTiles {
+  const int* list;
+  int n, nk, depth;
+
+  __device__ __forceinline__ KTiles(const KMap& m, int m0, int kp)
+      : list(nullptr), n(1), nk(1), depth(kp) {
+    if (m.kcnt != nullptr) {
+      const int i = m0 / m.tile_m;
+      nk = kp / m.tile_k;
+      n = min(__ldg(m.kcnt + i), nk);
+      list = m.kidx + (size_t)i * nk;
+      depth = m.tile_k;
+    }
+  }
+  // The first column of range t, or -1 for an entry outside the grid
+  // (nothing to read; the TPU kernel leaves it undefined).
+  __device__ __forceinline__ int start(int t) const {
+    const int kt = list != nullptr ? __ldg(list + t) : 0;
+    return kt < 0 || kt >= nk ? -1 : kt * depth;
+  }
+};
+
+// A map the kernels can index: both pointers or neither; tiles that
+// divide the padded extents, tile_m a multiple of the CTA's rows and
+// tile_k of the K step.
+inline bool map_ok(const KMap& m, int mp, int kp, int rows, int k_step) {
+  if (m.kidx == nullptr && m.kcnt == nullptr) return true;
+  return m.kidx != nullptr && m.kcnt != nullptr && m.tile_m > 0 && m.tile_k > 0 &&
+         m.tile_m % rows == 0 && m.tile_k % k_step == 0 && mp % m.tile_m == 0 &&
+         kp % m.tile_k == 0;
 }
 
 // Plain int8 rows, [ND][mp][kp]: digit planes, or the one offset-signed
@@ -223,10 +273,10 @@ __device__ __forceinline__ void store_pair(const Epilogue& ep, int row,
 
 // PACK: the CTA owns one 256-row group and writes packed words; otherwise
 // a 64-row tile stored pair by pair.
-template <int ND_A, int ND_B, int CORR, bool PACK, class ALoader>
+template <int ND_A, int ND_B, int CORR, bool PACK, bool MAPPED, class ALoader>
 __global__ void __launch_bounds__(PACK ? 2 * GROUP : THREADS)
     gemm_kernel(ALoader la, const int8_t* __restrict__ b, int kp,
-                Epilogue ep) {
+                Epilogue ep, KMap km) {
   constexpr int ROWS = PACK ? GROUP : BM;
   constexpr int NT = 2 * ROWS;  // 4 warps per 64 rows
   __shared__ __align__(16) int8_t As[ND_A][ROWS][LDS];
@@ -250,55 +300,68 @@ __global__ void __launch_bounds__(PACK ? 2 * GROUP : THREADS)
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[s][mt][nt][i] = 0;
-  int cs = 0;  // CORR_COLSUM: column tid's B sum; CORR_PREPARED: row tid's A sum
+  // CORR_COLSUM: column tid's B sum over the visited K tiles only (a
+  // skipped tile drops its dot and its correction together, as on the
+  // TPU); CORR_PREPARED: row tid's A sum
+  int cs = 0;
 
-  for (int k0 = 0; k0 < kp; k0 += BK) {
-    la.template load<ND_A, ROWS>(As, m0, k0, tid);
-    load_b<ND_B, NT>(Bs, b, kp, ep.np, k0, n0, tid);
-    __syncthreads();
-    if (CORR == CORR_COLSUM && tid < BN) {
+  // The K ranges this CTA visits. Dense (MAPPED false): the whole
+  // contraction as one range, so the loop is the plain k0 loop. MAPPED:
+  // the K tiles its row tile's map row lists (KTiles), BK steps each.
+  const KTiles kt(km, m0, kp);
+  const int nr = MAPPED ? kt.n : 1;
+  for (int t = 0; t < nr; ++t) {
+    const int kb = MAPPED ? kt.start(t) : 0;
+    if (kb < 0) continue;  // outside the grid: nothing to read
+    const int ke = MAPPED ? kb + kt.depth : kp;
+    for (int k0 = kb; k0 < ke; k0 += BK) {
+      la.template load<ND_A, ROWS>(As, m0, k0, tid);
+      load_b<ND_B, NT>(Bs, b, kp, ep.np, k0, n0, tid);
+      __syncthreads();
+      if (CORR == CORR_COLSUM && tid < BN) {
 #pragma unroll
-      for (int e = 0; e < ND_B; ++e)
-        for (int k = 0; k < BK; ++k) cs += (int)Bs[e][tid][k] << (4 * e);
-    }
-    if (CORR == CORR_PREPARED && tid < ROWS) {
-      const int* row = reinterpret_cast<const int*>(&As[0][tid][0]);
+        for (int e = 0; e < ND_B; ++e)
+          for (int k = 0; k < BK; ++k) cs += (int)Bs[e][tid][k] << (4 * e);
+      }
+      if (CORR == CORR_PREPARED && tid < ROWS) {
+        const int* row = reinterpret_cast<const int*>(&As[0][tid][0]);
 #pragma unroll
-      for (int w = 0; w < BK / 4; ++w) cs = __dp4a(row[w], 0x01010101, cs);
-    }
+        for (int w = 0; w < BK / 4; ++w) cs = __dp4a(row[w], 0x01010101, cs);
+      }
 #pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t af[ND_A][2][4];
-      uint32_t bf[ND_B][4][2];
+      for (int ks = 0; ks < BK; ks += 32) {
+        uint32_t af[ND_A][2][4];
+        uint32_t bf[ND_B][4][2];
 #pragma unroll
-      for (int d = 0; d < ND_A; ++d)
+        for (int d = 0; d < ND_A; ++d)
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int8_t* p = &As[d][wm + mt * 16 + g][ks + t4 * 4];
-          af[d][mt][0] = *reinterpret_cast<const uint32_t*>(p);
-          af[d][mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-          af[d][mt][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-          af[d][mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
-        }
-#pragma unroll
-      for (int e = 0; e < ND_B; ++e)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int8_t* p = &Bs[e][wn + nt * 8 + g][ks + t4 * 4];
-          bf[e][nt][0] = *reinterpret_cast<const uint32_t*>(p);
-          bf[e][nt][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-        }
-#pragma unroll
-      for (int d = 0; d < ND_A; ++d)
+          for (int mt = 0; mt < 2; ++mt) {
+            const int8_t* p = &As[d][wm + mt * 16 + g][ks + t4 * 4];
+            af[d][mt][0] = *reinterpret_cast<const uint32_t*>(p);
+            af[d][mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
+            af[d][mt][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+            af[d][mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
+          }
 #pragma unroll
         for (int e = 0; e < ND_B; ++e)
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
+          for (int nt = 0; nt < 4; ++nt) {
+            const int8_t* p = &Bs[e][wn + nt * 8 + g][ks + t4 * 4];
+            bf[e][nt][0] = *reinterpret_cast<const uint32_t*>(p);
+            bf[e][nt][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+          }
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              mma_s8(acc[d + e][mt][nt], af[d][mt], bf[e][nt]);
+        for (int d = 0; d < ND_A; ++d)
+#pragma unroll
+          for (int e = 0; e < ND_B; ++e)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt)
+                mma_s8(acc[d + e][mt][nt], af[d][mt], bf[e][nt]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
   if (CORR == CORR_COLSUM) {
     if (tid < BN) colsum[tid] = cs;
@@ -364,25 +427,37 @@ __global__ void __launch_bounds__(PACK ? 2 * GROUP : THREADS)
 // One kernel instantiation: PACK chooses the 256-row CTA. Digit planes
 // keep their padding, so they take every column tile; the terminal kinds
 // take only the tiles that hold stored columns (< ocp): a tile past them
-// would stream all of A through the K loop for sums nobody stores.
+// would stream all of A through the K loop for sums nobody stores. A map
+// (km) whose row tiles split a CTA's rows is refused; null pointers launch
+// the dense instantiation (MAPPED false), whose K loop carries no map.
 template <int ND_A, int ND_B, int CORR, bool PACK, class ALoader>
 int launch_tiles(const ALoader& la, const void* b, int mp, int kp, int np,
-                 const Epilogue& ep, cudaStream_t stream) {
+                 const Epilogue& ep, const KMap& km, cudaStream_t stream) {
   constexpr int ROWS = PACK ? GROUP : BM;
+  if (!map_ok(km, mp, kp, ROWS, BK)) return (int)cudaErrorInvalidValue;
   const int col_tiles = ep.kind == OUT_DIGITS ? np / BN : (ep.ocp + BN - 1) / BN;
   const dim3 grid(col_tiles, mp / ROWS);
-  gemm_kernel<ND_A, ND_B, CORR, PACK, ALoader><<<grid, 2 * ROWS, 0, stream>>>(
-      la, static_cast<const int8_t*>(b), kp, ep);
+  const int8_t* bp = static_cast<const int8_t*>(b);
+  if constexpr (CORR == CORR_PREPARED) {
+    // a PreparedRHS takes no map (the TPU kernel refuses one)
+    if (km.kcnt != nullptr) return (int)cudaErrorInvalidValue;
+  } else if (km.kcnt != nullptr) {
+    gemm_kernel<ND_A, ND_B, CORR, PACK, true, ALoader>
+        <<<grid, 2 * ROWS, 0, stream>>>(la, bp, kp, ep, km);
+    return (int)cudaGetLastError();
+  }
+  gemm_kernel<ND_A, ND_B, CORR, PACK, false, ALoader>
+      <<<grid, 2 * ROWS, 0, stream>>>(la, bp, kp, ep, km);
   return (int)cudaGetLastError();
 }
 
 // Every output kind, packed words included.
 template <int ND_A, int ND_B, int CORR, class ALoader>
 int launch(const ALoader& la, const void* b, int mp, int kp, int np,
-           const Epilogue& ep, cudaStream_t stream) {
+           const Epilogue& ep, const KMap& km, cudaStream_t stream) {
   if (group_out(ep.kind, ep.out_bits))
-    return launch_tiles<ND_A, ND_B, CORR, true>(la, b, mp, kp, np, ep, stream);
-  return launch_tiles<ND_A, ND_B, CORR, false>(la, b, mp, kp, np, ep, stream);
+    return launch_tiles<ND_A, ND_B, CORR, true>(la, b, mp, kp, np, ep, km, stream);
+  return launch_tiles<ND_A, ND_B, CORR, false>(la, b, mp, kp, np, ep, km, stream);
 }
 
 inline bool shapes_ok(int mp, int kp, int np, int kind, int out_bits,

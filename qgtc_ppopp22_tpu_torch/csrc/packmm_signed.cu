@@ -51,6 +51,6 @@ extern "C" int qgtc_packmm_signed(void* out, const void* a, const void* plane,
   const Epilogue ep{out, mp, np, out_kind, out_bits, shift, ocp, mask_n,
                     static_cast<const int*>(corr)};
   const Int8Loader la{static_cast<const int8_t*>(a), mp, kp};
-  return launch<1, 1, CORR_PREPARED>(la, plane, mp, kp, np, ep,
+  return launch<1, 1, CORR_PREPARED>(la, plane, mp, kp, np, ep, KMap{},
                                      static_cast<cudaStream_t>(stream));
 }

@@ -113,6 +113,13 @@ class ClusterBatcher:
             self._build_batch(g, i) for i in range(self.max)
         ]
 
+    def tile_counts(self) -> Tuple[int, int]:
+        """``(processed, total)`` over every batch's zero-tile map: the
+        K tiles the maps list, and all K tiles of the 256 x 256 grids (the
+        reference's ``print_counter`` tile counters)."""
+        processed = sum(int(b.tile_kcnt.sum()) for b in self.batches)
+        return processed, sum(b.tile_kidx.numel() for b in self.batches)
+
     def _build_batch(self, g: CSRGraph, i: int) -> ClusterBatch:
         parts = self.par_li[i * self.batch_size : (i + 1) * self.batch_size]
         nonempty = [p for p in parts if len(p)]

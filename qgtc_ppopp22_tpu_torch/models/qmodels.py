@@ -15,7 +15,9 @@ adjacency, to ``bitgemm`` when it is a ``BitTensor``, else to
 ``digitmm``. ``plain=True`` runs their plain PyTorch versions instead of
 the kernels, on whatever device the operands are: the on-device
 reference the kernels are held against. A ``tile_map`` (zero-tile
-jumping) goes to the aggregations only, and only ``bitgemm`` takes one.
+jumping over the adjacency's all-zero tiles) goes to every product whose
+left operand is the adjacency (JAX ``models/qmodels.py:51-74``), in
+whichever of the three GEMMs that is.
 """
 
 from __future__ import annotations
@@ -55,31 +57,21 @@ def _mm_to_bits(a, b, out_bits: int, shift: int, plain: bool, tile_map=None):
         if plain:
             return bitmm_plain(a, b, out_bits, tile_map)
         return bitmm_to_bits(a, b, out_bits, tile_map=tile_map)
-    _no_tile_map(tile_map)
     if isinstance(a, PackedTensor):
         if plain:
-            return packmm_plain(a, b, out_bits, shift)
-        return packmm_to_digits(a, b, out_bits, shift=shift)
+            return packmm_plain(a, b, out_bits, shift, tile_map=tile_map)
+        return packmm_to_digits(a, b, out_bits, tile_map=tile_map, shift=shift)
     if plain:
-        return digitmm_plain(a, b, out_bits, shift)
-    return digitmm_to_digits(a, b, out_bits, shift=shift)
+        return digitmm_plain(a, b, out_bits, shift, tile_map=tile_map)
+    return digitmm_to_digits(a, b, out_bits, tile_map=tile_map, shift=shift)
 
 
 def _mm_to_f32(a, b, plain: bool, tile_map=None) -> torch.Tensor:
     if isinstance(a, BitTensor):
         return bitmm_plain(a, b, None, tile_map) if plain else bitmm_to_int(a, b, tile_map=tile_map)
-    _no_tile_map(tile_map)
     if isinstance(a, PackedTensor):
-        return packmm_plain(a, b) if plain else packmm_to_f32(a, b)
-    return digitmm_plain(a, b) if plain else digitmm_to_f32(a, b)
-
-
-def _no_tile_map(tile_map) -> None:
-    if tile_map is not None:
-        raise NotImplementedError(
-            "the TileMap K skip of packmm / digitmm is not yet ported; "
-            "only the bit-plane GEMM (fmt='bits') takes a tile_map"
-        )
+        return packmm_plain(a, b, tile_map=tile_map) if plain else packmm_to_f32(a, b, tile_map)
+    return digitmm_plain(a, b, tile_map=tile_map) if plain else digitmm_to_f32(a, b, tile_map)
 
 
 @dataclasses.dataclass(frozen=True)

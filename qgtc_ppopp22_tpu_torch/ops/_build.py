@@ -91,13 +91,15 @@ def library() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(str(LIB_PATH))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # 13 arguments: (out, a, b, a_arg, nd_b, mp, kp, np, out_kind,
-        # out_bits, shift, ocp, stream), a_arg being nd_a for digitmm and
-        # the field width for packmm, ocp the stored columns of the f32,
-        # i32 and packed outputs; see csrc/gemm_core.cuh.
-        lib.qgtc_digitmm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+        # 17 arguments: (out, a, b, a_arg, nd_b, mp, kp, np, out_kind,
+        # out_bits, shift, ocp, kidx, kcnt, tile_m, tile_k, stream), a_arg
+        # being nd_a for digitmm and the field width for packmm, ocp the
+        # stored columns of the f32, i32 and packed outputs, kidx / kcnt
+        # the TileMap (null: dense); see csrc/gemm_core.cuh.
+        mapped = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, i, i, p]
+        lib.qgtc_digitmm.argtypes = mapped
         lib.qgtc_digitmm.restype = i
-        lib.qgtc_packmm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+        lib.qgtc_packmm.argtypes = mapped
         lib.qgtc_packmm.restype = i
         # (out, a, plane, corr, mp, kp, np, out_kind, out_bits, shift, ocp,
         # mask_n, stream); see csrc/packmm_signed.cu.

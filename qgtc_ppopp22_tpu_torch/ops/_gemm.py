@@ -1,5 +1,6 @@
-"""Plumbing shared by the GEMM modules (``digitmm``, ``packmm``): the
-int32 accumulator guard, the plain epilogue and the kernel launch."""
+"""Plumbing shared by the GEMM modules (``digitmm``, ``packmm``,
+``bitgemm``): the int32 accumulator guard, the zero-tile map's checks and
+visit counts, the plain product and epilogue, and the kernel launch."""
 
 from __future__ import annotations
 
@@ -8,7 +9,13 @@ from typing import Optional, Tuple
 import torch
 
 from qgtc_ppopp22_tpu_torch.ops._build import check, library
-from qgtc_ppopp22_tpu_torch.ops.bitpack import DIGIT_BITS, field_width, num_digits, packed_signed
+from qgtc_ppopp22_tpu_torch.ops.bitpack import (
+    DIGIT_BITS,
+    field_width,
+    num_digits,
+    packed_signed,
+    u32_to_i32,
+)
 from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor, split_digits
 from qgtc_ppopp22_tpu_torch.ops.quantize import requantize_wrapped
 
@@ -35,14 +42,83 @@ def check_accumulator(nd_a: int, nd_b: int, kp: int, signed: bool = False) -> No
         )
 
 
-def plain_product(a_levels: torch.Tensor, b_levels: torch.Tensor) -> torch.Tensor:
+def occupancy_schedule(occ: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A bool occupancy grid ``occ[nm, nk]`` of A's tiles -> the
+    ``TileMap`` arrays ``(kidx, kcnt)``: per row tile, the occupied K
+    tiles first, in order, then the last one repeated (0 where none is
+    occupied), as JAX's builders order them."""
+    nk = occ.shape[1]
+    kcnt = occ.sum(dim=1).to(torch.int32)
+    # A stable argsort of "not occupied" puts the occupied tiles first, in order.
+    order = torch.argsort((~occ).to(torch.int32), dim=1, stable=True)
+    t = torch.arange(nk, device=occ.device)[None, :]
+    clamp = torch.minimum(t, (kcnt.to(torch.int64) - 1).clamp(min=0)[:, None])
+    return torch.gather(order, 1, clamp).to(torch.int32), kcnt
+
+
+def check_tile_map(tile_map, mp: int, kp: int, device, row_multiple: int) -> None:
+    """The checks a ``TileMap`` (``ops/bitgemm.py``) passes before a
+    GEMM over an A of ``mp`` x ``kp`` padded levels visits its tiles:
+    ``(tile_m, tile_k)`` divide ``(mp, kp)`` (JAX ``packmm.py:780-789``),
+    ``tile_m`` is a multiple of ``row_multiple`` (a kernel CTA's rows lie
+    in one row tile) and ``tile_k`` of the kernel's K step, ``kidx`` is
+    ``[mp / tile_m, kp / tile_k]`` and ``kcnt`` ``[mp / tile_m]``, both
+    on A's device. Raises ``ValueError``, on every device alike."""
+    tm, tk = tile_map.tile_m, tile_map.tile_k
+    if tm <= 0 or tk <= 0 or mp % tm or kp % tk or tm % row_multiple or tk % TILE:
+        raise ValueError(
+            f"tile_map tiles {(tm, tk)} do not divide padded dims {(mp, kp)} "
+            f"(tile_m must be a multiple of {row_multiple}, tile_k of {TILE})"
+        )
+    nm, nk = mp // tm, kp // tk
+    if tuple(tile_map.kidx.shape) != (nm, nk) or tuple(tile_map.kcnt.shape) != (nm,):
+        raise ValueError(
+            f"tile_map kidx {tuple(tile_map.kidx.shape)} / kcnt {tuple(tile_map.kcnt.shape)} "
+            f"for a {nm} x {nk} tile grid"
+        )
+    if tile_map.kidx.device != device or tile_map.kcnt.device != device:
+        raise ValueError(f"tile_map on {tile_map.kidx.device}, operands on {device}")
+
+
+def tile_weights(tile_map, rows: int, cols: int) -> torch.Tensor:
+    """How many times the schedule visits each element's tile: int64
+    [rows, cols]. The kernels add a K tile once per visit (the first
+    ``min(kcnt, nk)`` entries of its row); an index outside the grid is
+    skipped."""
+    kidx = tile_map.kidx.to(torch.int64)
+    nm, nk = kidx.shape
+    visit = torch.arange(nk, device=kidx.device)[None, :] < tile_map.kcnt.to(torch.int64)[:, None]
+    visit &= (kidx >= 0) & (kidx < nk)
+    counts = torch.zeros((nm, nk), dtype=torch.int64, device=kidx.device)
+    counts.scatter_add_(1, kidx.clamp(0, nk - 1), visit.to(torch.int64))
+    full = counts.repeat_interleave(tile_map.tile_m, 0).repeat_interleave(tile_map.tile_k, 1)
+    return full[:rows, :cols]
+
+
+def plain_product(a_levels: torch.Tensor, b_levels: torch.Tensor, tile_map=None) -> torch.Tensor:
     """Exact integer product of two level matrices, in float64.
 
     The accumulator guard keeps every partial sum below 2^31 < 2^53, so
-    the float64 product is exact in any summation order."""
-    return torch.matmul(a_levels.to(torch.float64), b_levels.to(torch.float64)).to(
-        torch.int64
-    )
+    the float64 product is exact in any summation order. With a
+    ``tile_map``, each of A's tiles counts as often as the map visits it
+    (:func:`tile_weights`), and the sum wraps to int32 as the kernels'
+    does (a tile listed twice can pass the guard)."""
+    if tile_map is not None:
+        a_levels = a_levels.to(torch.int64) * tile_weights(tile_map, *a_levels.shape)
+    acc = torch.matmul(a_levels.to(torch.float64), b_levels.to(torch.float64)).to(torch.int64)
+    if tile_map is not None:
+        acc = u32_to_i32(acc & 0xFFFFFFFF).to(torch.int64)
+    return acc
+
+
+def map_args(tile_map) -> tuple:
+    """The C arguments ``(kidx, kcnt, tile_m, tile_k)`` of a mapped GEMM
+    entry (``csrc/gemm_core.cuh`` ``KMap``): null pointers for none."""
+    if tile_map is None:
+        return None, None, 0, 0
+    return (_operand(tile_map.kidx, torch.int32, "tile_map.kidx"),
+            _operand(tile_map.kcnt, torch.int32, "tile_map.kcnt"),
+            tile_map.tile_m, tile_map.tile_k)
 
 
 def plain_epilogue(
@@ -111,7 +187,8 @@ def launch(
 ):
     """Run the CUDA entry point ``entry`` of the kernel library, whose C
     arguments are ``(out, A, B, *head, mp, kp, np, out_kind, out_bits,
-    shift, ocp, *tail, stream)``.
+    shift, ocp, *tail, stream)`` (a mapped entry's ``tail`` is
+    :func:`map_args`).
 
     ``b`` is int8[nd_b, kp, np]; ``ocp`` the stored columns of an f32, i32
     or packed output (np if None). The output is allocated here

@@ -84,12 +84,7 @@ def build_tile_map(
         raise ValueError(f"tiles {(tile_m, tile_k)} do not divide planes {tuple(a.planes.shape)}")
     nm, nk = mw // tmw, kp // tile_k
     occ = (a.planes.reshape(bits, nm, tmw, nk, tile_k) != 0).any(dim=4).any(dim=2).any(dim=0)
-    kcnt = occ.sum(dim=1).to(torch.int32)
-    # A stable argsort of "not occupied" puts the occupied tiles first, in order.
-    order = torch.argsort((~occ).to(torch.int32), dim=1, stable=True)
-    t = torch.arange(nk, device=occ.device)[None, :]
-    clamp = torch.minimum(t, (kcnt.to(torch.int64) - 1).clamp(min=0)[:, None])
-    kidx = torch.gather(order, 1, clamp).to(torch.int32)
+    kidx, kcnt = _gemm.occupancy_schedule(occ)
     return TileMap(kidx=kidx, kcnt=kcnt, tile_m=tile_m, tile_k=tile_k)
 
 
@@ -134,20 +129,6 @@ def _check(a: BitTensor, b: BitTensor, out_bits: Optional[int],
     return tm, tk
 
 
-def _tile_weights(tile_map: TileMap, rows: int, cols: int) -> torch.Tensor:
-    """How many times the schedule visits each element's tile: int64
-    [rows, cols]. The kernel adds a K tile once per visit; an index
-    outside the grid is skipped."""
-    kidx = tile_map.kidx.to(torch.int64)
-    nm, nk = kidx.shape
-    visit = torch.arange(nk, device=kidx.device)[None, :] < tile_map.kcnt.to(torch.int64)[:, None]
-    visit &= (kidx >= 0) & (kidx < nk)
-    counts = torch.zeros((nm, nk), dtype=torch.int64, device=kidx.device)
-    counts.scatter_add_(1, kidx.clamp(0, nk - 1), visit.to(torch.int64))
-    full = counts.repeat_interleave(tile_map.tile_m, 0).repeat_interleave(tile_map.tile_k, 1)
-    return full[:rows, :cols]
-
-
 def bitmm_plain(
     a: BitTensor, b: BitTensor, out_bits: Optional[int], tile_map: Optional[TileMap] = None
 ):
@@ -157,10 +138,7 @@ def bitmm_plain(
     it (once if listed, 0 if not). Returns what the matching wrapper
     returns: a BitTensor for ``out_bits``, else float32 [M, N]."""
     _check(a, b, out_bits, tile_map)
-    la = unpack_bits(a).to(torch.int64)
-    if tile_map is not None:
-        la = la * _tile_weights(tile_map, *la.shape)
-    acc = u32_to_i32(_gemm.plain_product(la, unpack_bits(b)) & 0xFFFFFFFF)
+    acc = u32_to_i32(_gemm.plain_product(unpack_bits(a), unpack_bits(b), tile_map) & 0xFFFFFFFF)
     if out_bits is None:
         return acc.to(torch.float32)
     return pack_bits(requantize_wrapped(acc, out_bits), out_bits)
@@ -178,10 +156,7 @@ def _launch(a: BitTensor, b: BitTensor, out_bits: Optional[int],
         out = torch.empty((out_bits, mp // ROWS_PER_WORD, np_), dtype=torch.int32, device=dev)
     a_ptr = _gemm._operand(a.planes, torch.int32, "A planes")
     b_ptr = _gemm._operand(b.planes, torch.int32, "B planes")
-    kidx = kcnt = None
-    if tile_map is not None:
-        kidx = _gemm._operand(tile_map.kidx, torch.int32, "tile_map.kidx")
-        kcnt = _gemm._operand(tile_map.kcnt, torch.int32, "tile_map.kcnt")
+    kidx, kcnt, _, _ = _gemm.map_args(tile_map)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

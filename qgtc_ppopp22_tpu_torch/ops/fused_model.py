@@ -21,13 +21,17 @@ so): the kernel multiplies only the real widths, rounded up to 32.
 kernel (``runtime.mega_block_sched``): per (batch, row chunk)
 ``[count, j_0, ..]``, and each aggregation of that chunk multiplies only
 the ``count`` listed column blocks. With a real occupancy schedule the
-result equals the dense one.
+result equals the dense one. ``chunk_occ``, the JAX kernel's predicated
+occupancy map (one flag per row chunk, or per row chunk and column
+block), is compacted on its device into that schedule
+(:func:`chunk_occ_sched`) and runs the same launch. ``resident_a`` names
+a TPU residency tier: on the card A is read from device memory (or L2)
+either way, so ``False`` is the same launch.
 
 Dispatch: tensors on the CPU run :func:`fused_model_epoch_plain`;
-tensors on a CUDA device launch the kernel or raise. Not ported (ROADMAP
-queue 1 item 6): levels-form X with the >4-bit offset-signed chain
-(``x_levels_bits``), the streaming predicated ``chunk_occ`` form, the
-streamed adjacency (``resident_a=False``) and ``unpack_once``.
+tensors on a CUDA device launch the kernel or raise. Not yet ported:
+levels-form X with the >4-bit offset-signed chain (``x_levels_bits``)
+and ``unpack_once``.
 
 K5 (``csrc/fused_baseline.cu``): the dense bf16 chain of
 ``models/baselines.sage_forward`` over ``int8[B, pn, pn]`` 0/1 adjacency
@@ -58,7 +62,6 @@ BASELINE_LAUNCHES = 0  # fused_baseline launches, likewise
 _RPW = 32  # adjacency rows per packed word (1-bit)
 _WIDTH = 32  # the kernel's column granule: real widths round up to it
 MAX_LAYERS = 8  # csrc/fused_model.cu MAX_LAYERS
-_ROADMAP = "not yet ported (ROADMAP queue 1 item 6)"
 
 
 def mega_colblock(pn: int) -> int:
@@ -153,20 +156,54 @@ def plan(
     return MegaPlan(B, pn, nd_x, xp, nd_w, nd_h, chunk, nj, oc, widths)
 
 
-def _refuse_unported(x_levels_bits, chunk_occ, resident_a, unpack_once) -> None:
-    for name, val, bad in (
-        ("x_levels_bits", x_levels_bits, x_levels_bits is not None),
-        ("chunk_occ", chunk_occ, chunk_occ is not None),
-        ("resident_a", resident_a, resident_a is False),
-        ("unpack_once", unpack_once, bool(unpack_once)),
-    ):
-        if bad:
-            raise NotImplementedError(f"fused_model_epoch({name}={val!r}) is {_ROADMAP}")
+def _refuse_unported(x_levels_bits, unpack_once) -> None:
+    if x_levels_bits is not None:
+        raise NotImplementedError(
+            f"fused_model_epoch(x_levels_bits={x_levels_bits!r}) is not yet ported: the "
+            ">4-bit offset-signed chain; pass X as digit planes")
+    if unpack_once:
+        raise NotImplementedError(
+            "fused_model_epoch(unpack_once=True) is not yet ported: the TPU's "
+            "unpack-once VMEM tier")
 
 
-def _sched_mask(sched: torch.Tensor, chunk: int, pn: int) -> torch.Tensor:
-    """One batch's schedule -> int32 mask over its packed words
-    [pn/32, pn]: 1 on the listed (row chunk, column block) blocks."""
+def chunk_occ_sched(chunk_occ: torch.Tensor, B: int, pn: int, chunk: int) -> torch.Tensor:
+    """The JAX kernel's occupancy map -> the compacted block schedule
+    int32[B, nch, nj + 1] (``runtime.mega_block_sched``'s format) on the
+    map's device. ``[B, nch]``: a row chunk flagged 0 aggregates nothing,
+    one flagged otherwise multiplies its whole row (one block of width
+    pn); ``[B, nch, nj]``: each flagged (chunk, column block) is
+    multiplied. Both are exactly what the JAX kernel computes. Raises the
+    JAX kernel's shape ``ValueError`` s."""
+    nch = pn // chunk
+    if chunk_occ.ndim == 3:
+        nj = chunk_occ.shape[2]
+        if tuple(chunk_occ.shape[:2]) != (B, nch) or nj < 1 or pn % nj or (pn // nj) % 128:
+            raise ValueError(f"chunk_occ shape {tuple(chunk_occ.shape)} incompatible with "
+                             f"B={B} nch={nch} pn={pn}")
+        flags = chunk_occ != 0
+    else:
+        if tuple(chunk_occ.shape) != (B, nch):
+            raise ValueError(f"chunk_occ shape {tuple(chunk_occ.shape)} != {(B, nch)}")
+        flags = (chunk_occ != 0)[:, :, None]
+    cnt = flags.sum(dim=2, keepdim=True)
+    # the flagged blocks first, in order; the slots past the count hold 0
+    order = torch.argsort((~flags).to(torch.int32), dim=2, stable=True)
+    slots = torch.arange(flags.shape[2], device=flags.device)
+    listed = torch.where(slots < cnt, order, torch.zeros_like(order))
+    return torch.cat([cnt, listed], dim=2).to(torch.int32)
+
+
+def _block_mask(occ: torch.Tensor, chunk: int, pn: int) -> torch.Tensor:
+    """One batch's (row chunk x column block) flags [nch, nj] -> int32
+    mask over its packed words [pn/32, pn]: 1 on the flagged blocks."""
+    occ = occ.to(torch.int32)
+    return occ.repeat_interleave(chunk // _RPW, dim=0).repeat_interleave(pn // occ.shape[1], dim=1)
+
+
+def _sched_occ(sched: torch.Tensor) -> torch.Tensor:
+    """One batch's schedule [nch, nj + 1] -> its listed blocks as flags
+    [nch, nj]; raises on a row that is not a schedule."""
     s = sched.cpu().numpy()
     nch, nj = s.shape[0], s.shape[1] - 1
     occ = np.zeros((nch, nj), np.int32)
@@ -176,8 +213,15 @@ def _sched_mask(sched: torch.Tensor, chunk: int, pn: int) -> torch.Tensor:
         if not 0 <= cnt <= nj or ((js < 0) | (js >= nj)).any() or len(set(js.tolist())) != cnt:
             raise ValueError(f"blk_sched row chunk {c} is not a schedule: {s[c].tolist()}")
         occ[c, js] = 1
-    occ_t = torch.from_numpy(occ).to(sched.device)
-    return occ_t.repeat_interleave(chunk // _RPW, dim=0).repeat_interleave(pn // nj, dim=1)
+    return torch.from_numpy(occ).to(sched.device)
+
+
+def _exclusive(blk_sched, chunk_occ, resident_a) -> None:
+    """The JAX kernel's refusals of combinations (``fused_model.py:579-582``)."""
+    if blk_sched is not None and chunk_occ is not None:
+        raise ValueError("blk_sched and chunk_occ are exclusive")
+    if blk_sched is not None and resident_a is False:
+        raise ValueError("blk_sched requires the resident kernel")
 
 
 def fused_model_epoch_plain(
@@ -190,18 +234,28 @@ def fused_model_epoch_plain(
     out_cols: Optional[int] = None,
     blk_sched: Optional[torch.Tensor] = None,
     x_cols: Optional[int] = None,
+    chunk_occ: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version on any device: each batch's chain through
-    ``packmm_plain`` / ``digitmm_plain``, with the blocks a schedule
-    leaves out zeroed in the adjacency. Returns float32[B, pn, oc]."""
+    ``packmm_plain`` / ``digitmm_plain``, with the blocks that a schedule
+    leaves out, or that ``chunk_occ`` flags 0, zeroed in the adjacency
+    (the flags are read directly, not through the compacted schedule).
+    Returns float32[B, pn, oc]."""
+    _exclusive(blk_sched, chunk_occ, None)
     p = plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
              None if blk_sched is None else blk_sched.shape)
+    occ = None
+    if chunk_occ is not None:
+        chunk_occ_sched(chunk_occ, p.B, p.pn, p.chunk)  # the JAX shape checks
+        occ = (chunk_occ != 0).reshape(p.B, p.pn // p.chunk, -1).to(a_stack.device)
     fwd = qgcn_forward if model == "gcn" else qgin_forward
     out = torch.zeros((p.B, p.pn, p.oc), dtype=torch.float32, device=a_stack.device)
     for b in range(p.B):
         words = a_stack[b]
         if blk_sched is not None:
-            words = words * _sched_mask(blk_sched[b], p.chunk, p.pn)
+            words = words * _block_mask(_sched_occ(blk_sched[b]), p.chunk, p.pn)
+        if occ is not None:
+            words = words * _block_mask(occ[b], p.chunk, p.pn)
         a = PackedTensor(words=words[None], shape=(p.pn, p.pn), bits=1)
         x = DigitTensor(digits=x_stack[b], shape=(p.pn, ws[0].shape[0]),
                         bits=DIGIT_BITS * p.nd_x)
@@ -241,16 +295,24 @@ def fused_model_epoch(
     store only). ``shifts``: optional per-GEMM requantize shifts in
     ``qgcn_forward`` / ``qgin_forward`` order. ``x_cols`` is accepted for
     parity with the JAX signature; it matters only to forms not ported.
-    ``resident_a=None`` and ``True`` both mean the resident adjacency:
-    on this card A is never re-streamed."""
+    ``chunk_occ`` (int32[B, nch] or [B, nch, nj]) is compacted on the
+    device into a ``blk_sched`` (:func:`chunk_occ_sched`), exclusive with
+    one.
+    ``resident_a`` (None, True or False) is the same launch: on this card
+    A is read from device memory or L2 either way; ``blk_sched`` with
+    ``False`` is refused, as JAX refuses it."""
     global LAUNCHES
-    _refuse_unported(x_levels_bits, chunk_occ, resident_a, unpack_once)
+    _refuse_unported(x_levels_bits, unpack_once)
+    _exclusive(blk_sched, chunk_occ, resident_a)
     if not a_stack.is_cuda:
         return fused_model_epoch_plain(a_stack, x_stack, ws, out_bits, model, shifts,
-                                       out_cols, blk_sched, x_cols)
+                                       out_cols, blk_sched, x_cols, chunk_occ)
     p = plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
              None if blk_sched is None else blk_sched.shape)
     dev = a_stack.device
+    if chunk_occ is not None:  # compacted on the card, into the launch's schedule
+        blk_sched = chunk_occ_sched(chunk_occ.to(dev), p.B, p.pn, p.chunk)
+        p = dataclasses.replace(p, nj=blk_sched.shape[2] - 1)
     for t, name in ((x_stack, "x_stack"), *((w.digits, "weight") for w in ws),
                     *(((blk_sched, "blk_sched"),) if blk_sched is not None else ())):
         if t.device != dev:
@@ -395,14 +457,10 @@ def fused_baseline_epoch(
     [B, pn, cp], ``cp = ws[-1].shape[1]``.
 
     ``packed``: ``pack_baseline_weights(ws)``, built here when absent.
-    ``resident_a`` is kept only for the JAX package's signature: ``None``
-    and ``True`` both mean the kernel's one form (A read from device
-    memory once per layer); ``False``, the TPU's streamed form, is
-    refused."""
+    ``resident_a`` is kept for the JAX package's signature: ``None``,
+    ``True`` and ``False`` (the TPU's streamed form) are all the
+    kernel's one form, A read from device memory once per layer."""
     global BASELINE_LAUNCHES
-    if resident_a is False:
-        raise NotImplementedError(
-            "fused_baseline_epoch(resident_a=False) is not yet ported (ROADMAP queue 1 item 8)")
     if not a_stack.is_cuda:
         return fused_baseline_epoch_plain(a_stack, x_stack, ws)
     p = baseline_plan(a_stack.shape, x_stack.shape, [tuple(w.shape) for w in ws])

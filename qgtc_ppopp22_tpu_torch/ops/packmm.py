@@ -18,11 +18,17 @@ A :class:`PreparedRHS` (a weight-like B as one offset-signed byte plane
 with a ones lane, :func:`prepare_rhs`) pairs with a 5-8 bit A and runs
 one int8 pass with the whole offset correction in the epilogue.
 
+Zero-tile jumping: a ``TileMap`` (``tile_map=``, built by
+:func:`build_tile_map_packed`, or shipped with each cluster batch) makes
+each row tile visit only the K tiles it lists; a tile listed n times
+counts n times, an unlisted one not at all. A ``PreparedRHS`` takes no
+map (``ValueError``, as in JAX).
+
 Dispatch: operands on the CPU run :func:`packmm_plain` (which takes a
 ``PreparedRHS`` to :func:`packmm_signed_plain`); operands on a CUDA
 device launch the kernel of ``csrc/packmm.cu`` (``LAUNCHES``), or of
 ``csrc/packmm_signed.cu`` for a ``PreparedRHS`` (``SIGNED_LAUNCHES``),
-or raise. The zero-tile K skip (``tile_map``) is not ported.
+or raise.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from qgtc_ppopp22_tpu_torch.ops import _gemm
+from qgtc_ppopp22_tpu_torch.ops.bitgemm import TileMap
 from qgtc_ppopp22_tpu_torch.ops.bitpack import (
     DIGIT_BITS,
     field_width,
@@ -49,6 +56,7 @@ PACK_GROUP = 256  # rows per permutation group (layout contract)
 _OFFSET = 128  # signed-plane offset: stored byte = level - 128
 
 LAUNCHES = 0  # csrc/packmm.cu launches since the count was last reset to 0
+MAPPED_LAUNCHES = 0  # those of them given a TileMap, likewise
 SIGNED_LAUNCHES = 0  # csrc/packmm_signed.cu launches, likewise
 
 
@@ -221,6 +229,30 @@ def build_tile_map_packed_np(
     return kidx, kcnt
 
 
+def build_tile_map_packed(
+    pt: PackedTensor, tile_m: Optional[int] = None, tile_k: Optional[int] = None
+) -> TileMap:
+    """Occupancy map over (tile_m x tile_k) tiles of a PackedTensor, on
+    its device (JAX ``build_tile_map_packed``, the same defaults: tile_m
+    the largest multiple of 256 dividing the padded rows into tiles of at
+    most ~512, tile_k 256 where it divides the padded K, else 128). A
+    tile is zero when every word inside it is (every byte -128 for a
+    signed plane, level 0)."""
+    nd, mw, kp = pt.words.shape
+    rpw = pt.rows_per_word
+    mp = mw * rpw
+    tile_m = tile_m or max(PACK_GROUP, mp // max(mp // 512, 1))
+    tile_k = tile_k or (256 if kp % 256 == 0 else 128)
+    if tile_m % PACK_GROUP or mp % tile_m or kp % tile_k:
+        raise ValueError((tile_m, tile_k, mp, kp))
+    nm, nk = mp // tile_m, kp // tile_k
+    tiles = pt.words.reshape(nd, nm, tile_m // rpw, nk, tile_k)
+    zero = -_OFFSET if packed_signed(pt.bits) else 0
+    occ = (tiles != zero).any(dim=4).any(dim=2).any(dim=0)
+    kidx, kcnt = _gemm.occupancy_schedule(occ)
+    return TileMap(kidx=kidx, kcnt=kcnt, tile_m=tile_m, tile_k=tile_k)
+
+
 # ---------------------------------------------------------------------------
 # PreparedRHS: the signed-plane right operand
 # ---------------------------------------------------------------------------
@@ -283,8 +315,9 @@ def _stored_cols(out_form: str, out_cols: Optional[int], np_: int) -> int:
 
 
 def _check(a: PackedTensor, b: DigitTensor, out_form: str = "digits",
-           out_cols: Optional[int] = None) -> int:
-    """The K2 checks; returns the stored columns."""
+           out_cols: Optional[int] = None, tile_map: Optional[TileMap] = None) -> int:
+    """The K2 checks (a map's tile_m a multiple of the 256-row group, as
+    JAX requires); returns the stored columns."""
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"contraction mismatch: {a.shape} @ {b.shape}")
     nd_a, _, kp = a.words.shape
@@ -294,7 +327,17 @@ def _check(a: PackedTensor, b: DigitTensor, out_form: str = "digits",
     if nd_a != 1:
         raise ValueError(f"a packed A holds one plane, got {nd_a}")
     _gemm.check_accumulator(nd_a, nd_b, kp, signed=packed_signed(a.bits))
+    if tile_map is not None:
+        _gemm.check_tile_map(tile_map, a.padded_rows, kp, a.words.device, PACK_GROUP)
     return _stored_cols(out_form, out_cols, np_)
+
+
+def _no_map_with_prepared(tile_map: Optional[TileMap]) -> None:
+    if tile_map is not None:
+        raise ValueError(
+            "PreparedRHS runs the dense streaming kernel; pass a DigitTensor RHS "
+            "for sparse/tiled schedules"
+        )
 
 
 def _check_signed(a: PackedTensor, bp: PreparedRHS, out_form: str,
@@ -360,15 +403,21 @@ def packmm_plain(
     raw_i32: bool = False,
     out_form: str = "digits",
     out_cols: Optional[int] = None,
+    tile_map: Optional[TileMap] = None,
 ):
-    """Plain PyTorch version on any device: decode A to levels, take the
-    levels product, then the kernel's epilogue. Returns what the matching
+    """Plain PyTorch version on any device: decode A to levels, weight
+    them by how often ``tile_map`` visits their tile (``_gemm.tile_weights``;
+    for a signed-plane A the kernel drops a skipped tile's dot and its
+    colsum correction together, which is exactly this), take the levels
+    product, then the kernel's epilogue. Returns what the matching
     wrapper returns; a :class:`PreparedRHS` goes to
     :func:`packmm_signed_plain`."""
     if isinstance(b, PreparedRHS):
+        _check_signed(a, b, out_form, out_cols)
+        _no_map_with_prepared(tile_map)
         return packmm_signed_plain(a, b, out_bits, out_form, shift, raw_i32, out_cols)
-    ocp = _check(a, b, out_form, out_cols)
-    acc = _gemm.plain_product(packed_levels(a), digit_levels(b))
+    ocp = _check(a, b, out_form, out_cols, tile_map)
+    acc = _gemm.plain_product(packed_levels(a), digit_levels(b), tile_map)
     shape = (a.shape[0], b.shape[1])
     if out_bits is None or out_form != "packed":
         return _gemm.plain_epilogue(acc, shape, out_bits, shift, raw_i32, ocp)
@@ -376,11 +425,13 @@ def packmm_plain(
     return PackedTensor(words=_pack_levels(levels, out_bits), shape=shape, bits=out_bits)
 
 
-def _packmm(a: PackedTensor, b: Rhs, out_bits, out_form, shift, raw_i32, out_cols=None):
-    global LAUNCHES, SIGNED_LAUNCHES
+def _packmm(a: PackedTensor, b: Rhs, out_bits, out_form, shift, raw_i32, out_cols=None,
+            tile_map=None):
+    global LAUNCHES, MAPPED_LAUNCHES, SIGNED_LAUNCHES
     shape = (a.shape[0], b.shape[1])
     if isinstance(b, PreparedRHS):
         ocp, need_mask = _check_signed(a, b, out_form, out_cols)
+        _no_map_with_prepared(tile_map)
         if not a.words.is_cuda:
             return packmm_signed_plain(a, b, out_bits, out_form, shift, raw_i32, out_cols)
         np_ = b.plane.shape[1]
@@ -395,41 +446,47 @@ def _packmm(a: PackedTensor, b: Rhs, out_bits, out_form, shift, raw_i32, out_col
         )
         SIGNED_LAUNCHES += 1
     else:
-        ocp = _check(a, b, out_form, out_cols)
+        ocp = _check(a, b, out_form, out_cols, tile_map)
         if not a.words.is_cuda:
-            return packmm_plain(a, b, out_bits, shift, raw_i32, out_form, out_cols)
+            return packmm_plain(a, b, out_bits, shift, raw_i32, out_form, out_cols, tile_map)
         out = _gemm.launch(
             "qgtc_packmm", a.words, torch.int8 if packed_signed(a.bits) else torch.int32,
             b.digits, a.padded_rows, shape, out_bits, out_form, shift, raw_i32, ocp,
-            head=(field_width(a.bits), b.ndigits),
+            head=(field_width(a.bits), b.ndigits), tail=_gemm.map_args(tile_map),
         )
         LAUNCHES += 1
+        MAPPED_LAUNCHES += tile_map is not None
     if out_bits is not None and out_form == "packed":
         return PackedTensor(words=out, shape=shape, bits=out_bits)
     return out
 
 
-def packmm_to_digits(a: PackedTensor, b: Rhs, out_bits: int, shift: int = 0) -> DigitTensor:
+def packmm_to_digits(
+    a: PackedTensor, b: Rhs, out_bits: int, tile_map: Optional[TileMap] = None, shift: int = 0
+) -> DigitTensor:
     """Packed-A GEMM, requantized digit-plane output over the whole
     padded extent (``bitMM2Bit`` role with the fused epilogue)."""
-    return _packmm(a, b, out_bits, "digits", shift, False)
+    return _packmm(a, b, out_bits, "digits", shift, False, tile_map=tile_map)
 
 
-def packmm_to_f32(a: PackedTensor, b: Rhs, out_cols: Optional[int] = None) -> torch.Tensor:
+def packmm_to_f32(
+    a: PackedTensor, b: Rhs, tile_map: Optional[TileMap] = None, out_cols: Optional[int] = None
+) -> torch.Tensor:
     """Packed-A GEMM, float32 [M, N] output (``bitMM2Int`` role);
     ``out_cols`` narrows the store to the real column count."""
-    return _packmm(a, b, None, "f32", 0, False, out_cols)
+    return _packmm(a, b, None, "f32", 0, False, out_cols, tile_map)
 
 
-def packmm_to_i32(a: PackedTensor, b: Rhs) -> torch.Tensor:
+def packmm_to_i32(a: PackedTensor, b: Rhs, tile_map: Optional[TileMap] = None) -> torch.Tensor:
     """Packed-A GEMM, raw int32 accumulator [M, N]."""
-    return _packmm(a, b, None, "f32", 0, True)
+    return _packmm(a, b, None, "f32", 0, True, tile_map=tile_map)
 
 
 def packmm_to_packed(
-    a: PackedTensor, b: Rhs, out_bits: int, shift: int = 0, out_cols: Optional[int] = None
+    a: PackedTensor, b: Rhs, out_bits: int, tile_map: Optional[TileMap] = None, shift: int = 0,
+    out_cols: Optional[int] = None,
 ) -> PackedTensor:
     """Packed-A GEMM, M-packed output: bit in, bit out (the reference's
     ``bitMM2Bit_profile`` op): requantize, then repack in the kernel.
     ``out_cols`` narrows the store to the real column count."""
-    return _packmm(a, b, out_bits, "packed", shift, False, out_cols)
+    return _packmm(a, b, out_bits, "packed", shift, False, out_cols, tile_map)

@@ -12,13 +12,14 @@ An engine runs on the ``device`` it is given (CUDA unless the caller
 asks for the CPU) and nowhere else. On a CUDA device every GEMM launches
 its kernel; on the CPU every GEMM runs its plain PyTorch version. Ported
 so far: the step engine in both formats, ``fmt='digits'`` (packmm and
-digitmm, dense K) and ``fmt='bits'`` (the bit-plane GEMM ``bitgemm`` on
-the one-bit tensor cores); the mega engine (``run_epochs_mega``, digits
+digitmm; with ``zerotile_jump=True`` the aggregations skip the
+adjacency's all-zero 256 x 256 tiles through the batch's pack-time
+``TileMap``) and ``fmt='bits'`` (the bit-plane GEMM ``bitgemm`` on the
+one-bit tensor cores); the mega engine (``run_epochs_mega``, digits
 only: one whole-model kernel launch per shape bucket,
 ``ops/fused_model.py``); and the full-precision ``BaselineEngine`` (step,
 fused and mega modes, the last through the ``fused_baseline`` kernel).
-The digit step engine's zero-tile K skip, and the quantized engine's
-fused (scan) and quant-in-loop modes are not.
+The quantized engine's fused (scan) and quant-in-loop modes are not.
 """
 
 from __future__ import annotations
@@ -41,9 +42,10 @@ from qgtc_ppopp22_tpu_torch.models.qmodels import (
     qgin_forward,
 )
 from qgtc_ppopp22_tpu_torch.ops import fused_model
+from qgtc_ppopp22_tpu_torch.ops.bitgemm import TileMap
 from qgtc_ppopp22_tpu_torch.ops.bitpack import LANE, BitTensor, num_digits, round_up
 from qgtc_ppopp22_tpu_torch.ops.digits import planes_stack_to_digits, to_digit_tensor
-from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor
+from qgtc_ppopp22_tpu_torch.ops.packmm import PACK_GROUP, PackedTensor
 from qgtc_ppopp22_tpu_torch.utils.metrics import multilabel_f1
 
 
@@ -132,11 +134,11 @@ class QGTCEngine(_Engine):
             hidden = 16 if model == "gcn" else 64  # 0_7a…py:6 / 0_7b…py:6
         self.model = model
         self.bit_width = bit_width
-        # Tri-state, as in the JAX engine: True forces the mega kernel's
-        # compacted block schedule, False forbids it, None = the auto gate
-        # of run_epochs_mega. The step engine's zero-tile K skip is not
-        # ported: its entry points refuse True in either format (the JAX
-        # bits step engine passes no tile map either, runtime.py:158-163).
+        # Tri-state, as in the JAX engine: True forces zero-tile skipping
+        # (the digit step engine's TileMap K skip, the mega kernel's
+        # compacted block schedule), False forbids it, None = auto: off in
+        # the step engine, the gate of run_epochs_mega in mega mode. The
+        # bits step engine passes no map, as JAX's (runtime.py:158-163).
         self.zerotile_jump = zerotile_jump
         self.fmt = fmt
         self.mega_buckets: List[dict] = []  # what run_epochs_mega staged
@@ -151,33 +153,39 @@ class QGTCEngine(_Engine):
 
     # -- single batch ---------------------------------------------------
 
-    def _step_engine_only(self) -> None:
-        if self.zerotile_jump:
-            raise NotImplementedError(
-                "zerotile_jump=True in the step engine (its TileMap K skip) is "
-                "not yet ported; run_epochs_mega takes it with fmt='digits'"
-            )
+    def _tile_map(self, batch: ClusterBatch) -> Optional[TileMap]:
+        """The batch's pack-time zero-tile schedule on the device, for
+        ``zerotile_jump=True`` and ``fmt='digits'`` only (JAX
+        ``runtime.py:154-169``: the reference's Fig. 8b mechanism, built
+        once on the host instead of per step on the device)."""
+        if not self.zerotile_jump or self.fmt != "digits":
+            return None
+        return TileMap(kidx=batch.tile_kidx.to(self.device), kcnt=batch.tile_kcnt.to(self.device),
+                       tile_m=PACK_GROUP, tile_k=256)
 
-    def put_batch(self, batch: ClusterBatch) -> Tuple[Union[PackedTensor, BitTensor], BitTensor]:
+    def put_batch(
+        self, batch: ClusterBatch
+    ) -> Tuple[Union[PackedTensor, BitTensor], BitTensor, Optional[TileMap]]:
         """Host -> device transfer of the packed storage format: the
         M-packed adjacency words (``fmt='digits'``) or its 1-bit planes
-        (``fmt='bits'``), and the feature planes."""
+        (``fmt='bits'``), the feature planes, and the zero-tile map
+        (:meth:`_tile_map`, else None)."""
         if self.fmt == "bits":
             a = batch.bit_A.to(self.device)
         else:
             pn = batch.padded_nodes
             a = PackedTensor(words=batch.a_words.to(self.device), shape=(pn, pn), bits=1)
-        return a, batch.bit_X.to(self.device)
+        return a, batch.bit_X.to(self.device), self._tile_map(batch)
 
-    def _step(self, a, bit_x: BitTensor, plain: bool = False) -> torch.Tensor:
+    def _step(self, a, bit_x: BitTensor, tile_map: Optional[TileMap] = None,
+              plain: bool = False) -> torch.Tensor:
         x = to_digit_tensor(bit_x) if self.fmt == "digits" else bit_x
-        return self._fwd(a, x, self.weights, self.bit_width, plain=plain)
+        return self._fwd(a, x, self.weights, self.bit_width, plain=plain, tile_map=tile_map)
 
     def forward_batch(self, batch: ClusterBatch, plain: bool = False) -> torch.Tensor:
         """Logits [padded_nodes, num_classes] on the engine's device.
         ``plain=True`` runs the GEMMs' plain PyTorch versions instead of
         the kernels (the on-device reference)."""
-        self._step_engine_only()
         return self._step(*self.put_batch(batch), plain=plain)
 
     def forward_all(self, batcher: ClusterBatcher, plain: bool = False) -> List[torch.Tensor]:
@@ -214,15 +222,15 @@ class QGTCEngine(_Engine):
         host -> device transfer of the packed tensors included, all
         epochs launched, one synchronize at the end. ``resident=True``
         moves the packed batches to the device once, before the timed
-        region, and times compute only."""
-        self._step_engine_only()
+        region, and times compute only; each batch's zero-tile map crosses
+        with it either way."""
         self.warmup(batcher)
         staged = [self.put_batch(b) for b in batcher.batches] if resident else None
 
         def one_epoch():
             if resident:
-                for a, bit_x in staged:
-                    self._step(a, bit_x)
+                for t in staged:
+                    self._step(*t)
             else:
                 for batch in batcher:
                     self.forward_batch(batch)

@@ -193,8 +193,15 @@ def test_fused_baseline_takes_bf16_features_and_ragged_widths():
     assert torch.equal(got, fused_baseline_epoch_plain(*args))
 
 
+def test_fused_baseline_takes_resident_a_false():
+    """The TPU's streamed-A tier is the card's one launch, as JAX callers
+    pass it."""
+    a, x, ws = baseline_case(0, 1, 256, [128, 16, 40])
+    a, x, ws = torch.from_numpy(a), torch.from_numpy(x), [torch.from_numpy(w) for w in ws]
+    assert torch.equal(fused_baseline_epoch(a, x, ws, resident_a=False), fused_baseline_epoch(a, x, ws))
+
+
 @pytest.mark.parametrize("case,exc,match", [
-    ("resident_a", NotImplementedError, "ROADMAP"),
     ("pn384", ValueError, "chunk divisor"),
     ("stacks", ValueError, "stacked shapes"),
     ("chain", ValueError, "do not chain"),
@@ -208,9 +215,7 @@ def test_fused_baseline_refuses(case, exc, match):
     a, x, ws = baseline_case(0, 1, pn, dims)
     a, x, ws = torch.from_numpy(a), torch.from_numpy(x), [torch.from_numpy(w) for w in ws]
     kw = {}
-    if case == "resident_a":
-        kw["resident_a"] = False
-    elif case == "stacks":
+    if case == "stacks":
         a = a[:, :, :128]
     elif case == "chain":
         ws[1] = ws[1][:8]

@@ -263,18 +263,26 @@ def test_forward_bits_matches_jax_and_golden(model, bits, tile_map):
 
 
 def test_forward_bits_refuses_shifts_and_digit_tile_maps():
+    """Shifts stay refused on bit planes; a digit-path tile map, once
+    refused, now skips the same zero tiles as the bit path's."""
     rng = np.random.default_rng(0)
-    a = pack_bits(torch.from_numpy((rng.random((256, 256)) < 0.05).astype(np.int32)), 1)
-    x = pack_bits(torch.from_numpy(_levels(rng, (256, 128), 2)), 2)
+    qa = (rng.random((512, 512)) < 0.05).astype(np.int32)
+    qa[256:, :256] = 0
+    a = pack_bits(torch.from_numpy(qa), 1)
+    x = pack_bits(torch.from_numpy(_levels(rng, (512, 128), 2)), 2)
     ws = [pack_bits(torch.from_numpy(_levels(rng, s, 2)), 2) for s in [(128, 16), (16, 16), (16, 40)]]
     with pytest.raises(NotImplementedError, match="scaled requant"):
         qmodels.qgcn_forward(a, x, ws, 2, shifts=[1, 1, 1, 1, 1])
-    pa = packmm.PackedTensor(torch.from_numpy(packmm.pack_rows_np(unpack_bits(a).numpy(), 1)), (256, 256), 1)
+    pa = packmm.PackedTensor(torch.from_numpy(packmm.pack_rows_np(qa, 1)), (512, 512), 1)
     dws = qmodels.pack_weights([torch.from_numpy(unpack_bits(w).numpy().astype(np.float32)) for w in ws], 2)
     from qgtc_ppopp22_tpu_torch.ops.digits import to_digit_tensor
 
-    with pytest.raises(NotImplementedError, match="TileMap K skip"):
-        qmodels.qgcn_forward(pa, to_digit_tensor(x), dws, 2, tile_map=bitgemm.build_tile_map(a))
+    # the same zero tiles skipped by the packed digit path (K2) and the bit path (K6)
+    ptm = packmm.build_tile_map_packed(pa, 256, 256)
+    assert ptm.kcnt.tolist() == [2, 1]
+    got = qmodels.qgcn_forward(pa, to_digit_tensor(x), dws, 2, tile_map=ptm)
+    assert torch.equal(got, qmodels.qgcn_forward(pa, to_digit_tensor(x), dws, 2))
+    assert torch.equal(got, qmodels.qgcn_forward(a, x, ws, 2, tile_map=bitgemm.build_tile_map(a)))
 
 
 # -- the engine and the CLI ----------------------------------------------------------
@@ -303,7 +311,8 @@ def test_engine_bits_matches_jax_and_digits(small, model):
     fw = [np.asarray(w) for w in je.float_weights]
     bits, dig = _engine(it, ds, model, "bits", fw), _engine(it, ds, model, "digits", fw)
     assert all(isinstance(w, BitTensor) for w in bits.weights)
-    a, _ = bits.put_batch(it.batches[0])
+    a, _, tm = bits.put_batch(it.batches[0])
+    assert tm is None
     assert isinstance(a, BitTensor) and a.bits == 1
     outs = bits.forward_all(it)
     for b, jb, out in zip(it.batches, jit.batches, outs):
@@ -326,15 +335,19 @@ def test_engine_bits_run_epochs(small, resident):
 
 
 def test_engine_bits_refuses_mega_and_zerotile_jump(small):
+    """Mega mode stays refused with fmt='bits'; zerotile_jump=True, once
+    refused, is taken and passes no map."""
     ds, it, _, _ = small
     eng = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, fmt="bits", device="cpu")
     with pytest.raises(ValueError, match="mega mode requires fmt='digits'"):
         eng.run_epochs_mega(it, n_epochs=1)
+    # as the JAX bits engine (runtime.py:158-163): zerotile_jump=True is
+    # taken and no map is passed, so the logits are the engine's own
     zj = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, fmt="bits", device="cpu",
                     zerotile_jump=True)
-    for call in (lambda: zj.forward_batch(it.batches[0]), lambda: zj.run_epochs(it, n_epochs=1)):
-        with pytest.raises(NotImplementedError, match="TileMap K skip"):
-            call()
+    assert zj.put_batch(it.batches[0])[2] is None
+    assert torch.equal(zj.forward_batch(it.batches[0]), eng.forward_batch(it.batches[0]))
+    assert zj.run_epochs(it, n_epochs=1).n_batches == len(it)
     with pytest.raises(ValueError, match="unknown fmt"):
         QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, fmt="words", device="cpu")
 

@@ -152,12 +152,11 @@ def test_engine_cuda_raises_without_cuda(small, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(zerotile_jump=True), NotImplementedError),
+    (dict(fmt="words"), ValueError),
     (dict(fmt="bits"), ValueError),
     (dict(model="sage"), ValueError),
 ])
 def test_engine_rejects_unported_options(small, kwargs, exc):
-    # zerotile_jump=True is the mega engine's; the step engine refuses it.
     # fmt='bits' runs in the step engine; the mega engine refuses it.
     ds, it, _, _ = small
     with pytest.raises(exc):
@@ -165,6 +164,28 @@ def test_engine_rejects_unported_options(small, kwargs, exc):
         if eng.fmt == "bits":
             eng.run_epochs_mega(it, n_epochs=1)
         eng.forward_batch(it.batches[0])
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_engine_zerotile_jump_matches_jax(small, model):
+    """``zerotile_jump=True``: each aggregation visits only the batch's
+    occupied 256 x 256 tiles (its pack-time map, on the device), as the
+    JAX engine's does; the logits equal JAX's and the dense engine's."""
+    ds, it, jds, jit = small
+    je, te = _engines(it, ds, model, 2)
+    je.zerotile_jump = te.zerotile_jump = True
+    a, _, tm = te.put_batch(it.batches[0])
+    assert (tm.tile_m, tm.tile_k) == (256, 256) and tm.kidx.shape == (a.padded_rows // 256, a.padded_cols // 256)
+    assert torch.equal(tm.kidx, it.batches[0].tile_kidx) and torch.equal(tm.kcnt, it.batches[0].tile_kcnt)
+    dense = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, device="cpu")
+    dense.weights = te.weights
+    assert dense.put_batch(it.batches[0])[2] is None
+    for b, jb, got in zip(it.batches, jit.batches, te.forward_all(it)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(je.forward_batch(jb)))
+        assert torch.equal(got, dense.forward_batch(b)) and torch.equal(got, te.forward_batch(b, plain=True))
+    assert te.evaluate(it, ds.labels) == je.evaluate(jit, jds.labels)
+    st = te.run_epochs(it, n_epochs=1, resident=True)
+    assert st.n_batches == len(it) and st.avg_ms > 0
 
 
 def test_package_never_imports_jax():
@@ -205,6 +226,6 @@ def test_cli_runs_step_engine_on_cpu(tmp_path, monkeypatch, capsys):
 
 def test_cli_rejects_unported_flags(capsys):
     with pytest.raises(SystemExit) as exc:
-        cli.main(["--zerotile_jump"])
+        cli.main(["--sparse"])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err

@@ -20,12 +20,15 @@ import torch
 from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, synthesize
 from qgtc_ppopp22_tpu_torch.ops import bitgemm, digitmm, digits, fused_model, packmm
 from qgtc_ppopp22_tpu_torch.ops.bitpack import pack_bits, unpack_bits
-from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine, mega_block_sched
+from qgtc_ppopp22_tpu_torch.runtime import (BaselineEngine, QGTCEngine, mega_block_occ, mega_block_sched,
+                                            mega_chunk_occ)
 from torch_cases import (  # tests/ is on sys.path
     BF16_REL_TOL,
     baseline_case,
     bf16_rel_err,
+    blocky_levels,
     edge_operands,
+    hand_map,
     mega_case,
     operands,
 )
@@ -287,7 +290,7 @@ def test_run_epochs_mega_on_card_equals_cpu(cuda, model):
     gpu = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4,
                      device=cuda, zerotile_jump=True)
     cpu = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4,
-                     device="cpu")
+                     device="cpu", zerotile_jump=True)
     before = fused_model.LAUNCHES
     got = gpu._mega_logits(it)
     assert fused_model.LAUNCHES - before == len(gpu.mega_buckets)
@@ -295,6 +298,8 @@ def test_run_epochs_mega_on_card_equals_cpu(cuda, model):
     for b, g, c in zip(it.batches, got, cpu.forward_all(it)):
         n, k = b.num_nodes, ds.num_classes
         np.testing.assert_array_equal(g[:n, :k].cpu().numpy(), c[:n, :k].numpy())
+    # evaluation with zerotile_jump=True: the step engine with its maps
+    assert gpu.evaluate(it, ds.labels) == cpu.evaluate(it, ds.labels)
 
 
 # -- fused_baseline: the bf16 baseline chain in one launch ----------------
@@ -434,6 +439,94 @@ def test_bitmm_tile_maps_on_card(cuda):
     _check(got, bitgemm.bitmm_plain(d, b, None, hand))
     assert not torch.equal(got, bitgemm.bitmm_to_int(d, b))
     _check_bits(bitgemm.bitmm_to_bits(d, b, 2, tile_map=hand), bitgemm.bitmm_plain(d, b, 2, hand))
+
+
+@pytest.mark.parametrize("kind", ["real", "hand"])
+@pytest.mark.parametrize("shape,tiles", [
+    ((2560, 2560, 16), (256, 256)), ((2560, 2560, 16), (512, 128)),  # C1's aggregation
+    ((1792, 1280, 200), (256, 256)), ((1792, 1280, 200), (256, 128)),  # 7 row tiles, ragged N
+])
+@pytest.mark.parametrize("a_bits", BITS)
+def test_packmm_tile_map_kernel_equals_plain(cuda, a_bits, shape, tiles, kind):
+    m, k, n = shape
+    a = _pt(blocky_levels(a_bits + m, m, k, a_bits), a_bits, cuda)
+    b = _dt(operands(n, m, k, n, 1, 2, 2, 0)[1], 2, cuda)
+    tm = packmm.build_tile_map_packed(a, *tiles)
+    if kind == "hand":
+        tm = hand_map(tm)
+    before = (packmm.LAUNCHES, packmm.MAPPED_LAUNCHES)
+    got = packmm.packmm_to_digits(a, b, 2, tm, shift=1)
+    assert (packmm.LAUNCHES, packmm.MAPPED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _check(got, packmm.packmm_plain(a, b, 2, 1, tile_map=tm))
+    _check(packmm.packmm_to_f32(a, b, tm, out_cols=n), packmm.packmm_plain(a, b, out_form="f32", out_cols=n,
+                                                                          tile_map=tm))
+    _check(packmm.packmm_to_i32(a, b, tm), packmm.packmm_plain(a, b, raw_i32=True, tile_map=tm))
+    for ob in BITS:
+        _check(packmm.packmm_to_packed(a, b, ob, tm, out_cols=n),
+               packmm.packmm_plain(a, b, ob, out_form="packed", out_cols=n, tile_map=tm))
+    assert torch.equal(packmm.packmm_to_i32(a, b, tm), packmm.packmm_to_i32(a, b)) == (kind == "real")
+
+
+@pytest.mark.parametrize("kind", ["real", "hand"])
+@pytest.mark.parametrize("tiles", [(256, 256), (128, 128)])
+@pytest.mark.parametrize("b_bits", [2, 8])
+@pytest.mark.parametrize("a_bits", [2, 8])
+def test_digitmm_tile_map_kernel_equals_plain(cuda, a_bits, b_bits, tiles, kind):
+    da = _dt(blocky_levels(a_bits * 3 + b_bits, 1280, 1536, a_bits), a_bits, cuda)
+    b = _dt(operands(b_bits, 1280, 1536, 40, 1, b_bits, b_bits, 0)[1], b_bits, cuda)
+    tm = digitmm.build_tile_map_digits(da, *tiles)
+    if kind == "hand":
+        tm = hand_map(tm)
+    before = (digitmm.LAUNCHES, digitmm.MAPPED_LAUNCHES)
+    got = digitmm.digitmm_to_digits(da, b, b_bits, tm, shift=2)
+    assert (digitmm.LAUNCHES, digitmm.MAPPED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _check(got, digitmm.digitmm_plain(da, b, b_bits, 2, tile_map=tm))
+    _check(digitmm.digitmm_to_f32(da, b, tm), digitmm.digitmm_plain(da, b, tile_map=tm))
+    _check(digitmm.digitmm_to_i32(da, b, tm), digitmm.digitmm_plain(da, b, raw_i32=True, tile_map=tm))
+
+
+def test_tile_map_kernel_refuses_a_map_on_another_device(cuda):
+    a = _pt(blocky_levels(1, 512, 512, 1), 1, cuda)
+    b = _dt(operands(1, 512, 512, 16, 1, 2, 2, 0)[1], 2, cuda)
+    tm = packmm.build_tile_map_packed(a, 256, 256)
+    cpu_map = bitgemm.TileMap(tm.kidx.cpu(), tm.kcnt.cpu(), 256, 256)
+    with pytest.raises(ValueError, match="tile_map on cpu"):
+        packmm.packmm_to_f32(a, b, cpu_map)
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_engine_zerotile_jump_on_card_equals_cpu(cuda, model):
+    ds = synthesize("Proteins", scale=0.05, seed=5)
+    it = ClusterBatcher(ds, 8, 2, bit_width=2, seed=5, partition_method="bfs")
+    kw = dict(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4)
+    gpu = QGTCEngine(device=cuda, zerotile_jump=True, **kw)
+    cpu = QGTCEngine(device="cpu", zerotile_jump=True, **kw)
+    dense = QGTCEngine(device=cuda, **kw)
+    for b in it.batches:
+        before = packmm.MAPPED_LAUNCHES
+        got = gpu.forward_batch(b)
+        assert packmm.MAPPED_LAUNCHES - before == 3
+        assert torch.equal(got, gpu.forward_batch(b, plain=True)) and torch.equal(got, dense.forward_batch(b))
+        np.testing.assert_array_equal(got.cpu().numpy(), cpu.forward_batch(b).numpy())
+
+
+@pytest.mark.parametrize("form", ["1d", "2d", "1d-hand", "2d-hand"])
+def test_fused_model_chunk_occ_on_card(cuda, form):
+    a, x, ws, bits, _ = _mega_args(cuda, "gcn", 2, 1024, None)
+    aw = a.cpu().numpy()
+    if form.startswith("1d"):
+        occ = np.stack([mega_chunk_occ(w[None], 512) for w in aw])
+    else:
+        occ = np.stack([mega_block_occ(w[None], 512, 256) for w in aw])
+    if form.endswith("hand"):
+        occ[0].flat[int(np.flatnonzero(occ[0])[0])] = 0
+    occ = torch.from_numpy(occ).to(cuda)
+    before = fused_model.LAUNCHES
+    got = fused_model.fused_model_epoch(a, x, ws, bits, chunk_occ=occ)
+    assert fused_model.LAUNCHES == before + 1
+    _check(got, fused_model.fused_model_epoch_plain(a, x, ws, bits, chunk_occ=occ))
+    dense = fused_model.fused_model_epoch(a, x, ws, bits, resident_a=False)
+    assert torch.equal(got, dense) == (not form.endswith("hand"))
 
 
 def test_bitmm_kernel_is_repeatable_and_checks_devices(cuda):

@@ -289,14 +289,23 @@ def test_prepared_rhs_needs_a_signed_lhs():
 @pytest.mark.parametrize("wrapper", ["packmm_to_f32", "packmm_to_i32", "packmm_to_digits",
                                      "packmm_to_packed"])
 def test_tile_map_is_not_taken(wrapper):
-    """The zero-tile K skip is not ported: the wrappers have no
-    ``tile_map``."""
-    qa, qb = operands(2, 256, 128, 16, 1, 2, 2, 0)
-    a = packmm.pack_rows(torch.from_numpy(qa), 1)
-    b = digits.digit_pack(torch.from_numpy(qb), 2)
-    args = (a, b) if wrapper in ("packmm_to_f32", "packmm_to_i32") else (a, b, 2)
-    with pytest.raises(TypeError, match="tile_map"):
-        getattr(packmm, wrapper)(*args, tile_map=object())
+    """Each wrapper takes a ``tile_map`` as JAX's does (the map built by
+    ``build_tile_map_packed``, equal to JAX's, gives JAX's output); a
+    ``PreparedRHS`` with a map raises ``ValueError``, as in JAX."""
+    qa, qb = operands(2, 512, 512, 16, 8, 8, 8, 0)
+    qa[256:, :256] = 0
+    qa[0, 0] = qa[0, 300] = qa[300, 300] = 1
+    a, b, ja, jb = _pair(qa, qb, 8, 8)
+    tm = packmm.build_tile_map_packed(a, 256, 256)
+    jtm = jpackmm.build_tile_map_packed(ja, 256, 256)
+    assert tm.kcnt.tolist() == np.asarray(jtm.kcnt).tolist() == [2, 1]
+    args = (() if wrapper in ("packmm_to_f32", "packmm_to_i32") else (8,))
+    _same(getattr(packmm, wrapper)(a, b, *args, tile_map=tm), getattr(jpackmm, wrapper)(ja, jb, *args, tile_map=jtm))
+    bp, jbp = packmm.prepare_rhs(b), jpackmm.prepare_rhs(jb)
+    for call in (lambda: getattr(packmm, wrapper)(a, bp, *args, tile_map=tm),
+                 lambda: getattr(jpackmm, wrapper)(ja, jbp, *args, tile_map=jtm)):
+        with pytest.raises(ValueError, match="PreparedRHS runs the dense streaming kernel"):
+            call()
 
 
 def test_prepared_rhs_int32_guard_and_shape_checks():

@@ -32,6 +32,41 @@ def edge_operands(bits, shift):
     return qa, qb
 
 
+def blocky_levels(seed, m, k, bits, density=0.02):
+    """Levels A (m x k) at ``bits`` whose occupied 256 x 256 tiles are
+    every third one ((i + j) % 3 == 0, shifted per row tile), sparse
+    inside: the zero tiles a TileMap skips."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 1 << bits, (m, k)) * (rng.random((m, k)) < density)
+    for i in range(-(-m // 256)):
+        for j in range(-(-k // 256)):
+            if (i + j) % 3:
+                q[i * 256:(i + 1) * 256, j * 256:(j + 1) * 256] = 0
+    return q.astype(np.int32)
+
+
+def hand_map(tm):
+    """A copy of the TileMap ``tm`` that the kernels must follow as
+    plain does: row tile 0 lists its first tile twice and leaves later
+    ones out, row 1 has kcnt 0, row 2 lists entries outside the grid (-1
+    and nk), row 3 has kcnt past nk over every tile in reverse, and the
+    last row kcnt -1."""
+    kidx, kcnt = tm.kidx.clone(), tm.kcnt.clone()
+    nm, nk = kidx.shape
+    kcnt[0] = min(2, nk)
+    kidx[0, :2] = kidx[0, 0]
+    if nm > 1:
+        kcnt[1] = 0
+    if nm > 2:
+        kidx[2, 0], kidx[2, 1 % nk] = -1, nk
+        kcnt[2] = min(3, nk)
+    if nm > 3:
+        kcnt[3] = nk + 5
+        kidx[3] = kidx.new_tensor(list(range(nk - 1, -1, -1)))
+    kcnt[-1] = -1
+    return type(tm)(kidx, kcnt, tm.tile_m, tm.tile_k)
+
+
 def mega_case(seed, B, pn, bits, hidden, keep=None, chunk=512, cb=256,
               feat=128, ncls=40, shift=0):
     """Operands of the whole-model kernel: levels qa [B, pn, pn] (0/1),
