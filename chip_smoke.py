@@ -15,7 +15,14 @@ Runs, and stops with a non-zero exit at the first failure:
    ``fused_model`` kernel at 1/2/4/8 bits, GCN and GIN, shifts none and
    [1, 2, 1, 2, 1], dense and block-scheduled (chunks of 0, 1, odd and
    all blocks), pn in {512, 2560} with 2 batches. Equality must be
-   exact, padded outputs included. Then the bf16 baseline kernel
+   exact, padded outputs included. Then ``fused_model`` with levels-form
+   X (``x_levels_bits``: one plane of byte levels): GCN and GIN, 5 and 8
+   bits, the signed chain (hidden 16) and the in-kernel digit split
+   (hidden 128), feature widths 100 and 128, dense, block-scheduled and
+   ``chunk_occ``, shifts none and [1, 2, 1, 2, 1], at pn 512 and 2560;
+   ``clamp_bits`` 4 under 8-bit levels; 3 batches at pn 768; each equal
+   to plain and to the 2-digit route's launch on the same levels, and
+   each one levels-form launch. Then the bf16 baseline kernel
    ``fused_baseline`` (sage hidden 16 and gin hidden 64, 1 and 3 layers,
    pn in {512, 2560}, 2 batches): equal to plain bit for bit on the
    "integer" case (nothing rounds) and the "rounding" case (every cast
@@ -60,6 +67,14 @@ Runs, and stops with a non-zero exit at the first failure:
    bucket, here one): launch counts reset just before, logits equal to
    the step engine's and the plain versions', no bucket falling back;
    and 4 batches of GIN through the mega engine against plain. Then the
+   5-8-bit mega path: the same 75 batches packed at 8 bits through
+   ``QGTCEngine(bit_width=8, shifts=...).run_epochs_mega``'s staging, each
+   shift the smallest that leaves more than half of its stage's levels
+   below the 255 rail on batch 0 (shares printed): counts reset just
+   before, one levels-form ``fused_model`` launch per bucket (the signed
+   chain), no fallback, logits equal to plain, to the 8-bit step engine
+   and, for batch 0, to a NumPy chain; then 4 batches of 8-bit GIN
+   (hidden 64, feature width 128) the same way. Then the
    full-precision baseline on the same 75 batches through
    ``BaselineEngine.run_epochs_mega``'s staging (one ``fused_baseline``
    launch per bucket, counts reset just before; a bucket the kernel
@@ -92,13 +107,17 @@ Runs, and stops with a non-zero exit at the first failure:
    each beside the same engine with zero-tile jumping and the bits step
    engine),
    the mega engine's ms/epoch with and without the compacted block
-   schedule (twice each); the baseline's ms/epoch in step (resident),
+   schedule (twice each); the mega engine at 2 bits (E3) beside 8 bits
+   (E3-8, the levels form), twice; the baseline's ms/epoch in step (resident),
    fused and mega modes beside the quantized mega engine's (twice each);
    and the device time of each kernel beside its plain version at the
    slice's shapes (torch.profiler), with ``torch._int_mm`` on the same
    operands as the library yardstick of packmm, digitmm and bitmm; K4
    and K2's packed out at Fig. 8a's (4096, 4096, 64) beside plain,
-   bound and ``torch._int_mm``; and every sweep row's us and TFLOP/s
+   bound and ``torch._int_mm``; K1 at C1 8-bit, the levels form beside
+   plain, the 2-digit route and its own compacted-schedule launch on the
+   same batches; and every sweep
+   row's us and TFLOP/s
    beside ``BASELINE.md``'s sm_86 figure for it, in the same profiler
    session; and the K skip at C1 (batch 0's adjacency and its map:
    ``packmm_to_digits``, ``packmm_to_f32`` and ``digitmm_to_digits`` over
@@ -176,8 +195,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(root, "tests"))
     from types import SimpleNamespace
 
-    from torch_cases import (BF16_REL_TOL, baseline_case, bf16_rel_err, blocky_levels, edge_operands, hand_map,
-                             mega_case, operands)
+    from torch_cases import (BF16_REL_TOL, baseline_case, bf16_rel_err, blocky_levels, chain_shifts, edge_operands,
+                             hand_map, levels_plane, mega_case, operands)
     from qgtc_ppopp22_tpu_torch.benchmarks import kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward
@@ -225,7 +244,8 @@ def main() -> int:
 
     # -- phase 1: kernel vs plain --------------------------------------
     err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0, "bitmm": 0.0,
-           "packmm_signed": 0.0, "int_mm": 0.0, "packmm_skip": 0.0, "digitmm_skip": 0.0}
+           "packmm_signed": 0.0, "int_mm": 0.0, "packmm_skip": 0.0, "digitmm_skip": 0.0,
+           "fused_model_levels": 0.0}
     ncase = dict.fromkeys(err, 0)
     worst_rel = 0.0  # fused_baseline, random cases: the worst row's relative error
 
@@ -307,6 +327,66 @@ def main() -> int:
                                 fused_model.fused_model_epoch_plain(a, x, ws, bits, **kw),
                                 f"fused_model {model} bits={bits} pn={pn} shifts={shifts} "
                                 f"sched={blk is not None}")
+    # levels-form X: the signed chain (hidden 16: every weight has a free
+    # lane) and the in-kernel digit split (hidden 128), dense, scheduled
+    # and chunk_occ, each against plain and against the 2-digit route's
+    # launch on the same levels (equal, padded columns included)
+    lv_forms = {"signed": 0, "split": 0}
+
+    def check_levels(a, xl, x2, ws, out_bits, tag, **kw):
+        form = fused_model.plan(a.shape, xl.shape, ws, out_bits, kw["model"], kw.get("shifts"),
+                                kw.get("out_cols"), x_levels_bits=kw["x_levels_bits"]).form
+        before = fused_model.LEVELS_LAUNCHES
+        got = fused_model.fused_model_epoch(a, xl, ws, out_bits, **kw)
+        if fused_model.LEVELS_LAUNCHES != before + 1:
+            raise AssertionError(f"{tag}: no levels-form launch")
+        compare("fused_model_levels", got, fused_model.fused_model_epoch_plain(a, xl, ws, out_bits, **kw),
+                f"{tag} ({form})")
+        if not torch.equal(got, fused_model.fused_model_epoch(a, x2, ws, out_bits,
+                                                              **dict(kw, x_levels_bits=None))):
+            raise AssertionError(f"{tag}: levels form != the 2-digit route")
+        lv_forms[form] += 1
+
+    def levels_case(seed, B, pn, bits, hidden, **mkw):
+        _, _, qws, aw, xd = mega_case(seed, B, pn, bits, hidden, **mkw)
+        chunk = 512 if pn % 512 == 0 else 256
+        cb = mkw.get("cb", 256)
+        occ = np.stack([mega_block_occ(w[None], chunk, cb) for w in aw])
+        sched = np.stack([mega_block_sched(w[None], chunk, cb) for w in aw])
+        return ([torch.from_numpy(t).to(dev) for t in (aw, levels_plane(xd), xd, occ, sched)],
+                [digit_pack(torch.from_numpy(w).to(dev), bits) for w in qws])
+
+    for pn, keep in keeps.items():
+        cb = fused_model.mega_colblock(pn)
+        for bits in (5, 8):
+            for model in ("gcn", "gin"):
+                for hidden in (16, 128):
+                    for feat in (100, 128):
+                        for shifts in (None, [1, 2, 1, 2, 1]):
+                            (a, xl, x2, occ, sched), ws = levels_case(
+                                SEED + bits + pn + hidden + feat, 2, pn, bits, hidden, keep=keep, cb=cb,
+                                feat=feat, shift=1 if shifts else 0)
+                            for zname, zkw in (("dense", {}), ("blk_sched", dict(blk_sched=sched)),
+                                               ("chunk_occ", dict(chunk_occ=occ))):
+                                check_levels(a, xl, x2, ws, bits,
+                                             f"fused_model levels {model} bits={bits} pn={pn} hidden={hidden} "
+                                             f"feat={feat} shifts={shifts} {zname}",
+                                             model=model, shifts=shifts, out_cols=40 if shifts else None,
+                                             x_levels_bits=bits, **zkw)
+    # clamp_bits 4 under 8-bit levels; 3 batches at pn 768 (12 row tiles
+    # over a cluster of 8, hidden 48: a 64- and a 32-column tile)
+    for model in ("gcn", "gin"):
+        for hidden in (16, 128):
+            (a, xl, x2, occ, sched), ws = levels_case(SEED + hidden, 2, 512, 8, hidden, shift=2)
+            for zkw in ({}, dict(blk_sched=sched)):
+                check_levels(a, xl, x2, ws, 4, f"fused_model levels {model} clamp_bits=4 hidden={hidden}",
+                             model=model, shifts=[2, 1, 2, 1, 2], out_cols=40, x_levels_bits=8, **zkw)
+        (a, xl, x2, occ, sched), ws = levels_case(SEED + 7, 3, 768, 8, 48, shift=1)
+        for zkw in ({}, dict(blk_sched=sched), dict(chunk_occ=occ)):
+            check_levels(a, xl, x2, ws, 8, f"fused_model levels {model} B=3 pn=768",
+                         model=model, shifts=[1, 2, 1, 2, 1], out_cols=40, x_levels_bits=8, **zkw)
+    print(f"phase 1: fused_model levels form == plain == the 2-digit route in "
+          f"{ncase['fused_model_levels']} cases ({lv_forms})")
     # the bf16 baseline kernel: bit-exact ("integer", "rounding") and
     # random cases
     for model, hidden in (("sage", 16), ("gin", 64)):
@@ -762,6 +842,85 @@ def main() -> int:
           f"the step baseline (worst row's relative error {gin_rel:.3e}); "
           f"{fused_model.BASELINE_LAUNCHES} fused_baseline launch(es)")
 
+    # the 5-8-bit mega path: C1 at 8 bits, every requantize shift the
+    # smallest that keeps more than half of the stage's levels below the
+    # rail on batch 0 (a NumPy chain); features cross as one plane of byte
+    # levels and the kernel runs the signed chain (hidden 16, 40 classes)
+    t0 = time.perf_counter()
+    batcher8 = ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=8, seed=SEED,
+                              cache_dir="./datasets")
+    b8 = batcher8.batches[0]
+
+    def numpy_chain(model):
+        """Batch 0's NumPy chain at 8 bits with the engine's weights."""
+        probe = QGTCEngine(feat_dim=batcher8.feat_dim, num_classes=ds.num_classes, model=model,
+                           bit_width=8, seed=SEED, device=dev)
+        a_lv8 = packed_levels(probe.put_batch(b8)[0]).cpu().numpy()
+        x_lv8 = np.zeros((a_lv8.shape[0], batcher8.feat_dim), np.int64)
+        x_lv8[:b8.bit_X.shape[0]] = unpack_bits(b8.bit_X).numpy()
+        return chain_shifts(a_lv8, x_lv8, [digit_unpack(w).cpu().numpy() for w in probe.weights], model, 8,
+                            rows=b8.num_nodes)
+
+    sh8, share8, gold8 = numpy_chain("gcn")
+    eng8 = QGTCEngine(feat_dim=batcher8.feat_dim, num_classes=ds.num_classes, model="gcn", bit_width=8,
+                      seed=SEED, device=dev, shifts=sh8)
+    eng8.warmup(batcher8)
+    packmm.LAUNCHES = digitmm.LAUNCHES = 0
+    step8 = eng8.forward_all(batcher8)
+    torch.cuda.synchronize()
+    if (packmm.LAUNCHES, digitmm.LAUNCHES) != (3 * nb, 3 * nb):
+        raise AssertionError(f"8-bit step engine: {packmm.LAUNCHES} packmm, {digitmm.LAUNCHES} digitmm")
+    fused_model.LAUNCHES = fused_model.LEVELS_LAUNCHES = packmm.LAUNCHES = digitmm.LAUNCHES = 0
+    mega8 = eng8._mega_logits(batcher8)
+    torch.cuda.synchronize()
+    levels_launches = {"fused_model_levels": fused_model.LEVELS_LAUNCHES, "fused_model": fused_model.LAUNCHES,
+                       "packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES}
+    buckets8 = eng8.mega_buckets
+    nbk = len(buckets8)
+    if any(bk["fallback"] or bk["form"] != "signed" for bk in buckets8) or levels_launches != {
+            "fused_model_levels": nbk, "fused_model": nbk, "packmm": 0, "digitmm": 0}:
+        raise AssertionError(f"8-bit mega: launches {levels_launches}, buckets {buckets8}")
+    plain8 = [None] * nb
+    for idx, fn in eng8._stage_mega(batcher8):
+        for i, lg in zip(idx, fused_model.fused_model_epoch_plain(*fn.args, **fn.keywords)):
+            plain8[i] = lg
+    ncls = ds.num_classes
+    for b, got, step, want in zip(batcher8.batches, mega8, step8, plain8):
+        n = b.num_nodes
+        if not torch.isfinite(got).all() or not torch.equal(got, want) \
+                or not torch.equal(got[:n, :ncls], step[:n, :ncls]):
+            raise AssertionError("8-bit mega logits != plain / the 8-bit step engine's")
+    if not np.array_equal(mega8[0][:, :ncls].cpu().numpy(), gold8[:, :ncls].astype(np.float32)):
+        raise AssertionError("8-bit mega: batch 0 logits != NumPy chain")
+    print(f"phase 2: 8-bit mega GCN logits of {nb} batches == plain == the 8-bit step engine == NumPy "
+          f"chain (batch 0); shifts {sh8}, each stage's share of levels below the rail on batch 0 "
+          + ", ".join(f"{x:.3f}" for x in share8)
+          + "; buckets " + ", ".join(f"pn={bk['pn']} x {bk['batches']}: {bk['form']}, compact "
+                                      f"{bk['compact']}" for bk in buckets8)
+          + f"; launches {levels_launches}; accuracy {eng8.evaluate(batcher8, ds.labels):.4f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # GIN at 8 bits (hidden 64, feat 128: the first aggregation's degree
+    # case), 4 batches through the mega engine
+    shg8, shareg8, goldg8 = numpy_chain("gin")
+    gin8 = QGTCEngine(feat_dim=batcher8.feat_dim, num_classes=ds.num_classes, model="gin", bit_width=8,
+                      seed=SEED, device=dev, shifts=shg8)
+    fused_model.LEVELS_LAUNCHES = 0
+    gm8 = gin8._mega_logits(SimpleNamespace(batches=batcher8.batches[:4]))
+    torch.cuda.synchronize()
+    if fused_model.LEVELS_LAUNCHES != len(gin8.mega_buckets) or any(
+            bk["fallback"] or bk["form"] != "signed" for bk in gin8.mega_buckets):
+        raise AssertionError(f"8-bit GIN mega: {fused_model.LEVELS_LAUNCHES} launches, {gin8.mega_buckets}")
+    for b, got in zip(batcher8.batches[:4], gm8):
+        n = b.num_nodes
+        if not torch.equal(got[:n, :ncls], gin8.forward_batch(b)[:n, :ncls]) \
+                or not torch.equal(got[:n, :ncls], gin8.forward_batch(b, plain=True)[:n, :ncls]):
+            raise AssertionError("8-bit GIN mega logits != step engine / plain")
+    if not np.array_equal(gm8[0][:, :ncls].cpu().numpy(), goldg8[:, :ncls].astype(np.float32)):
+        raise AssertionError("8-bit GIN mega: batch 0 logits != NumPy chain")
+    print(f"phase 2: 8-bit GIN (hidden 64) mega logits of 4 batches == step engine == plain == NumPy "
+          f"chain (batch 0); shifts {shg8}, shares below the rail "
+          + ", ".join(f"{x:.3f}" for x in shareg8) + f"; {fused_model.LEVELS_LAUNCHES} levels launch(es)")
+
     # the kernel sweep: each figure's rows through the port's own
     # functions, counts reset before each figure
     t0 = time.perf_counter()
@@ -815,6 +974,10 @@ def main() -> int:
                   f"{st.avg_ms:.3f} ms/epoch over {st.n_batches} batches "
                   f"({len(eng.mega_buckets)} launch(es) per epoch) [{card}]")
     eng.zerotile_jump = None
+    for rep in range(2):
+        st2, st8 = eng.run_epochs_mega(batcher, n_epochs=20), eng8.run_epochs_mega(batcher8, n_epochs=20)
+        print(f"phase 3: mega engine GCN arxiv: 2-bit (E3) {st2.avg_ms:.3f}, 8-bit levels form (E3-8) "
+              f"{st8.avg_ms:.3f} ms/epoch over {nb} batches [{card}]")
     for rep in range(2):
         runs = [("baseline step (resident)", lambda: beng.run_epochs(batcher, ds, n_epochs=5)),
                 ("baseline fused", lambda: beng.run_epochs_fused(batcher, ds, n_epochs=5)),
@@ -870,6 +1033,30 @@ def main() -> int:
     # the dense kernel is timed alone
     timed.append(("fused_model dense", f"{what}, dense",
                   lambda: fused_model.fused_model_epoch(*args, **dense_kw), None))
+    # K1's levels form at C1 8-bit beside the 2-digit route on the same
+    # batches (the levels split back into 2 digit planes on the card)
+    fn8 = eng8._stage_mega(batcher8)[0][1]
+    a8s, xl8, ws8 = fn8.args[:3]
+    lv8 = xl8.to(torch.int32) & 255
+    x2_8 = torch.cat([lv8 & 15, lv8 >> 4], dim=1).to(torch.int8)
+    kw2_8 = dict(fn8.keywords, x_levels_bits=None)
+    if not torch.equal(fn8(), fused_model.fused_model_epoch(a8s, x2_8, ws8, 8, **kw2_8)):
+        raise AssertionError("C1 8-bit: the levels form != the 2-digit route")
+    what8 = f"fused_model epoch 8-bit, {nb} batches of pn={buckets8[0]['pn']}"
+    timed.append(("fused_model_levels", f"{what8}, levels form ({buckets8[0]['form']})", fn8,
+                  lambda: fused_model.fused_model_epoch_plain(*fn8.args, **fn8.keywords)))
+    timed.append(("fused_model 2-digit", f"{what8}, the 2-digit route",
+                  lambda: fused_model.fused_model_epoch(a8s, x2_8, ws8, 8, **kw2_8), None))
+    # the same launch with the compacted block schedule, which the engine's
+    # gate keeps for <= 4 bits (a TPU measurement)
+    pn8 = buckets8[0]["pn"]
+    sched8 = torch.from_numpy(np.stack([mega_block_sched(b.a_words.numpy(), 512, fused_model.mega_colblock(pn8))
+                                        for b in batcher8.batches])).to(dev)
+    kwc_8 = dict(fn8.keywords, blk_sched=sched8)
+    if not torch.equal(fn8(), fused_model.fused_model_epoch(a8s, xl8, ws8, 8, **kwc_8)):
+        raise AssertionError("C1 8-bit: the compacted schedule changed the logits")
+    timed.append(("fused_model_levels compact", f"{what8}, levels form with the compacted block schedule",
+                  lambda: fused_model.fused_model_epoch(a8s, xl8, ws8, 8, **kwc_8), None))
     bfn = bstaged[0][1]
     timed.append(("fused_baseline", f"fused_baseline epoch (sage hidden 16), {nb} batches of "
                   f"pn={beng.mega_buckets[0]['pn']}", bfn,
@@ -1018,6 +1205,14 @@ def main() -> int:
                      + 2 * pn_k1 * sum(s[0] * s[1] for s in k1_w))
     bounds["fused_model"] = bound(nbytes(a_st, x_st, *(w.digits for w in ws_k1), mega_fn())
                                   + (0 if sched is None else nbytes(sched)), k1_ops, "int8")
+    # K1's levels form: the same logical work, X one byte a value
+    k1l_ops = a8s.shape[0] * (2 * a8s.shape[2] ** 2 * sum(w.shape[1] for w in ws8)
+                              + 2 * a8s.shape[2] * sum(w.shape[0] * w.shape[1] for w in ws8))
+    bounds["fused_model_levels"] = bound(nbytes(a8s, xl8, *(w.digits for w in ws8), fn8()), k1l_ops, "int8")
+    print(f"phase 3: K1 at C1 8-bit: levels form {kernel_ms['fused_model_levels'] * 1e3:.1f} us (compacted "
+          f"schedule {kernel_ms['fused_model_levels compact'] * 1e3:.1f}), the 2-digit route "
+          f"{kernel_ms['fused_model 2-digit'] * 1e3:.1f} us per epoch; 2-bit {kernel_ms['fused_model'] * 1e3:.1f}"
+          f" compact, {kernel_ms['fused_model dense'] * 1e3:.1f} dense [{card}]")
     ba, bx, bws = bfn.args
     k5_ops = ba.shape[0] * sum(2 * ba.shape[1] ** 2 * w.shape[0] + 2 * ba.shape[1] * w.shape[0] * w.shape[1]
                                for w in bws)
@@ -1051,6 +1246,9 @@ def main() -> int:
                "digitmm": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", launches),
                "fused_model": ("fused_model.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
                                mega_launches),
+               # levels-form X: the 8-bit mega path's signed-chain launches
+               "fused_model_levels": ("fused_model_signed.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
+                                      levels_launches),
                "fused_baseline": ("fused_baseline.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:1299",
                                   base_launches),
                "bitmm": ("bitmm.cu", "qgtc_ppopp22_tpu/ops/bitgemm.py:266", bits_launches),

@@ -7,7 +7,7 @@ namespace qgtc {
 namespace mega {
 
 int launch_x2(const Params& p, int nd_w, int nd_h, cudaStream_t s) {
-  return launch_x<2>(p, nd_w, nd_h, s);
+  return launch_x<X_DIGITS, 2>(p, nd_w, nd_h, s);
 }
 
 }  // namespace mega

@@ -105,9 +105,9 @@ def library() -> ctypes.CDLL:
         # mask_n, stream); see csrc/packmm_signed.cu.
         lib.qgtc_packmm_signed.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.qgtc_packmm_signed.restype = i
-        # (out, a, x, w, sched, scratch, meta, n_meta, stream); meta is a
-        # host int array, laid out in csrc/fused_model.cu.
-        lib.qgtc_fused_model.argtypes = [p, p, p, p, p, p, p, i, p]
+        # (out, a, x, w, corr, sched, scratch, meta, n_meta, stream); meta
+        # is a host int array, laid out in csrc/fused_model.cu.
+        lib.qgtc_fused_model.argtypes = [p, p, p, p, p, p, p, p, i, p]
         lib.qgtc_fused_model.restype = i
         # (out, a, x, w, scratch, meta, n_meta, stream); meta laid out in
         # csrc/fused_baseline.cu.

@@ -28,10 +28,22 @@ block), is compacted on its device into that schedule
 a TPU residency tier: on the card A is read from device memory (or L2)
 either way, so ``False`` is the same launch.
 
+Levels-form X (``x_levels_bits``, 5-8): ``x_stack`` int8[B, 1, pn, xp]
+holds each feature's whole level in one byte, as the JAX engine stages
+5-8-bit features. When every weight has a free padded lane (real width
+below its padded width, JAX's test) the kernel runs the offset-signed
+single-plane chain: every operand one int8 plane of level - 128, one
+int8 pass per GEMM, exact rank-1 corrections (``csrc/fused_model.cuh``),
+with the weights' planes and correction rows built by
+:func:`signed_weights`. Otherwise it splits the bytes into base-16
+digits as it loads them and runs the digit chain. ``MegaPlan.form`` says which ("signed", "split" or
+"digits"). JAX's signed kernel also stores its ones-lane bookkeeping in
+the last padded logit column (``out_cols`` past ``cp - 8``); here every
+padded column is the product's 0.
+
 Dispatch: tensors on the CPU run :func:`fused_model_epoch_plain`;
-tensors on a CUDA device launch the kernel or raise. Not yet ported:
-levels-form X with the >4-bit offset-signed chain (``x_levels_bits``)
-and ``unpack_once``.
+tensors on a CUDA device launch the kernel or raise. Not ported:
+``unpack_once``, a TPU VMEM tier.
 
 K5 (``csrc/fused_baseline.cu``): the dense bf16 chain of
 ``models/baselines.sage_forward`` over ``int8[B, pn, pn]`` 0/1 adjacency
@@ -53,13 +65,15 @@ from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward, qgin_forward
 from qgtc_ppopp22_tpu_torch.ops import _gemm
 from qgtc_ppopp22_tpu_torch.ops._build import check, library
 from qgtc_ppopp22_tpu_torch.ops.bitpack import DIGIT_BITS, num_digits, round_up
-from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor
+from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor, digit_levels, split_digits
 from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor
 
 LAUNCHES = 0  # fused_model launches since the count was last reset to 0
+LEVELS_LAUNCHES = 0  # those of them with levels-form X (signed or split)
 BASELINE_LAUNCHES = 0  # fused_baseline launches, likewise
 
 _RPW = 32  # adjacency rows per packed word (1-bit)
+_OFFSET = 128  # the signed chain's operands hold level - 128
 _WIDTH = 32  # the kernel's column granule: real widths round up to it
 MAX_LAYERS = 8  # csrc/fused_model.cu MAX_LAYERS
 
@@ -86,7 +100,7 @@ class MegaPlan:
 
     B: int
     pn: int
-    nd_x: int
+    nd_x: int  # X's digit planes (levels form: the digits of x_bits)
     xp: int
     nd_w: int
     nd_h: int
@@ -94,11 +108,13 @@ class MegaPlan:
     nj: int  # column blocks of blk_sched; 0 = dense
     oc: int  # stored logit columns
     widths: List[int]  # per layer: output columns the kernel computes
+    form: str = "digits"  # X's form and the chain: "digits", "split", "signed"
+    x_bits: int = 0  # levels form: x_levels_bits
 
 
 def plan(
     a_shape, x_shape, ws: Sequence[DigitTensor], out_bits: int, model: str,
-    shifts, out_cols: Optional[int], sched_shape=None,
+    shifts, out_cols: Optional[int], sched_shape=None, x_levels_bits: Optional[int] = None,
 ) -> MegaPlan:
     """Check the operands' shapes and return the launch geometry; raises
     ``ValueError`` on what the kernel (and the JAX kernel) refuses."""
@@ -106,6 +122,19 @@ def plan(
     Bx, nd_x, pnx, xp = x_shape
     if pnw * _RPW != pn or pn != pnx or B != Bx:
         raise ValueError(f"bad stacked shapes {tuple(a_shape)} {tuple(x_shape)}")
+    form, x_bits = "digits", 0
+    if x_levels_bits is not None:
+        if nd_x != 1:
+            raise ValueError(f"x_levels_bits given but x_stack has {nd_x} planes")
+        if not 5 <= x_levels_bits <= 8:
+            raise ValueError(f"x_levels_bits must be in [5, 8], got {x_levels_bits}: the "
+                             "levels form carries 2-digit features; pass fewer bits as a digit plane")
+        x_bits = int(x_levels_bits)
+        nd_x = num_digits(x_bits)  # the int32 guard counts the levels' digits
+        # JAX's choice (ops/fused_model.py:442-444): a free padded lane on
+        # every weight. Not prepare_rhs's test (round8(N) < np): real widths
+        # 121-127 take the signed chain here.
+        form = "signed" if all(w.shape[1] < w.padded_cols for w in ws) else "split"
     if model not in ("gcn", "gin"):
         raise ValueError(model)
     if not 1 <= out_bits <= 8:
@@ -153,18 +182,41 @@ def plan(
         nj = sched_shape[2] - 1
         if nj < 1 or pn % nj or (pn // nj) % 128:
             raise ValueError(f"blk_sched nj={nj} incompatible with pn={pn}")
-    return MegaPlan(B, pn, nd_x, xp, nd_w, nd_h, chunk, nj, oc, widths)
+    return MegaPlan(B, pn, nd_x, xp, nd_w, nd_h, chunk, nj, oc, widths, form, x_bits)
 
 
-def _refuse_unported(x_levels_bits, unpack_once) -> None:
-    if x_levels_bits is not None:
-        raise NotImplementedError(
-            f"fused_model_epoch(x_levels_bits={x_levels_bits!r}) is not yet ported: the "
-            ">4-bit offset-signed chain; pass X as digit planes")
+def _refuse_unported(unpack_once) -> None:
     if unpack_once:
         raise NotImplementedError(
             "fused_model_epoch(unpack_once=True) is not yet ported: the TPU's "
             "unpack-once VMEM tier")
+
+
+def signed_weights(ws: Sequence[DigitTensor]) -> tuple:
+    """The signed chain's weight operands -> (planes, corrs): per weight
+    its offset-signed plane int8[kp, np] (level - 128) and its correction
+    row int32[np], ``128 * colsum + 128^2 * kp`` (JAX's row without its
+    ones lane), wrapped to int32 as the kernel's sums are. A level-0 row
+    adds ``128 * -128 + 128^2 = 0``, so the row holds for every
+    contraction that covers the real rows: the kernel's cover the real
+    widths rounded to 32."""
+    planes, corrs = [], []
+    for w in ws:
+        s = digit_levels(w) - _OFFSET
+        c = (s.to(torch.int64).sum(dim=0) << 7) + _OFFSET * _OFFSET * s.shape[0]
+        corrs.append(((c + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32))
+        planes.append(s.to(torch.int8))
+    return planes, corrs
+
+
+def levels_to_digits(x_stack: torch.Tensor, p: MegaPlan) -> torch.Tensor:
+    """Levels-form X int8[B, 1, pn, xp] -> the digit planes the chain
+    multiplies, int8[B, nd, pn, xp]: the split form masks each digit to
+    ``x_bits`` (JAX's x_split); the signed form takes the whole byte
+    (level - 128 + 128), as the JAX signed kernel does."""
+    levels = x_stack[:, 0].to(torch.int32) & 255
+    bits = p.x_bits if p.form == "split" else 8
+    return split_digits(levels, bits).transpose(0, 1).contiguous()
 
 
 def chunk_occ_sched(chunk_occ: torch.Tensor, B: int, pn: int, chunk: int) -> torch.Tensor:
@@ -235,15 +287,20 @@ def fused_model_epoch_plain(
     blk_sched: Optional[torch.Tensor] = None,
     x_cols: Optional[int] = None,
     chunk_occ: Optional[torch.Tensor] = None,
+    x_levels_bits: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version on any device: each batch's chain through
     ``packmm_plain`` / ``digitmm_plain``, with the blocks that a schedule
     leaves out, or that ``chunk_occ`` flags 0, zeroed in the adjacency
     (the flags are read directly, not through the compacted schedule).
-    Returns float32[B, pn, oc]."""
+    Levels-form X is split into digit planes first
+    (:func:`levels_to_digits`): the integer chain is the same in every
+    form. Returns float32[B, pn, oc]."""
     _exclusive(blk_sched, chunk_occ, None)
     p = plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
-             None if blk_sched is None else blk_sched.shape)
+             None if blk_sched is None else blk_sched.shape, x_levels_bits)
+    if p.form != "digits":
+        x_stack = levels_to_digits(x_stack, p)
     occ = None
     if chunk_occ is not None:
         chunk_occ_sched(chunk_occ, p.B, p.pn, p.chunk)  # the JAX shape checks
@@ -258,24 +315,24 @@ def fused_model_epoch_plain(
             words = words * _block_mask(occ[b], p.chunk, p.pn)
         a = PackedTensor(words=words[None], shape=(p.pn, p.pn), bits=1)
         x = DigitTensor(digits=x_stack[b], shape=(p.pn, ws[0].shape[0]),
-                        bits=DIGIT_BITS * p.nd_x)
+                        bits=DIGIT_BITS * x_stack.shape[1])
         logits = fwd(a, x, ws, out_bits, shifts=shifts, plain=True)
         n = min(p.oc, logits.shape[1])
         out[b, :, :n] = logits[:, :n]
     return out
 
 
-def _weights_blob(ws: Sequence[DigitTensor]) -> tuple:
-    """The weights' digit planes in one int8 buffer -> (buffer, byte
-    offset of each weight); every size is a multiple of 32 (``plan``)."""
-    flats = [w.digits.reshape(-1) for w in ws]
+def _weights_blob(planes: Sequence[torch.Tensor]) -> tuple:
+    """The weights' int8 planes in one buffer -> (buffer, byte offset of
+    each weight); every size is a multiple of 32 (``plan``)."""
+    flats = [t.reshape(-1) for t in planes]
     offs = np.cumsum([0] + [f.numel() for f in flats[:-1]]).tolist()
     return torch.cat(flats), offs
 
 
 def fused_model_epoch(
     a_stack: torch.Tensor,  # int32[B, pn/32, pn] M-packed 1-bit adjacency
-    x_stack: torch.Tensor,  # int8[B, nd_x, pn, xp] feature digits
+    x_stack: torch.Tensor,  # int8[B, nd_x, pn, xp] digits, or [B, 1, pn, xp] levels
     ws: Sequence[DigitTensor],
     out_bits: int,
     model: str = "gcn",
@@ -294,21 +351,22 @@ def fused_model_epoch(
     padded class width, or ``round8(out_cols)`` when given (slices the
     store only). ``shifts``: optional per-GEMM requantize shifts in
     ``qgcn_forward`` / ``qgin_forward`` order. ``x_cols`` is accepted for
-    parity with the JAX signature; it matters only to forms not ported.
-    ``chunk_occ`` (int32[B, nch] or [B, nch, nj]) is compacted on the
-    device into a ``blk_sched`` (:func:`chunk_occ_sched`), exclusive with
-    one.
+    parity with the JAX signature: the JAX kernel uses it only to place
+    its ones lane. ``x_levels_bits``: X holds byte levels of that many
+    bits (the module's docstring). ``chunk_occ`` (int32[B, nch] or
+    [B, nch, nj]) is compacted on the device into a ``blk_sched``
+    (:func:`chunk_occ_sched`), exclusive with one.
     ``resident_a`` (None, True or False) is the same launch: on this card
     A is read from device memory or L2 either way; ``blk_sched`` with
     ``False`` is refused, as JAX refuses it."""
-    global LAUNCHES
-    _refuse_unported(x_levels_bits, unpack_once)
+    global LAUNCHES, LEVELS_LAUNCHES
+    _refuse_unported(unpack_once)
     _exclusive(blk_sched, chunk_occ, resident_a)
     if not a_stack.is_cuda:
         return fused_model_epoch_plain(a_stack, x_stack, ws, out_bits, model, shifts,
-                                       out_cols, blk_sched, x_cols, chunk_occ)
+                                       out_cols, blk_sched, x_cols, chunk_occ, x_levels_bits)
     p = plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
-             None if blk_sched is None else blk_sched.shape)
+             None if blk_sched is None else blk_sched.shape, x_levels_bits)
     dev = a_stack.device
     if chunk_occ is not None:  # compacted on the card, into the launch's schedule
         blk_sched = chunk_occ_sched(chunk_occ.to(dev), p.B, p.pn, p.chunk)
@@ -318,15 +376,25 @@ def fused_model_epoch(
         if t.device != dev:
             raise ValueError(f"operands on {dev} and {t.device} ({name})")
     n = len(ws)
-    blob, offs = _weights_blob(ws)
+    corr, c_offs = None, [0] * n
+    nd_w, nd_h = p.nd_w, p.nd_h
+    if p.form == "signed":  # one plane per operand
+        planes, corrs = signed_weights(ws)
+        blob, offs = _weights_blob(planes)
+        corr = torch.cat(corrs)
+        c_offs = np.cumsum([0] + [c.numel() for c in corrs[:-1]]).tolist()
+        nd_w = nd_h = 1
+    else:
+        blob, offs = _weights_blob([w.digits for w in ws])
     hw = max(p.widths + ([p.xp] if model == "gin" else []))
-    scratch = torch.empty((p.B, 3, p.nd_h, p.pn, hw), dtype=torch.int8, device=dev)
+    scratch = torch.empty((p.B, 3, nd_h, p.pn, hw), dtype=torch.int8, device=dev)
     out = torch.empty((p.B, p.pn, p.oc), dtype=torch.float32, device=dev)
     sh = list(shifts) if shifts is not None else [0] * (2 * n - 1)
-    meta = [p.B, p.pn, p.nd_x, p.xp, p.nd_w, p.nd_h, n, int(model == "gin"),
-            out_bits, p.oc, p.chunk, p.nj, hw]
+    x_form = {"digits": 0, "split": 1, "signed": 2}[p.form]  # csrc XForm
+    meta = [p.B, p.pn, p.nd_x if p.form != "signed" else 1, p.xp, nd_w, nd_h, n,
+            int(model == "gin"), out_bits, p.oc, p.chunk, p.nj, hw, x_form, p.x_bits]
     for l, w in enumerate(ws):
-        meta += [w.padded_rows, w.padded_cols, p.widths[l], offs[l]]
+        meta += [w.padded_rows, w.padded_cols, p.widths[l], offs[l], c_offs[l]]
     meta += sh
     meta_c = (ctypes.c_int * len(meta))(*meta)
     sched = None
@@ -338,12 +406,13 @@ def fused_model_epoch(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.qgtc_fused_model(
-            out.data_ptr(), a, x, blob.data_ptr(),
+            out.data_ptr(), a, x, blob.data_ptr(), None if corr is None else corr.data_ptr(),
             None if sched is None else sched.data_ptr(), scratch.data_ptr(),
             meta_c, len(meta), stream,
         )
     check(err, "qgtc_fused_model")
     LAUNCHES += 1
+    LEVELS_LAUNCHES += p.form != "digits"
     return out
 
 

@@ -17,7 +17,8 @@ adjacency's all-zero 256 x 256 tiles through the batch's pack-time
 ``TileMap``) and ``fmt='bits'`` (the bit-plane GEMM ``bitgemm`` on the
 one-bit tensor cores); the mega engine (``run_epochs_mega``, digits
 only: one whole-model kernel launch per shape bucket,
-``ops/fused_model.py``); and the full-precision ``BaselineEngine`` (step,
+``ops/fused_model.py``, 5-8-bit features staged as one plane of byte
+levels); and the full-precision ``BaselineEngine`` (step,
 fused and mega modes, the last through the ``fused_baseline`` kernel).
 The quantized engine's fused (scan) and quant-in-loop modes are not.
 """
@@ -27,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Callable, List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -110,6 +111,14 @@ class QGTCEngine(_Engine):
     bit-serial form; step engine only). Weights are drawn from ``torch.Generator().manual_seed(seed)``;
     assign ``self.weights`` (e.g. from ``models.qmodels.weights_from_jax``)
     to run other weights.
+
+    ``shifts``: per-GEMM requantize shifts in ``qgcn_forward`` /
+    ``qgin_forward`` order (None: the reference's unscaled requantize),
+    passed to every engine mode; the bit-plane GEMM refuses a non-zero
+    shift, as JAX's does. ``clamp_bits`` (default ``bit_width``, at most
+    it): the width every intermediate is requantized to, so a wide
+    datapath reproduces a narrower model exactly (JAX
+    ``runtime.py:97-111``).
     """
 
     def __init__(
@@ -124,16 +133,22 @@ class QGTCEngine(_Engine):
         fmt: str = "digits",
         seed: int = 0,
         device="cuda",
+        shifts: Optional[Sequence[int]] = None,
+        clamp_bits: Optional[int] = None,
     ):
         if model not in ("gcn", "gin"):
             raise ValueError(f"unknown model {model!r}")
         if fmt not in ("digits", "bits"):
             raise ValueError(f"unknown fmt {fmt!r}")
+        if clamp_bits is not None and clamp_bits > bit_width:
+            raise ValueError("clamp_bits must be <= bit_width")
         self._set_device(device)
         if hidden is None:
             hidden = 16 if model == "gcn" else 64  # 0_7a…py:6 / 0_7b…py:6
         self.model = model
         self.bit_width = bit_width
+        self.clamp_bits = clamp_bits or bit_width
+        self.shifts = tuple(shifts) if shifts is not None else None
         # Tri-state, as in the JAX engine: True forces zero-tile skipping
         # (the digit step engine's TileMap K skip, the mega kernel's
         # compacted block schedule), False forbids it, None = auto: off in
@@ -180,7 +195,8 @@ class QGTCEngine(_Engine):
     def _step(self, a, bit_x: BitTensor, tile_map: Optional[TileMap] = None,
               plain: bool = False) -> torch.Tensor:
         x = to_digit_tensor(bit_x) if self.fmt == "digits" else bit_x
-        return self._fwd(a, x, self.weights, self.bit_width, plain=plain, tile_map=tile_map)
+        return self._fwd(a, x, self.weights, self.clamp_bits, shifts=self.shifts, plain=plain,
+                         tile_map=tile_map)
 
     def forward_batch(self, batch: ClusterBatch, plain: bool = False) -> torch.Tensor:
         """Logits [padded_nodes, num_classes] on the engine's device.
@@ -259,20 +275,26 @@ class QGTCEngine(_Engine):
         runs the bucket's epoch and returns its logits, float32[B, pn, oc]
         from one fused_model kernel launch, or, for a bucket the kernel
         refuses, a list of the step engine's per-batch logits. Records
-        each bucket's choices in ``self.mega_buckets``."""
+        each bucket's choices in ``self.mega_buckets``: ``form`` is the
+        kernel's (``MegaPlan.form``), ``"signed"`` or ``"split"`` for 5-8-bit
+        features, which cross as one plane of byte levels (JAX
+        ``runtime.py:504-516``), else ``"digits"``."""
         if self.fmt != "digits":
             raise ValueError("mega mode requires fmt='digits'")
         ws, dev, bw = self.weights, self.device, self.bit_width
+        levels = num_digits(bw) == 2
         staged, self.mega_buckets = [], []
         for (pn, feat), idx, a_np, x_np in self._fused_groups(batcher):
             bs = [batcher.batches[i] for i in idx]
             B, xshape = len(idx), bs[0].bit_X.shape
-            x_shape = (B, num_digits(bw), round_up(xshape[0], LANE), round_up(feat, LANE))
-            info = dict(pn=pn, batches=B, fallback=False, compact=False, skippable=None)
+            x_shape = (B, 1 if levels else num_digits(bw), round_up(xshape[0], LANE),
+                       round_up(feat, LANE))
+            info = dict(pn=pn, batches=B, fallback=False, compact=False, skippable=None, form=None)
             self.mega_buckets.append(info)
             try:
-                geo = fused_model.plan(a_np[:, 0].shape, x_shape, ws, bw, self.model,
-                                       None, self.cfg.out_dim)
+                geo = fused_model.plan(a_np[:, 0].shape, x_shape, ws, self.clamp_bits, self.model,
+                                       self.shifts, self.cfg.out_dim,
+                                       x_levels_bits=bw if levels else None)
             except ValueError as e:
                 # Loudly: a silent fallback would turn a "mega" measurement
                 # into a step-engine one.
@@ -282,10 +304,15 @@ class QGTCEngine(_Engine):
                 batches = [self.put_batch(b) for b in bs]
                 staged.append((idx, lambda batches=batches: [self._step(*t) for t in batches]))
                 continue
+            info["form"] = geo.form
             a_stack = a_np[:, 0].to(dev).contiguous()
             x_stack = torch.empty(x_shape, dtype=torch.int8, device=dev)
             for i in range(0, B, 16):  # bounds the unpack intermediate
-                x_stack[i:i + 16] = planes_stack_to_digits(x_np[i:i + 16].to(dev), xshape, bw)
+                d = planes_stack_to_digits(x_np[i:i + 16].to(dev), xshape, bw)
+                if levels:  # the 2 digit planes collapse to one plane of byte levels
+                    d = (d[:, :1].to(torch.int32) | (d[:, 1:].to(torch.int32) << 4)) \
+                        .to(torch.uint8).view(torch.int8)
+                x_stack[i:i + 16] = d
             cb = fused_model.mega_colblock(pn)
             occ = np.stack([mega_block_occ(b.a_words.numpy(), geo.chunk, cb) for b in bs])
             info["skippable"] = float(1.0 - occ.mean())
@@ -301,9 +328,10 @@ class QGTCEngine(_Engine):
                 ])).to(dev)
                 info["compact"] = True
             staged.append((idx, functools.partial(
-                fused_model.fused_model_epoch, a_stack, x_stack, ws, bw,
-                model=self.model, out_cols=self.cfg.out_dim, blk_sched=sched,
-                x_cols=self.cfg.in_dim,
+                fused_model.fused_model_epoch, a_stack, x_stack, ws, self.clamp_bits,
+                model=self.model, shifts=self.shifts, out_cols=self.cfg.out_dim,
+                blk_sched=sched, x_cols=self.cfg.in_dim,
+                x_levels_bits=bw if levels else None,
             )))
         return staged
 

@@ -29,6 +29,7 @@ from torch_cases import (  # tests/ is on sys.path
     blocky_levels,
     edge_operands,
     hand_map,
+    levels_plane,
     mega_case,
     operands,
 )
@@ -300,6 +301,84 @@ def test_run_epochs_mega_on_card_equals_cpu(cuda, model):
         np.testing.assert_array_equal(g[:n, :k].cpu().numpy(), c[:n, :k].numpy())
     # evaluation with zerotile_jump=True: the step engine with its maps
     assert gpu.evaluate(it, ds.labels) == cpu.evaluate(it, ds.labels)
+
+
+# -- fused_model: levels-form X (the signed chain, the in-kernel split) ----
+
+
+def _levels_args(cuda, model, bits, pn, hidden, shifts, B=2, feat=128, seed=0, keep=None):
+    qa, qx, qws, aw, xd = mega_case(seed + bits + pn + hidden, B, pn, bits, hidden, keep=keep,
+                                    feat=feat, shift=1 if shifts else 0)
+    ws = [digits.digit_pack(torch.from_numpy(w).to(cuda), bits) for w in qws]
+    sched = np.stack([mega_block_sched(w[None], 512 if pn % 512 == 0 else 256, 256) for w in aw])
+    return (torch.from_numpy(aw).to(cuda), torch.from_numpy(levels_plane(xd)).to(cuda),
+            torch.from_numpy(xd).to(cuda), ws, torch.from_numpy(sched).to(cuda))
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("shifts", [None, [1, 2, 1, 2, 1]])
+@pytest.mark.parametrize("hidden", [16, 128])  # the signed form, the split form
+@pytest.mark.parametrize("bits", [5, 8])
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_fused_model_levels_kernel_equals_plain(cuda, model, bits, hidden, shifts, compact):
+    a, xl, xd, ws, sched = _levels_args(cuda, model, bits, 1024, hidden, shifts, keep=MEGA_KEEP[1024])
+    kw = dict(model=model, shifts=shifts, out_cols=40 if shifts else None,
+              blk_sched=sched if compact else None)
+    form = fused_model.plan(a.shape, xl.shape, ws, bits, model, shifts, None,
+                            x_levels_bits=bits).form
+    assert form == ("signed" if hidden == 16 else "split")
+    before = fused_model.LEVELS_LAUNCHES
+    got = fused_model.fused_model_epoch(a, xl, ws, bits, x_levels_bits=bits, **kw)
+    assert fused_model.LEVELS_LAUNCHES == before + 1
+    _check(got, fused_model.fused_model_epoch_plain(a, xl, ws, bits, x_levels_bits=bits, **kw))
+    # the same logits as the 2-digit route, padded columns included
+    _check(got, fused_model.fused_model_epoch(a, xd, ws, bits, **kw))
+
+
+@pytest.mark.parametrize("case", ["feat 100", "clamp_bits 4", "B 3 pn 768", "1 layer gin"])
+def test_fused_model_levels_kernel_cases(cuda, case):
+    bits, out_bits, model, pn, B, feat, hidden = 8, 8, "gcn", 512, 2, 128, 48
+    if case == "feat 100":
+        model, feat, hidden = "gin", 100, 64
+    elif case == "clamp_bits 4":
+        out_bits = 4
+    elif case == "B 3 pn 768":
+        pn, B = 768, 3
+    a, xl, xd, ws, sched = _levels_args(cuda, model, bits, pn, hidden, [1, 2, 1, 2, 1], B=B,
+                                        feat=feat)
+    kw = dict(model=model, shifts=[1, 2, 1, 2, 1], out_cols=40, x_levels_bits=bits)
+    if case == "1 layer gin":
+        ws, kw = ws[:1], dict(kw, model="gin", shifts=None)
+    for blk in (None, sched):
+        got = fused_model.fused_model_epoch(a, xl, ws, out_bits, blk_sched=blk, **kw)
+        _check(got, fused_model.fused_model_epoch_plain(a, xl, ws, out_bits, blk_sched=blk, **kw))
+        assert len(torch.unique(got)) > 4
+
+
+def test_fused_model_levels_kernel_is_repeatable(cuda):
+    """A race between the CTAs of one batch would show as a run that
+    differs from the others."""
+    a, xl, _, ws, sched = _levels_args(cuda, "gin", 8, 1024, 64, None, seed=9, keep=MEGA_KEEP[1024])
+    first = fused_model.fused_model_epoch(a, xl, ws, 8, model="gin", blk_sched=sched, x_levels_bits=8)
+    for _ in range(5):
+        _check(fused_model.fused_model_epoch(a, xl, ws, 8, model="gin", blk_sched=sched,
+                                             x_levels_bits=8), first)
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_run_epochs_mega_levels_on_card_equals_cpu(cuda, model):
+    ds = synthesize("Proteins", scale=0.05, seed=5)
+    it = ClusterBatcher(ds, 8, 2, bit_width=8, seed=5, partition_method="bfs")
+    kw = dict(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4, bit_width=8,
+              shifts=(4, 2, 11, 2, 11) if model == "gcn" else (0, 6, 3, 13, 2))
+    gpu, cpu = QGTCEngine(device=cuda, **kw), QGTCEngine(device="cpu", **kw)
+    before = fused_model.LEVELS_LAUNCHES
+    got = gpu._mega_logits(it)
+    assert fused_model.LEVELS_LAUNCHES - before == len(gpu.mega_buckets)
+    assert all(i["form"] == "signed" and not i["fallback"] for i in gpu.mega_buckets)
+    for b, g, c in zip(it.batches, got, cpu.forward_all(it)):
+        n, k = b.num_nodes, ds.num_classes
+        np.testing.assert_array_equal(g[:n, :k].cpu().numpy(), c[:n, :k].numpy())
 
 
 # -- fused_baseline: the bf16 baseline chain in one launch ----------------

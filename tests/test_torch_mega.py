@@ -147,16 +147,17 @@ def test_planes_stack_to_digits_matches_jax(bits):
     dict(unpack_once=True),
 ])
 def test_fused_model_refuses_unported_forms(kwargs):
-    """The forms still to port are refused by name; the JAX kernel's
-    predicated occupancy map and its streamed-A tier run as the same
-    launch (a full map and ``resident_a=False`` give the dense logits)."""
+    """The TPU's unpack-once tier is refused by name; the JAX kernel's
+    predicated occupancy map, its streamed-A tier and levels-form X run
+    (a full map and ``resident_a=False`` give the dense logits; the digit
+    plane read as byte levels takes the signed chain to the same logits,
+    padded columns included)."""
     _, _, qws, aw, xd = mega_case(0, 1, 512, 2, 16)
     args = (torch.from_numpy(aw), torch.from_numpy(xd), _port_ws(qws, 2), 2)
-    if "chunk_occ" in kwargs or "resident_a" in kwargs:
+    if "unpack_once" not in kwargs:
         assert torch.equal(fused_model_epoch(*args, **kwargs), fused_model_epoch(*args))
         return
-    match = "the >4-bit offset-signed chain" if "x_levels_bits" in kwargs else "unpack-once"
-    with pytest.raises(NotImplementedError, match=f"not yet ported: .*{match}"):
+    with pytest.raises(NotImplementedError, match="not yet ported: .*unpack-once"):
         fused_model_epoch(*args, **kwargs)
 
 

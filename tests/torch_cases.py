@@ -108,6 +108,56 @@ def mega_case(seed, B, pn, bits, hidden, keep=None, chunk=512, cb=256,
     return qa, qx, qws, a_words, x_digits.astype(np.int8)
 
 
+def levels_plane(x_digits):
+    """Digit planes int8[B, nd, pn, xp] -> levels-form X int8[B, 1, pn, xp]:
+    each byte the whole level (the mega engine's staging of 5-8-bit X)."""
+    lv = sum(x_digits[:, d].astype(np.int32) << (4 * d) for d in range(x_digits.shape[1]))
+    return lv.astype(np.uint8).view(np.int8)[:, None]
+
+
+def requant_np(acc, bits, shift=0):
+    """The reference requantizer on int64 sums: after >> shift, above 2^b
+    clamps to 2^b - 1, below 0 to 1, then the low b bits (2^b wraps to 0)."""
+    v = acc >> shift
+    ub = 1 << bits
+    return np.where(v > ub, ub - 1, np.where(v < 0, 1, v)) & (ub - 1)
+
+
+def chain_shifts(qa, qx, qws, model, bits, rows=None):
+    """A NumPy integer chain (``qgcn_forward`` / ``qgin_forward`` order)
+    whose every requantize shift is the smallest that leaves more than half
+    of its stage's levels (over the first ``rows`` rows, the real nodes;
+    default all) below the 2^bits - 1 rail, so a clobbered level changes
+    the logits instead of landing on the rail. Returns (shifts, each
+    stage's share of levels below the rail, int64 logits)."""
+    qa, h = qa.astype(np.int64), qx.astype(np.int64)
+    ws = [w.astype(np.int64) for w in qws]
+    rail = (1 << bits) - 1
+
+    def below(r):
+        return float((r[:rows] < rail).mean())
+
+    shifts, shares = [], []
+
+    def stage(acc):
+        s = next(s for s in range(32) if below(requant_np(acc, bits, s)) > 0.5)
+        r = requant_np(acc, bits, s)
+        shifts.append(s)
+        shares.append(below(r))
+        return r
+
+    if model == "gcn":
+        for l, w in enumerate(ws):
+            h = stage(h @ w)
+            if l < len(ws) - 1:
+                h = stage(qa @ h)
+        return shifts, shares, qa @ h
+    h = stage(qa @ h)
+    for w in ws[:-1]:
+        h = stage(qa @ stage(h @ w))
+    return shifts, shares, h @ ws[-1]
+
+
 # Tolerance of the bf16 baseline chain, per row of logits: max |port - ref|
 # over the row <= 2^-6 * the row's scale, the larger of its own max |ref|
 # and the median row's max |ref| in its batch (rows whose ref is all 0 left
