@@ -55,7 +55,19 @@ Runs, and stops with a non-zero exit at the first failure:
    planes each side, tiles (256 | 128)^2) against plain, with the
    builders' maps (equal to dense) and hand-made ones (occupied tiles left
    out, a tile listed twice, kcnt 0, -1 and past the grid, entries outside
-   it); each call must launch once with its map.
+   it); each call must launch once with its map. Then the kernel-study
+   probes (``qgtc_ppopp22_tpu_torch/benchmarks``): P1's packed-A template
+   (``exp_packmm``) in every variant at 1/2/4 bits, tm 256 and 512, 16-,
+   48- and 64-column B and C1's 2560 x 2560 (noextract against its own
+   plain version, the int8 A and, at tm 256, K2's own loader against the
+   packed product) and its packed
+   out (group 0, 256 and 512, M = 768 in three 256-row groups, a
+   4096-row layout tile); P2's bitcasts (``exp_bitcast_probe``) and the
+   fragment registers of a random tile; P3's zero body
+   (``grid_overhead_study``, G 1 and 3, oc 8, 48, 120, and the study's
+   geometry: pn 1024 and 2048, G 1 and 5) and K-dot passes (K 0, 1, 2;
+   oc 8, 48, 120; pn 256 and 640, and the study's pn 2048 at oc 48 and
+   120), random S and x.
 2. The main path: 2-bit 3-layer Cluster-GCN (hidden 16) on the
    full-scale synthetic ogbn-arxiv stand-in, psize 1500, batch 20, 75
    batches, through ``QGTCEngine.forward_all``; launch counts are reset
@@ -102,7 +114,16 @@ Runs, and stops with a non-zero exit at the first failure:
    ``packmm`` once and nothing else, its int8 rows (``torch._int_mm``)
    neither; every row's output equals plain (the 32768-row profile
    shapes on their first 2048 rows).
-3. Timing: ms/epoch of the step engine (host clock around all epochs
+3. The kernel studies through the probe modules' entry points, launch
+   counts reset just before and each probe kernel launched: P2's three
+   tables (bytes in the TPU's interpret-mode order, the fragments in the
+   PTX ISA's layout), JAX's ten ``run_packedout`` rows (each exact), the
+   per-K-step ladder at C1's aggregation (every variant, the int8 A, the
+   64-column tile, concat with K2's loader, K2 and ``torch._int_mm``, each
+   equal to plain first) and P3's zero-body and K-dot rows (random
+   operands, each call equal to plain first) and layer-fit rows (K1 at
+   1/3/5 layers).
+   Timing: ms/epoch of the step engine (host clock around all epochs
    and one synchronize, resident and transfer-inclusive, twice each,
    each beside the same engine with zero-tile jumping and the bits step
    engine),
@@ -123,7 +144,12 @@ Runs, and stops with a non-zero exit at the first failure:
    ``packmm_to_digits``, ``packmm_to_f32`` and ``digitmm_to_digits`` over
    the adjacency as a digit plane), each beside the same call without the
    map, plain, ``torch._int_mm`` and a bound that counts only the listed
-   tiles, and one resident step epoch's device time with the maps.
+   tiles, and one resident step epoch's device time with the maps; and
+   each probe kernel at its study's shape beside plain, bound and a
+   library yardstick: for P1 ``torch._int_mm`` on the unpacked levels,
+   for P2's bitcasts a strided copy of the bytes, for P3's zero body
+   ``torch.zeros`` (the zero body taking turns over copies of X, so each
+   call reads X from HBM).
 
 Test operands come from ``tests/torch_cases.py``. Each kernel's bound
 is the larger of its bytes (inputs read once, outputs written once) over
@@ -197,7 +223,7 @@ def main() -> int:
 
     from torch_cases import (BF16_REL_TOL, baseline_case, bf16_rel_err, blocky_levels, chain_shifts, edge_operands,
                              hand_map, levels_plane, mega_case, operands)
-    from qgtc_ppopp22_tpu_torch.benchmarks import kernel_sweep
+    from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe, exp_packmm, grid_overhead_study, kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward
     from qgtc_ppopp22_tpu_torch.ops import _build, bitgemm, digitmm, fused_model, packmm
@@ -235,7 +261,9 @@ def main() -> int:
             else:
                 entry = next((entry[entry.find(k):][:60] for k in ("fused_model_kernel",
                                                                       "fused_baseline_kernel",
-                                                                      "bitmm_kernel")
+                                                                      "bitmm_kernel", "exp_packmm_kernel",
+                                                                      "bitcast", "fragment_probe",
+                                                                      "zero_body_kernel", "kdot_kernel")
                               if k in entry), entry[-60:])
         elif "Used" in line:
             print(f"  ptxas: {entry}: {line.split(':', 1)[1].strip()}")
@@ -245,7 +273,8 @@ def main() -> int:
     # -- phase 1: kernel vs plain --------------------------------------
     err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0, "bitmm": 0.0,
            "packmm_signed": 0.0, "int_mm": 0.0, "packmm_skip": 0.0, "digitmm_skip": 0.0,
-           "fused_model_levels": 0.0}
+           "fused_model_levels": 0.0, "exp_packmm": 0.0, "exp_packmm_packedout": 0.0, "bitcast32to8": 0.0,
+           "bitcast8to32": 0.0, "fragment_probe": 0.0, "zero_body": 0.0, "kdot": 0.0}
     ncase = dict.fromkeys(err, 0)
     worst_rel = 0.0  # fused_baseline, random cases: the worst row's relative error
 
@@ -575,6 +604,67 @@ def main() -> int:
                            lambda: digitmm.digitmm_plain(da, b, tile_map=tm))
                     mapped(digitmm, "digitmm_skip", f"{tag} i32", lambda: digitmm.digitmm_to_i32(da, b, tm),
                            lambda: digitmm.digitmm_plain(da, b, raw_i32=True, tile_map=tm))
+
+    # the kernel-study probes: P1's template in every variant (noextract
+    # against its own plain version) and its packed out (odd group counts
+    # per CTA row band, a 4096-row layout tile), P2's bitcasts and fragment
+    # registers, P3's zero body and K-dot passes
+    def probe_words(seed, m, k, np_, bits, tm, dense=True):
+        rng = np.random.default_rng(seed)
+        qa = rng.integers(0, 1 << bits, (m, k)) if dense else operands(seed, m, k, 16, bits, bits, bits, 0)[0]
+        qb = rng.integers(0, 1 << bits, (k, np_))
+        qb[:, 1] *= -1  # sums below 0
+        return (qa, torch.from_numpy(exp_packmm.pack_rows_np(qa, bits, tm)[None]).to(dev),
+                torch.from_numpy(qb.astype(np.int8)[None]).to(dev))
+
+    for bits in (1, 2, 4):
+        for (M, K, Np, tm) in ((512, 256, 16, 256), (768, 640, 64, 256), (1024, 512, 48, 512), (2560, 2560, 16, 256)):
+            qa, words, b = probe_words(SEED + bits + M + Np, M, K, Np, bits, tm)
+            tag = f"bits={bits} M={M} K={K} Np={Np} tm={tm}"
+            for v in exp_packmm.VARIANTS:
+                if not v.startswith("bres") or exp_packmm.bres_fits(K, Np):
+                    compare("exp_packmm", exp_packmm.packmm_exp(words, b, bits, tm, v),
+                            exp_packmm.packmm_exp_plain(words, b, bits, tm, v), f"packmm_exp {v} {tag}")
+            compare("exp_packmm", exp_packmm.packmm_exp_int8(torch.from_numpy(qa.astype(np.int8)[None]).to(dev), b),
+                    exp_packmm.packmm_exp_plain(words, b, bits, tm), f"packmm_exp int8 A {tag}")
+            if tm == 256:
+                compare("exp_packmm", exp_packmm.packmm_exp_k2loader(words, b, bits),
+                        exp_packmm.packmm_exp_plain(words, b, bits, tm), f"packmm_exp k2loader {tag}")
+        for (M, K, Np, tm, group) in ((1024, 512, 16, 1024, 0), (1024, 512, 64, 512, 256), (1024, 512, 16, 1024, 512),
+                                      (768, 512, 16, 768, 256), (4096, 1024, 16, 4096, 0)):
+            _, words, b = probe_words(SEED + bits + group + M, M, K, Np, bits, group or tm, dense=False)
+            compare("exp_packmm_packedout", exp_packmm.packmm_exp_packedout(words, b, bits, tm, group),
+                    exp_packmm.packmm_exp_packedout_plain(words, b, bits, tm, group),
+                    f"packmm_exp_packedout bits={bits} M={M} K={K} Np={Np} tm={tm} group={group}")
+    for shape in ((8, 128), (5, 40), (64, 300)):
+        x = torch.from_numpy(np.random.default_rng(shape[1]).integers(-2**31, 2**31, shape).astype(np.int32)).to(dev)
+        y = exp_bitcast_probe.bitcast32to8(x)
+        compare("bitcast32to8", y, exp_bitcast_probe.bitcast32to8_plain(x), f"bitcast32to8 {shape}")
+        compare("bitcast8to32", exp_bitcast_probe.bitcast8to32(y), exp_bitcast_probe.bitcast8to32_plain(y),
+                f"bitcast8to32 {shape}")
+        compare("bitcast8to32", exp_bitcast_probe.bitcast8to32(y), x, f"bitcast8to32(bitcast32to8) {shape}")
+    tiles = torch.from_numpy(np.random.default_rng(SEED).integers(-128, 128, (2, 64, 64)).astype(np.int8)).to(dev)
+    for got, want in zip(exp_bitcast_probe.fragment_registers(tiles[0], tiles[1]),
+                         exp_bitcast_probe.fragment_registers_plain(tiles[0], tiles[1])):
+        compare("fragment_probe", got, want, "fragment registers of a random tile")
+    # zero body: small shapes, then the study's geometry (pn 1024 and 2048:
+    # 2 and 4 row tiles a CTA; G 5: 5 batches a cluster)
+    for B, pn, G, xp, oc in [(6, 512, G, xp, oc) for G in (1, 3) for xp, oc in ((128, 8), (128, 48), (64, 120))] \
+            + [(10, pn, G, 128, 48) for pn in (1024, 2048) for G in (1, 5)]:
+        x = torch.from_numpy(np.random.default_rng(G + oc + pn).integers(-128, 128, (B, pn, xp)).astype(np.int8)).to(dev)
+        torch.full((B, pn, oc), float("nan"), device=dev)  # freed: the output may reuse its block
+        compare("zero_body", grid_overhead_study.zero_body(x, oc, G),
+                grid_overhead_study.zero_body_plain(x, oc, G), f"zero_body B={B} pn={pn} G={G} xp={xp} oc={oc}")
+    # K-dot: 640 is 10 row tiles over a cluster of 8; 2048 the study's
+    # (4 row tiles a CTA), at its oc 48 and the widest
+    for pn, ocs in ((256, (8, 48, 120)), (640, (8, 48, 120)), (2048, (48, 120))):
+        rng = np.random.default_rng(pn)
+        x = torch.from_numpy(rng.integers(-128, 128, (3, pn, 128)).astype(np.int8)).to(dev)
+        s = torch.from_numpy(rng.integers(-128, 128, (pn, pn)).astype(np.int8)).to(dev)
+        for K in (0, 1, 2):
+            for oc in ocs:
+                compare("kdot", grid_overhead_study.kdot(x, s, oc, K), grid_overhead_study.kdot_plain(x, s, oc, K),
+                        f"kdot pn={pn} K={K} oc={oc}")
     print(f"phase 1: kernel == plain exactly in {ncase} cases (fused_baseline: the integer "
           f"and rounding ones; worst row's relative error of its random ones {worst_rel:.3e}) "
           f"({time.perf_counter() - t0:.1f} s); max abs err {err}")
@@ -957,6 +1047,41 @@ def main() -> int:
 
     # -- phase 3: timing ------------------------------------------------
     print(f"phase 3 starts {time.perf_counter() - start:.0f} s into the run")
+    # the kernel studies through their entry points (the probe modules'
+    # tables, JAX's run_packedout rows, the per-K-step ladder at C1's
+    # aggregation, the zero-body, K-dot and layer-fit rows); launch counts
+    # reset just before and read just after
+    t0 = time.perf_counter()
+    exp_packmm.LAUNCHES = exp_packmm.PACKEDOUT_LAUNCHES = 0
+    exp_bitcast_probe.TO8_LAUNCHES = exp_bitcast_probe.TO32_LAUNCHES = exp_bitcast_probe.FRAGMENT_LAUNCHES = 0
+    grid_overhead_study.ZERO_BODY_LAUNCHES = grid_overhead_study.KDOT_LAUNCHES = 0
+    table8, table32 = exp_bitcast_probe.probe32to8(dev), exp_bitcast_probe.probe8to32(dev)
+    if table8[:, 0].tolist() != list(range(32)) or table32[0, 0] != 0x3020100 \
+            or not exp_bitcast_probe.probe_fragments(dev):
+        raise AssertionError("P2: a byte lands off the TPU's interpret-mode order or the PTX fragment layout")
+    prng = np.random.default_rng(0)
+    packedout_rows = [exp_packmm.run_packedout(*r[:6], prng, r[6], iters=10, device=dev)
+                      for r in exp_packmm.PACKEDOUT_ROWS]
+    ladder_rows = exp_packmm.ladder([exp_packmm.C1_SHAPE], iters=10, device=dev)
+    study_rows = (grid_overhead_study.zero_body_rows(10, dev) + grid_overhead_study.kdot_rows(5, dev)
+                  + grid_overhead_study.layer_rows(np.random.default_rng(0), 10, dev))
+    torch.cuda.synchronize()
+    probe_launches = {"exp_packmm": exp_packmm.LAUNCHES, "exp_packmm_packedout": exp_packmm.PACKEDOUT_LAUNCHES,
+                      "bitcast32to8": exp_bitcast_probe.TO8_LAUNCHES, "bitcast8to32": exp_bitcast_probe.TO32_LAUNCHES,
+                      "fragment_probe": exp_bitcast_probe.FRAGMENT_LAUNCHES,
+                      "zero_body": grid_overhead_study.ZERO_BODY_LAUNCHES, "kdot": grid_overhead_study.KDOT_LAUNCHES}
+    if not all(probe_launches.values()):
+        raise AssertionError(f"the kernel studies left a probe kernel unlaunched: {probe_launches}")
+    for r in packedout_rows:
+        print(f"phase 3: P1 packed out bits={r['bits']} M=K={r['M']} N={r['N']} tm={r['tm']} g={r['g']}: "
+              f"{r['us']:.2f} us, {r['tflops']:.3f} TFLOP/s, exact [{card}]")
+    for r in ladder_rows:
+        print(f"phase 3: P1 ladder bits={r['bits']} M=K={r['M']} N={r['N']} {r['row']}: {r['us']:.2f} us, "
+              f"{r['us_per_step']:.3f} us per 64-deep K step, {r['tflops']:.3f} TFLOP/s [{card}]")
+    for r in study_rows:
+        print("phase 3: P3 " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                                         for k, v in r.items()) + f" [{card}]")
+    print(f"phase 3: kernel studies, launches {probe_launches} ({time.perf_counter() - t0:.1f} s)")
     for rep in range(2):
         for resident in (True, False):
             st = eng.run_epochs(batcher, n_epochs=5, resident=resident)
@@ -1107,6 +1232,43 @@ def main() -> int:
                   "to the signed plane, out_cols=64", k4c.run, k4c.plain))
     timed.append(("packmm packed", "packmm_to_packed 1-bit A[4096x4096] x B[4096x64] to 1-bit words",
                   k2c.run, k2c.plain))
+    # the kernel-study probes at their studies' shapes: P1's concat at C1's
+    # aggregation and its packed out at JAX's first run_packedout row, P2
+    # at its probe's shapes, P3 at pn 2048 x 50 batches (zero body G 1, two
+    # K-dot passes, oc 48)
+    prng = np.random.default_rng(SEED)
+    p1_qa, p1_qb, p1_b = exp_packmm.operands(2560, 2560, 16, 1, prng, dev)
+    p1_w = torch.from_numpy(exp_packmm.pack_rows_np(p1_qa, 1, 256)[None]).to(dev)
+    p1o_qa, p1o_qb, p1o_b = exp_packmm.operands(4096, 4096, 16, 1, prng, dev)
+    p1o_w = torch.from_numpy(exp_packmm.pack_rows_np(p1o_qa, 1, 4096)[None]).to(dev)
+    p2_w = torch.from_numpy(table32.view(np.int32)).to(dev)
+    p2_b = torch.from_numpy(table8).to(dev)
+    # P3: random operands; the zero body takes turns over enough copies of
+    # X that each call reads its X from HBM, not the L2
+    p3_gen = torch.Generator(device=dev).manual_seed(SEED)
+    p3_xs = [grid_overhead_study.random_x(50, 2048, p3_gen, dev)
+             for _ in range(grid_overhead_study.l2_copies(50 * 2048 * 128))]
+    p3_x = p3_xs[0]
+    p3_s = torch.randint(-128, 128, (2048, 2048), dtype=torch.int8, device=dev, generator=p3_gen)
+    p3_turn = grid_overhead_study.in_turns(lambda x: grid_overhead_study.zero_body(x, 48, 1), p3_xs)
+    timed += [
+        ("exp_packmm", "packmm_exp concat, 1-bit words A[2560x2560] (tm 256) x B[2560x16]",
+         lambda: exp_packmm.packmm_exp(p1_w, p1_b, 1, 256), lambda: exp_packmm.packmm_exp_plain(p1_w, p1_b, 1, 256)),
+        ("exp_packmm_packedout", "packmm_exp_packedout 1-bit A[4096x4096] (tm 4096, group 0) x B[4096x16]",
+         lambda: exp_packmm.packmm_exp_packedout(p1o_w, p1o_b, 1, 4096),
+         lambda: exp_packmm.packmm_exp_packedout_plain(p1o_w, p1o_b, 1, 4096)),
+        ("bitcast32to8", "bitcast32to8 int32 [8x128]", lambda: exp_bitcast_probe.bitcast32to8(p2_w),
+         lambda: exp_bitcast_probe.bitcast32to8_plain(p2_w)),
+        ("bitcast8to32", "bitcast8to32 int8 [32x128]", lambda: exp_bitcast_probe.bitcast8to32(p2_b),
+         lambda: exp_bitcast_probe.bitcast8to32_plain(p2_b)),
+        ("fragment_probe", "fragment_registers int8 tiles [64x64] x 2",
+         lambda: exp_bitcast_probe.fragment_registers(tiles[0], tiles[1]),
+         lambda: exp_bitcast_probe.fragment_registers_plain(tiles[0], tiles[1])),
+        ("zero_body", f"zero_body X[50x2048x128] (in turns over {len(p3_xs)} copies), G 1, oc 48", p3_turn,
+         lambda: grid_overhead_study.zero_body_plain(p3_x, 48, 1)),
+        ("kdot", "kdot X[50x2048x128] x S[2048x2048], K 2, oc 48", lambda: grid_overhead_study.kdot(p3_x, p3_s, 48, 2),
+         lambda: grid_overhead_study.kdot_plain(p3_x, p3_s, 48, 2)),
+    ]
     # the library yardstick of packmm and digitmm: cuBLAS int8 on the
     # unpacked levels at the same shapes (the port never calls it)
     lib_ops = {"packmm": (unpack_rows(a).to(torch.int8), digit_unpack(h16).to(torch.int8)),
@@ -1121,6 +1283,21 @@ def main() -> int:
                "packmm_skip": (unpack_rows(a0).to(torch.int8), digit_unpack(hs16).to(torch.int8)),
                "packmm_skip f32": (unpack_rows(a0).to(torch.int8), digit_unpack(hs40).to(torch.int8))}
     lib_ops["digitmm_skip"] = lib_ops["packmm_skip"]
+    # the probes without an int8 product: one PyTorch expression each for
+    # the same function (bytes to rows by a strided copy, the inverse, and
+    # the zeros), checked against plain first
+    lib_calls = {
+        "bitcast32to8": lambda: p2_w.view(torch.int8).view(*p2_w.shape, 4).transpose(1, 2).reshape(-1, p2_w.shape[1]),
+        "bitcast8to32": lambda: p2_b.view(-1, 4, p2_b.shape[1]).transpose(1, 2).contiguous().view(torch.int32)[..., 0],
+        "zero_body": lambda: torch.zeros((50, 2048, 48), dtype=torch.float32, device=dev),
+    }
+    for kind, fn in lib_calls.items():
+        plain = next(t[3] for t in timed if t[0] == kind)
+        if not torch.equal(fn(), plain()):
+            raise AssertionError(f"{kind}: the library expression != plain")
+    # P1: the same product of the unpacked levels
+    for kind, qa_, qb_ in (("exp_packmm", p1_qa, p1_qb), ("exp_packmm_packedout", p1o_qa, p1o_qb)):
+        lib_ops[kind] = tuple(torch.from_numpy(q.astype(np.int8)).to(dev) for q in (qa_, qb_))
     # device time per call from one profiler session, in turns:
     # plain, kernel, kernel, plain
     fns = {}
@@ -1131,6 +1308,9 @@ def main() -> int:
     for kind, (la, lb) in lib_ops.items():
         for rep in (0, 1):
             fns[(kind, "library", rep)] = lambda la=la, lb=lb: torch._int_mm(la, lb)
+    for kind, fn in lib_calls.items():
+        for rep in (0, 1):
+            fns[(kind, "library", rep)] = fn
     # every kernel-sweep row, in the same session
     for fig, cases in sweep.items():
         for i, c in enumerate(cases):
@@ -1138,8 +1318,16 @@ def main() -> int:
     # plain versions and step epochs run thousands of small ops per call,
     # and a session that holds too many records can lose some: one call each
     many = {i for i, t in enumerate(timed) if t[0] == "step epoch"}
-    dt = device_times_ms(fns, iters={k: 1 if k[1] == "plain" or k[0] in many else
-                                     10 if k[0] == "sweep" else 5 for k in fns}, warmup=1)
+    # the probes in a session of their own, so that the main session holds
+    # no more records than it did without them (a session that holds too
+    # many loses its last markers)
+    probe_kinds = set(probe_launches)
+    probe_idx = {i for i, t in enumerate(timed) if t[0] in probe_kinds}
+    dt = {}
+    for probes in (False, True):
+        sess = {k: f for k, f in fns.items() if (k[0] in probe_idx or k[0] in probe_kinds) == probes}
+        dt.update(device_times_ms(sess, iters={k: 1 if k[1] == "plain" or k[0] in many else
+                                               10 if k[0] == "sweep" else 5 for k in sess}, warmup=1))
     times, kernel_ms = {}, {}
     for i, (kind, what, _, plain) in enumerate(timed):
         k_ms = min(dt[(i, "kernel", 0)], dt[(i, "kernel", 1)])
@@ -1151,9 +1339,11 @@ def main() -> int:
         times.setdefault(kind, (k_ms, p_ms))
         print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
               f"device time per call [{card}]")
-    lib_ms = {kind: min(dt[(kind, "library", 0)], dt[(kind, "library", 1)]) for kind in lib_ops}
+    lib_ms = {kind: min(dt[(kind, "library", 0)], dt[(kind, "library", 1)]) for kind in (*lib_ops, *lib_calls)}
     print(f"phase 3: torch._int_mm on the unpacked int8 operands (library yardstick): "
-          + ", ".join(f"{k} shape {lib_ms[k] * 1e3:.1f} us" for k in lib_ms) + f" [{card}]")
+          + ", ".join(f"{k} shape {lib_ms[k] * 1e3:.1f} us" for k in lib_ops) + f" [{card}]")
+    print(f"phase 3: one PyTorch expression for the same function (library yardstick): "
+          + ", ".join(f"{k} {lib_ms[k] * 1e3:.1f} us" for k in lib_calls) + f" [{card}]")
     for fig, cases in sweep.items():
         for i, c in enumerate(cases):
             r = c.row(dt[("sweep", fig, i)])
@@ -1237,6 +1427,16 @@ def main() -> int:
     print(f"phase 3: K skip at C1, batch 0: {listed0} of {tm0.kidx.numel()} tiles listed; "
           + "; ".join(f"{k} {kernel_ms[k] * 1e3:.1f} us with its map, {kernel_ms[k + ' dense'] * 1e3:.1f} "
                       f"without" for k in ("packmm_skip", "packmm_skip f32", "digitmm_skip")) + f" [{card}]")
+    # the probes: their inputs and outputs; P1 2 M N K on the logical
+    # shapes, kdot 2 B K pn^2 oc (the stored columns need no more)
+    p1_out, p1o_out = exp_packmm.packmm_exp(p1_w, p1_b, 1, 256), exp_packmm.packmm_exp_packedout(p1o_w, p1o_b, 1, 4096)
+    bounds["exp_packmm"] = bound(nbytes(p1_w, p1_b, p1_out), 2 * 2560 * 16 * 2560, "int8")
+    bounds["exp_packmm_packedout"] = bound(nbytes(p1o_w, p1o_b, p1o_out), 2 * 4096 * 16 * 4096, "int8")
+    bounds["bitcast32to8"] = bound(2 * nbytes(p2_w), 0, "int8")
+    bounds["bitcast8to32"] = bound(2 * nbytes(p2_b), 0, "int8")
+    bounds["fragment_probe"] = bound(nbytes(tiles) + 32 * 6 * 4, 0, "int8")
+    bounds["zero_body"] = bound(nbytes(p3_x) + 50 * 2048 * 48 * 4, 0, "int8")
+    bounds["kdot"] = bound(nbytes(p3_x, p3_s) + 50 * 2048 * 48 * 4, 2 * 50 * 2 * 2048 ** 2 * 48, "int8")
     for k, (b_ms, by) in bounds.items():
         lib = f", library {lib_ms[k] * 1e3:.1f} us" if k in lib_ms else ""
         print(f"phase 3: {k} bound {b_ms * 1e3:.2f} us ({by}); kernel {times[k][0] * 1e3:.1f} us, "
@@ -1257,7 +1457,15 @@ def main() -> int:
                # the TileMap K skip: the zero-tile path's mapped launches
                "packmm_skip": ("packmm.cu", "qgtc_ppopp22_tpu/ops/packmm.py:664",
                                {"packmm_skip": zero_launches["packmm with a map"]}),
-               "digitmm_skip": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", digit_a_launches)}
+               "digitmm_skip": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", digit_a_launches),
+               # the kernel-study probes: the studies' launches
+               "exp_packmm": ("exp_packmm.cu", "benchmarks/exp_packmm.py:146", probe_launches),
+               "exp_packmm_packedout": ("exp_packmm.cu", "benchmarks/exp_packmm.py:60", probe_launches),
+               "bitcast32to8": ("exp_bitcast_probe.cu", "benchmarks/exp_bitcast_probe.py:20", probe_launches),
+               "bitcast8to32": ("exp_bitcast_probe.cu", "benchmarks/exp_bitcast_probe.py:46", probe_launches),
+               "fragment_probe": ("exp_bitcast_probe.cu", "benchmarks/exp_bitcast_probe.py:20", probe_launches),
+               "zero_body": ("grid_overhead.cu", "benchmarks/grid_overhead_study.py:82", probe_launches),
+               "kdot": ("grid_overhead.cu", "benchmarks/grid_overhead_study.py:108", probe_launches)}
     kernels = [
         {"name": k, "route": "cuda", "source": f"qgtc_ppopp22_tpu_torch/csrc/{src}",
          "replaces": rep_, "launches": counts[k], "max_abs_err": err[k], "ms": times[k][0],

@@ -205,6 +205,28 @@ __device__ __forceinline__ void load_b(int8_t (*Bs)[BN][LDS],
   }
 }
 
+// The A and B fragments of one int8 mma.sync.m16n8k32 (PTX ISA, "Matrix
+// Fragments for mma.m16n8k32", .s8), as 32-bit shared-memory loads: lane
+// (g, t4) = (lane / 4, lane % 4) takes A rows g and g + 8 at k = 4 t4 ..
+// 4 t4 + 3 and 16 + 4 t4 .. 16 + 4 t4 + 3, and B column g at the same k.
+// p points at the lane's first byte: (row g, k 4 t4) of the 16-row m-tile
+// of an A tile with rows LDS bytes apart, or (column g, k 4 t4) of the
+// 8-column n-tile of B transposed to [n][k] (any column stride).
+// gemm_kernel's K loop and the kernel-study probes load their fragments
+// here; exp_bitcast_probe.cu's fragment_probe pins on the card what these
+// loads put in each register.
+__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const int8_t* p) {
+  f[0] = *reinterpret_cast<const uint32_t*>(p);
+  f[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
+  f[2] = *reinterpret_cast<const uint32_t*>(p + 16);
+  f[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
+}
+
+__device__ __forceinline__ void frag_b(uint32_t (&f)[2], const int8_t* p) {
+  f[0] = *reinterpret_cast<const uint32_t*>(p);
+  f[1] = *reinterpret_cast<const uint32_t*>(p + 16);
+}
+
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
   asm volatile(
@@ -335,21 +357,13 @@ __global__ void __launch_bounds__(PACK ? 2 * GROUP : THREADS)
 #pragma unroll
         for (int d = 0; d < ND_A; ++d)
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const int8_t* p = &As[d][wm + mt * 16 + g][ks + t4 * 4];
-            af[d][mt][0] = *reinterpret_cast<const uint32_t*>(p);
-            af[d][mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-            af[d][mt][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-            af[d][mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
-          }
+          for (int mt = 0; mt < 2; ++mt)
+            frag_a(af[d][mt], &As[d][wm + mt * 16 + g][ks + t4 * 4]);
 #pragma unroll
         for (int e = 0; e < ND_B; ++e)
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int8_t* p = &Bs[e][wn + nt * 8 + g][ks + t4 * 4];
-            bf[e][nt][0] = *reinterpret_cast<const uint32_t*>(p);
-            bf[e][nt][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-          }
+          for (int nt = 0; nt < 4; ++nt)
+            frag_b(bf[e][nt], &Bs[e][wn + nt * 8 + g][ks + t4 * 4]);
 #pragma unroll
         for (int d = 0; d < ND_A; ++d)
 #pragma unroll

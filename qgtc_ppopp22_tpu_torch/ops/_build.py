@@ -117,6 +117,19 @@ def library() -> ctypes.CDLL:
         # tile_m, tile_k, stream); see csrc/bitmm.cu.
         lib.qgtc_bitmm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.qgtc_bitmm.restype = i
+        # The kernel-study probes (benchmarks/): (out, a, b, variant,
+        # field_bits, mp, kp, np, tm, out_bits, stream), csrc/exp_packmm.cu;
+        # (out, x, m, n, stream) and (a_regs, b_regs, a, b, stream),
+        # csrc/exp_bitcast_probe.cu; (out, x, B, pn, xp, oc, G, stream) and
+        # (out, x, s, B, pn, oc, K, stream), csrc/grid_overhead.cu.
+        probes = {"qgtc_exp_packmm": [p, p, p, i, i, i, i, i, i, i, p],
+                  "qgtc_bitcast32to8": [p, p, i, i, p], "qgtc_bitcast8to32": [p, p, i, i, p],
+                  "qgtc_fragment_probe": [p, p, p, p, p],
+                  "qgtc_zero_body": [p, p, i, i, i, i, i, p],
+                  "qgtc_kdot": [p, p, p, i, i, i, i, p]}
+        for entry, args in probes.items():
+            getattr(lib, entry).argtypes = args
+            getattr(lib, entry).restype = i
         _lib = lib
     return _lib
 

@@ -10,12 +10,16 @@ from ``torch.profiler``, so host gaps do not count.
 
 from __future__ import annotations
 
+import time
+import warnings
 from typing import Callable, Dict, Hashable, Union
 
 import torch
 
 _MARKER = "spin_kernel"  # the kernel of torch.cuda._sleep
 _SESSIONS = 3  # profiler sessions tried before a lost marker is an error
+_PAD_KERNELS = 256  # padding launched before a session's first marker and after its end marker
+_PAD_SECONDS = 0.1  # and the wait after each padding
 
 
 def device_times_ms(
@@ -35,10 +39,13 @@ def device_times_ms(
     assigned to functions by their order on the device, between markers:
     the profiler's device timestamps can sit a millisecond or more off
     the host's clock, so host-side ranges would drop or misplace the
-    first kernels of a function. A session that lost markers (the
-    profiler can drop a session's last records) is run again, up to
-    ``_SESSIONS`` in all. Requires a CUDA device; every function must run
-    on the current stream."""
+    first kernels of a function. The profiler can drop a session's first
+    or last records, so padding kernels and a short wait come before the
+    first marker, and after an end marker that closes the last function:
+    such a loss takes the padding. A session whose markers, the end
+    marker included, are not all there is run again, up to ``_SESSIONS``
+    in all. Requires a CUDA device; every function must run on the
+    current stream."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -50,13 +57,24 @@ def device_times_ms(
         for _ in range(warmup):
             fn()
     torch.cuda.synchronize()
+    pad = torch.zeros(1, device="cuda")
+
+    def padding():
+        for _ in range(_PAD_KERNELS):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(_PAD_SECONDS)
+
     for _ in range(_SESSIONS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            padding()
             for name in names:
                 torch.cuda._sleep(1)
                 for _ in range(counts[name]):
                     fns[name]()
                 torch.cuda.synchronize()
+            torch.cuda._sleep(1)  # the end marker
+            padding()
         device = sorted(
             (e for e in prof.events() if e.device_type == DeviceType.CUDA),
             key=lambda e: e.time_range.start,
@@ -66,12 +84,15 @@ def device_times_ms(
         for e in device:
             if _MARKER in e.name:
                 i += 1
-            elif i >= 0:
+            elif 0 <= i < len(names):
                 total_us[i] += e.time_range.elapsed_us()
-        if i == len(names) - 1:
+        if i == len(names):  # every function's marker and the end marker
             break
+        warnings.warn(f"device_times_ms: the profiler recorded {i + 1} of {len(names) + 1} markers; "
+                      "running the session again")
     else:
-        raise RuntimeError(f"the profiler recorded {i + 1} markers for {len(names)} functions")
+        raise RuntimeError(f"the profiler recorded {i + 1} markers for {len(names)} functions "
+                           "and the end marker")
     empty = [names[i] for i, t in enumerate(total_us) if t <= 0]
     if empty:
         raise RuntimeError(f"the profiler recorded no device time for {empty}")

@@ -194,16 +194,19 @@ def test_package_never_imports_jax():
         "import qgtc_ppopp22_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'qgtc_ppopp22_tpu', 'triton'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'qgtc_ppopp22_tpu', 'triton')\n"
+        "             or m.split('.')[0] in ('benchmarks', 'exp_packmm', 'exp_bitcast_probe', 'grid_overhead_study'))\n"
         "assert not bad, bad\n"
-        "print(len(names), 'qgtc_ppopp22_tpu_torch.benchmarks.kernel_sweep' in names)\n"
+        "probes = [p.__name__ + '.benchmarks.' + m for m in ('kernel_sweep', 'exp_packmm', 'exp_bitcast_probe',\n"
+        "                                                     'grid_overhead_study')]\n"
+        "print(len(names), all(m in names for m in probes))\n"
     )
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, sweep = out.stdout.split()
-    assert int(count) >= 20 and sweep == "True"  # every module, benchmarks/ included, imported
+    assert int(count) >= 20 and sweep == "True"  # every module, benchmarks/ and its probes included, imported
 
 
 def _toy_npz(path):

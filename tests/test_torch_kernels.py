@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe, exp_packmm, grid_overhead_study
 from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, synthesize
 from qgtc_ppopp22_tpu_torch.ops import bitgemm, digitmm, digits, fused_model, packmm
 from qgtc_ppopp22_tpu_torch.ops.bitpack import pack_bits, unpack_bits
@@ -633,3 +634,118 @@ def test_bits_engine_on_card_equals_cpu_and_digits(cuda, model):
         assert torch.equal(got, gpu.forward_batch(b, plain=True))
         np.testing.assert_array_equal(got.cpu().numpy(), cpu.forward_batch(b).numpy())
         assert torch.equal(got, dig.forward_batch(b))
+
+
+# -- the kernel-study probes (qgtc_ppopp22_tpu_torch/benchmarks/) ----------
+
+def _probe_operands(seed, m, k, np_, bits, tm, dev, dense=True):
+    """Words in the layout of tile tm and B int8 [1, k, np_] with a negated
+    column, on the card."""
+    rng = np.random.default_rng(seed)
+    if dense:
+        qa = rng.integers(0, 1 << bits, (m, k))
+    else:
+        qa = operands(seed, m, k, 16, bits, bits, bits, 0)[0]
+    qb = rng.integers(0, 1 << bits, (k, np_))
+    qb[:, 1] *= -1
+    words = torch.from_numpy(exp_packmm.pack_rows_np(qa, bits, tm)[None]).to(dev)
+    return qa, words, torch.from_numpy(qb.astype(np.int8)[None]).to(dev)
+
+
+@pytest.mark.parametrize("variant", exp_packmm.VARIANTS + ("int8", "k2loader"))
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(512, 256, 16, 256), (768, 640, 64, 256), (1024, 512, 48, 512)])
+def test_packmm_exp_kernel_equals_plain(cuda, variant, bits, shape):
+    m, k, np_, tm = shape
+    if variant == "k2loader":
+        tm = 256  # K2's loader reads the port's layout only
+    qa, words, b = _probe_operands(bits + m + np_, m, k, np_, bits, tm, cuda)
+    before = exp_packmm.LAUNCHES
+    if variant == "int8":
+        a8 = torch.from_numpy(qa.astype(np.int8)[None]).to(cuda)
+        got, want = exp_packmm.packmm_exp_int8(a8, b), exp_packmm.packmm_exp_int8_plain(a8, b)
+    elif variant == "k2loader":
+        got, want = exp_packmm.packmm_exp_k2loader(words, b, bits), exp_packmm.packmm_exp_plain(words, b, bits, tm)
+    else:
+        got = exp_packmm.packmm_exp(words, b, bits, tm, variant)
+        want = exp_packmm.packmm_exp_plain(words, b, bits, tm, variant)
+    assert exp_packmm.LAUNCHES == before + 1
+    _check(got, want)
+    if variant in ("concat", "int8", "k2loader"):
+        _check(got, exp_packmm.packmm_exp_plain(words, b, bits, tm, "concat"))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(1024, 512, 16, 1024, 0), (1024, 512, 64, 1024, 256),
+                                   (1024, 256, 16, 1024, 512), (768, 512, 16, 768, 256)])
+def test_packmm_exp_packedout_kernel_equals_plain(cuda, bits, shape):
+    m, k, np_, tm, group = shape
+    _, words, b = _probe_operands(bits + group, m, k, np_, bits, group or tm, cuda, dense=False)
+    before = exp_packmm.PACKEDOUT_LAUNCHES
+    got = exp_packmm.packmm_exp_packedout(words, b, bits, tm, group)
+    assert exp_packmm.PACKEDOUT_LAUNCHES == before + 1
+    _check(got, exp_packmm.packmm_exp_packedout_plain(words, b, bits, tm, group))
+
+
+def test_packmm_exp_refuses_what_the_kernel_cannot_index(cuda):
+    _, words, b = _probe_operands(0, 512, 4096, 64, 1, 256, cuda)
+    with pytest.raises(ValueError):  # B [4096 x 64] does not fit in shared memory
+        exp_packmm.packmm_exp(words, b, 1, 256, "bres")
+    _, words, b = _probe_operands(0, 512, 256, 16, 1, 512, cuda)
+    with pytest.raises(ValueError):  # tm % 256 != 0 is JAX-legal but not the kernel's
+        exp_packmm.packmm_exp(torch.zeros((1, 4, 256), dtype=torch.int32, device=cuda), b, 1, 128)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (5, 40), (64, 300)])
+def test_bitcast_kernels_equal_plain(cuda, shape):
+    x = torch.from_numpy(np.random.default_rng(shape[1]).integers(-2**31, 2**31, shape).astype(np.int32)).to(cuda)
+    y = exp_bitcast_probe.bitcast32to8(x)
+    _check(y, exp_bitcast_probe.bitcast32to8_plain(x))
+    _check(exp_bitcast_probe.bitcast8to32(y), x)
+    _check(exp_bitcast_probe.bitcast8to32(y), exp_bitcast_probe.bitcast8to32_plain(y))
+
+
+def test_bitcast_and_fragment_tables_on_card(cuda):
+    before = (exp_bitcast_probe.TO8_LAUNCHES, exp_bitcast_probe.TO32_LAUNCHES,
+              exp_bitcast_probe.FRAGMENT_LAUNCHES)
+    out8 = exp_bitcast_probe.probe32to8("cuda")
+    assert out8[:, 0].tolist() == list(range(32))
+    out32 = exp_bitcast_probe.probe8to32("cuda")
+    assert [hex(v) for v in out32[:4, 0].tolist()] == ["0x3020100", "0x7060504", "0xb0a0908", "0xf0e0d0c"]
+    assert exp_bitcast_probe.probe_fragments("cuda")
+    tile = torch.from_numpy(np.random.default_rng(0).integers(-128, 128, (2, 64, 64)).astype(np.int8)).to(cuda)
+    for got, want in zip(exp_bitcast_probe.fragment_registers(tile[0], tile[1]),
+                         exp_bitcast_probe.fragment_registers_plain(tile[0], tile[1])):
+        _check(got, want)
+    after = (exp_bitcast_probe.TO8_LAUNCHES, exp_bitcast_probe.TO32_LAUNCHES,
+             exp_bitcast_probe.FRAGMENT_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 3]
+
+
+# (B, pn, G, xp, oc): small shapes, then the study's geometry (pn 1024 and
+# 2048: 2 and 4 row tiles a CTA of the cluster of 8; G 5 batches a cluster)
+ZERO_BODY_CASES = [(6, 512, G, xp, oc) for G in (1, 3) for xp, oc in ((128, 48), (64, 8), (128, 120))] \
+    + [(10, pn, G, 128, 48) for pn in (1024, 2048) for G in (1, 5)]
+
+
+@pytest.mark.parametrize("B,pn,G,xp,oc", ZERO_BODY_CASES)
+def test_zero_body_kernel_writes_every_zero(cuda, B, pn, G, xp, oc):
+    x = torch.from_numpy(np.random.default_rng(G).integers(-128, 128, (B, pn, xp)).astype(np.int8)).to(cuda)
+    torch.full((B, pn, oc), float("nan"), device=cuda)  # a freed block the output may reuse
+    before = grid_overhead_study.ZERO_BODY_LAUNCHES
+    got = grid_overhead_study.zero_body(x, oc, G)
+    assert grid_overhead_study.ZERO_BODY_LAUNCHES == before + 1
+    _check(got, grid_overhead_study.zero_body_plain(x, oc, G))
+
+
+@pytest.mark.parametrize("K", [0, 1, 2])
+@pytest.mark.parametrize("oc", [8, 48, 120])
+@pytest.mark.parametrize("pn", [256, 640, 2048])
+def test_kdot_kernel_equals_plain(cuda, K, oc, pn):
+    rng = np.random.default_rng(K + oc + pn)
+    x = torch.from_numpy(rng.integers(-128, 128, (3, pn, 128)).astype(np.int8)).to(cuda)
+    s = torch.from_numpy(rng.integers(-128, 128, (pn, pn)).astype(np.int8)).to(cuda)
+    before = grid_overhead_study.KDOT_LAUNCHES
+    got = grid_overhead_study.kdot(x, s, oc, K)
+    assert grid_overhead_study.KDOT_LAUNCHES == before + 1
+    _check(got, grid_overhead_study.kdot_plain(x, s, oc, K))
