@@ -6,7 +6,9 @@
 Runs, and stops with a non-zero exit at the first failure:
 
 0. Requires a CUDA device; prints the card's name and power limit;
-   builds the kernels of ``qgtc_ppopp22_tpu_torch/csrc`` with nvcc.
+   builds the kernels of ``qgtc_ppopp22_tpu_torch/csrc`` with nvcc and
+   prints ``ptxas -v``'s report; every one of the 72 instantiations of
+   K2's 1/2/4-bit kernel (``csrc/packmm_k2.cuh``) must spill 0 bytes.
 1. Each kernel against its plain PyTorch version on the same CUDA
    tensors, at 1/2/4/8 bits, shifts 0 and 2, the slice's shapes
    (pn = 2560, K in {128, 2560}, N in {16, 40}) and one ragged
@@ -49,7 +51,14 @@ Runs, and stops with a non-zero exit at the first failure:
    out (8: the signed plane), out_cols none and N, at C1's (2560, 2560,
    16), ragged (300, 520, 40) and wide N 512 and 300, with f32 out_cols,
    and an 8-bit packed output fed back as the next product's A. Then
-   zero-tile jumping, the ``TileMap`` K skip of ``packmm`` (A at 1/2/4/8
+   K2's 1/2/4-bit kernel in every output form (``torch_cases.k2_groups``):
+   N in {8, 16, 24, 40, 64, 72, 200} at 1/2/4 bits against one and two
+   digit planes of B, one 256-row group at depth 448 (7 K steps); every
+   split 1-4 forced through the plan; hand-made maps (kcnt 0, below the
+   split, past the grid and -1, entries outside it) at every split;
+   packed words at out_cols 8, 40, 64 and 200; packed words chained
+   through three products; each output computed twice, both equal to
+   plain. Then zero-tile jumping, the ``TileMap`` K skip of ``packmm`` (A at 1/2/4/8
    bits, every output form, tiles (256 | 512) x (256 | 128), C1's shape
    and two multi-row-tile ragged ones) and of ``digitmm`` (1 and 2 digit
    planes each side, tiles (256 | 128)^2) against plain, with the
@@ -133,7 +142,11 @@ Runs, and stops with a non-zero exit at the first failure:
    fused and mega modes beside the quantized mega engine's (twice each);
    and the device time of each kernel beside its plain version at the
    slice's shapes (torch.profiler), with ``torch._int_mm`` on the same
-   operands as the library yardstick of packmm, digitmm and bitmm; K4
+   operands as the library yardstick of packmm, digitmm and bitmm, each
+   K2 row (and K2's sweep rows) with its plan (column tile, split,
+   cluster, grid), and in the same session K2's yardsticks, P1's concat
+   on a 16-column tile at C1 and P1b's 4096^2 N 64 row, each criterion
+   of K2 against them printed as met or not; K4
    and K2's packed out at Fig. 8a's (4096, 4096, 64) beside plain,
    bound and ``torch._int_mm``; K1 at C1 8-bit, the levels form beside
    plain, the 2-digit route and its own compacted-schedule launch on the
@@ -146,10 +159,10 @@ Runs, and stops with a non-zero exit at the first failure:
    map, plain, ``torch._int_mm`` and a bound that counts only the listed
    tiles, and one resident step epoch's device time with the maps; and
    each probe kernel at its study's shape beside plain, bound and a
-   library yardstick: for P1 ``torch._int_mm`` on the unpacked levels,
-   for P2's bitcasts a strided copy of the bytes, for P3's zero body
-   ``torch.zeros`` (the zero body taking turns over copies of X, so each
-   call reads X from HBM).
+   library yardstick where one PyTorch call computes the same function:
+   for P1 ``torch._int_mm`` on the unpacked levels, for P2's bitcasts a
+   strided copy of the bytes, none for P3 (the zero body taking turns
+   over copies of X, so each call reads X from HBM).
 
 Test operands come from ``tests/torch_cases.py``. Each kernel's bound
 is the larger of its bytes (inputs read once, outputs written once) over
@@ -222,7 +235,7 @@ def main() -> int:
     from types import SimpleNamespace
 
     from torch_cases import (BF16_REL_TOL, baseline_case, bf16_rel_err, blocky_levels, chain_shifts, edge_operands,
-                             hand_map, levels_plane, mega_case, operands)
+                             hand_map, k2_chain, k2_group, k2_groups, levels_plane, mega_case, operands)
     from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe, exp_packmm, grid_overhead_study, kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward
@@ -248,9 +261,16 @@ def main() -> int:
     print(f"phase 0: built {_build.LIB_PATH.name} in {secs:.1f} s")
     entry = ""
     corr = {"0": "", "1": ", signed A", "2": ", PreparedRHS"}
+    k2_regs, k2_spill = {}, {}  # K2's 1/2/4-bit kernel: one line for all its instantiations
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
+            k = re.search(r"k2_kernelILi(\d)ELi(\d)ELi(\d+)ELb(\d)ELb(\d)E", entry)
+            if k:
+                entry = (f"k2_kernel<{k[1]}-bit A, {k[2]} B plane(s), {k[3]} columns"
+                         f"{', mapped' if k[4] == '1' else ''}{', packed words' if k[5] == '1' else ''}>")
+                k2_spill[entry] = 0
+                continue
             t = re.search(r"gemm_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)ENS_\d+([A-Za-z0-9]+?)"
                           r"(?:ILi(\d)E)?E", entry)
             if t:  # the digitmm, packmm and packmm_signed instances
@@ -265,10 +285,21 @@ def main() -> int:
                                                                       "bitcast", "fragment_probe",
                                                                       "zero_body_kernel", "kdot_kernel")
                               if k in entry), entry[-60:])
+        elif entry in k2_spill:
+            if "Used" in line:
+                k2_regs[entry] = int(re.search(r"Used (\d+) registers", line)[1])
+            elif "spill" in line:
+                k2_spill[entry] += sum(map(int, re.findall(r"(\d+) bytes spill", line)))
         elif "Used" in line:
             print(f"  ptxas: {entry}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
             print(f"  ptxas: {entry}: {line.strip()}")
+    if len(k2_regs) != 72 or any(k2_spill.values()):
+        raise AssertionError(f"k2_kernel: {len(k2_regs)} instantiations (want 72), spills "
+                             f"{ {k: v for k, v in k2_spill.items() if v} }")
+    print(f"  ptxas: k2_kernel, {len(k2_regs)} instantiations (field 1/2/4 x B planes 1/2 x columns "
+          f"16/32/64 x dense/mapped x per-tile/packed words): {min(k2_regs.values())}-"
+          f"{max(k2_regs.values())} registers, 0 bytes of spill")
 
     # -- phase 1: kernel vs plain --------------------------------------
     err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0, "bitmm": 0.0,
@@ -542,6 +573,23 @@ def main() -> int:
     xw2 = PackedTensor(words=xw.words, shape=(200, 64), bits=8)
     compare("packmm", packmm.packmm_to_f32(xw2, w2), packmm.packmm_plain(xw2, w2),
             "chain: the packed output as the next A")
+
+    # K2's 1/2/4-bit kernel (csrc/packmm_k2.cuh): widths 8-200 against one
+    # and two B planes at depth 448, every split, hand-made maps at every
+    # split, packed words at out_cols 8-200 and chained; each case twice
+    k2_before, t_k2 = packmm.LAUNCHES, time.perf_counter()
+    for _, group in k2_groups():
+        for tag, kernel, plain in k2_group(dev, **group):
+            got = kernel()
+            compare("packmm", got, plain(), f"K2 {tag}")
+            compare("packmm", kernel(), got, f"K2 {tag}, again")
+    for a_bits in (1, 2, 4):
+        tag, kernel, plain = k2_chain(dev, a_bits)
+        got = kernel()
+        compare("packmm", got, plain(), f"K2 {tag}")
+        compare("packmm", kernel(), got, f"K2 {tag}, again")
+    print(f"phase 1: K2 {len(k2_groups())} case groups and 3 chains, {packmm.LAUNCHES - k2_before} launches, "
+          f"each output twice, == plain ({time.perf_counter() - t_k2:.1f} s)")
 
     # zero-tile jumping: K2's and K3's TileMap K skip against plain, with
     # maps from the builders and hand-made ones (occupied tiles left out,
@@ -1125,6 +1173,15 @@ def main() -> int:
                                ((qa, 1), (qh16, 2), (qx, 2), (qw1, 2), (qh40, 2)))
     qw2 = operands(SEED, 16, 16, 16, 2, 2, 2, 0)[1]
     w2, wb2 = on_card(qw2, 2), on_bits(qw2, 2)
+    def plan_of(a_, b_, out_bits, out_form="digits", raw=False, out_cols=None, tile_map=None):
+        """packmm_plan's choice for a K2 call, as printed beside its time."""
+        ocp = packmm._stored_cols(out_form, out_cols, b_.padded_cols)
+        p = packmm.packmm_plan(a_.padded_rows, a_.padded_cols, b_.padded_cols, b_.shape[1],
+                               packmm._plan_form(out_bits, out_form, raw), ocp, tile_map)
+        return f"BNT {p.bnt}, S {p.splits}, cluster {p.cluster}, grid {p.grid}"
+
+    k2_plans = {"packmm_to_digits A[2560x2560] x H[2560x16]": plan_of(a, h16, 2),
+                "packmm_to_f32 A[2560x2560] x H[2560x40]": plan_of(a, h40, None, "f32")}
     timed = [
         ("packmm", "packmm_to_digits A[2560x2560] x H[2560x16]",
          lambda: packmm.packmm_to_digits(a, h16, 2), lambda: packmm.packmm_plain(a, h16, 2)),
@@ -1204,6 +1261,11 @@ def main() -> int:
     tmd0 = digitmm.build_tile_map_digits(da0)
     hs16, hs40 = (on_card(operands(SEED, pn0, pn0, n, 1, 2, 2, 0)[1], 2) for n in (16, 40))
     shp = f"A(batch 0)[{pn0}x{pn0}]"
+    k2_plans.update({f"packmm_to_digits {shp} with its map x H[{pn0}x16]": plan_of(a0, hs16, 2, tile_map=tm0),
+                     f"packmm_to_digits {shp} x H[{pn0}x16], no map": plan_of(a0, hs16, 2),
+                     f"packmm_to_f32 {shp} with its map x H[{pn0}x40]": plan_of(a0, hs40, None, "f32",
+                                                                                tile_map=tm0),
+                     f"packmm_to_f32 {shp} x H[{pn0}x40], no map": plan_of(a0, hs40, None, "f32")})
     timed += [
         ("packmm_skip", f"packmm_to_digits {shp} with its map x H[{pn0}x16]",
          lambda: packmm.packmm_to_digits(a0, hs16, 2, tm0), lambda: packmm.packmm_plain(a0, hs16, 2, tile_map=tm0)),
@@ -1232,6 +1294,7 @@ def main() -> int:
                   "to the signed plane, out_cols=64", k4c.run, k4c.plain))
     timed.append(("packmm packed", "packmm_to_packed 1-bit A[4096x4096] x B[4096x64] to 1-bit words",
                   k2c.run, k2c.plain))
+    k2_plans["packmm_to_packed 1-bit A[4096x4096] x B[4096x64] to 1-bit words"] = plan_of(k2c.a, k2c.b, 1, "packed")
     # the kernel-study probes at their studies' shapes: P1's concat at C1's
     # aggregation and its packed out at JAX's first run_packedout row, P2
     # at its probe's shapes, P3 at pn 2048 x 50 batches (zero body G 1, two
@@ -1241,6 +1304,17 @@ def main() -> int:
     p1_w = torch.from_numpy(exp_packmm.pack_rows_np(p1_qa, 1, 256)[None]).to(dev)
     p1o_qa, p1o_qb, p1o_b = exp_packmm.operands(4096, 4096, 16, 1, prng, dev)
     p1o_w = torch.from_numpy(exp_packmm.pack_rows_np(p1o_qa, 1, 4096)[None]).to(dev)
+    # K2's yardsticks, timed in the main session beside K2: P1's concat on
+    # a 16-column tile at C1 (above) and P1b's 4096^2 N 64 row (JAX's last
+    # run_packedout row: 64-row CTAs OR fields into zeroed words)
+    p1w_qa, p1w_qb, p1w_b = exp_packmm.operands(4096, 4096, 64, 1, prng, dev)
+    p1w_w = torch.from_numpy(exp_packmm.pack_rows_np(p1w_qa, 1, 256)[None]).to(dev)
+    timed += [
+        ("yardstick P1 concat", "P1 concat, 1-bit words A[2560x2560] (tm 256) x B[2560x16] (16-column tile)",
+         lambda: exp_packmm.packmm_exp(p1_w, p1_b, 1, 256), None),
+        ("yardstick P1b", "P1b packed out, 1-bit A[4096x4096] (group 256) x B[4096x64]",
+         lambda: exp_packmm.packmm_exp_packedout(p1w_w, p1w_b, 1, 4096, 256), None),
+    ]
     p2_w = torch.from_numpy(table32.view(np.int32)).to(dev)
     p2_b = torch.from_numpy(table8).to(dev)
     # P3: random operands; the zero body takes turns over enough copies of
@@ -1284,12 +1358,12 @@ def main() -> int:
                "packmm_skip f32": (unpack_rows(a0).to(torch.int8), digit_unpack(hs40).to(torch.int8))}
     lib_ops["digitmm_skip"] = lib_ops["packmm_skip"]
     # the probes without an int8 product: one PyTorch expression each for
-    # the same function (bytes to rows by a strided copy, the inverse, and
-    # the zeros), checked against plain first
+    # the same function (bytes to rows by a strided copy, the inverse),
+    # checked against plain first. P3a's zero body has none: torch.zeros
+    # reads none of the X that the probe reads by design.
     lib_calls = {
         "bitcast32to8": lambda: p2_w.view(torch.int8).view(*p2_w.shape, 4).transpose(1, 2).reshape(-1, p2_w.shape[1]),
         "bitcast8to32": lambda: p2_b.view(-1, 4, p2_b.shape[1]).transpose(1, 2).contiguous().view(torch.int32)[..., 0],
-        "zero_body": lambda: torch.zeros((50, 2048, 48), dtype=torch.float32, device=dev),
     }
     for kind, fn in lib_calls.items():
         plain = next(t[3] for t in timed if t[0] == kind)
@@ -1332,6 +1406,8 @@ def main() -> int:
     for i, (kind, what, _, plain) in enumerate(timed):
         k_ms = min(dt[(i, "kernel", 0)], dt[(i, "kernel", 1)])
         kernel_ms.setdefault(kind, k_ms)
+        if what in k2_plans:
+            what = f"{what} (plan: {k2_plans[what]})"
         if plain is None:
             print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us device time per call [{card}]")
             continue
@@ -1347,17 +1423,37 @@ def main() -> int:
     for fig, cases in sweep.items():
         for i, c in enumerate(cases):
             r = c.row(dt[("sweep", fig, i)])
+            k2 = "" if c.int8 or c.bits > 4 else f" (plan: {plan_of(c.a, c.b, c.bits, 'packed', out_cols=c.out_cols)})"
             print(f"phase 3: sweep {fig} bits={r['bits']} M=K={r['M']} N={r['N']}: {r['us']} us, "
-                  f"{r['tflops']} TFLOP/s [{card}]; sm_86 {SM86[(fig, c.bits, c.M, c.N)]} TFLOP/s")
+                  f"{r['tflops']} TFLOP/s [{card}]; sm_86 {SM86[(fig, c.bits, c.M, c.N)]} TFLOP/s{k2}")
 
-    # bounds at the timed shapes: inputs read once, outputs written once
+    # K2 against its yardsticks, all from the one profiler session above
+    k2_reads = [
+        ("packed words 1-bit 4096^2 x 64 below torch._int_mm", kernel_ms["packmm packed"],
+         lib_ms["packmm packed"], kernel_ms["packmm packed"] < lib_ms["packmm packed"]),
+        ("packed words 1-bit 4096^2 x 64 at or below P1b's 4096^2 N 64 row", kernel_ms["packmm packed"],
+         kernel_ms["yardstick P1b"], kernel_ms["packmm packed"] <= kernel_ms["yardstick P1b"]),
+        ("C1 to digits at or below P1's concat 16-column row", kernel_ms["packmm"],
+         kernel_ms["yardstick P1 concat"], kernel_ms["packmm"] <= kernel_ms["yardstick P1 concat"]),
+        ("C1 with batch 0's map below the dense C1 row", kernel_ms["packmm_skip"], kernel_ms["packmm"],
+         kernel_ms["packmm_skip"] < kernel_ms["packmm"]),
+        ("C1 with batch 0's map below batch 0 without it", kernel_ms["packmm_skip"],
+         kernel_ms["packmm_skip dense"], kernel_ms["packmm_skip"] < kernel_ms["packmm_skip dense"]),
+    ]
+    for what, k_ms, y_ms, met in k2_reads:
+        print(f"phase 3: K2 {what}: {k_ms * 1e3:.2f} against {y_ms * 1e3:.2f} us, "
+              f"{'met' if met else 'not met'} [{card}]")
+
+    # bounds at the timed shapes: inputs read once, outputs written once;
+    # of B only its 16 real columns (the padding is layout, not work of the
+    # function), of a digit-plane output every column it stores
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
     bounds = {
-        "packmm": bound(nbytes(a.words, h16.digits, packmm.packmm_to_digits(a, h16, 2).digits),
+        "packmm": bound(nbytes(a.words, h16.digits[:, :, :16], packmm.packmm_to_digits(a, h16, 2).digits),
                         2 * 2560 * 2560 * 16, "int8"),
-        "digitmm": bound(nbytes(x.digits, w1.digits, digitmm.digitmm_to_digits(x, w1, 2).digits),
+        "digitmm": bound(nbytes(x.digits, w1.digits[:, :, :16], digitmm.digitmm_to_digits(x, w1, 2).digits),
                          2 * 2560 * 128 * 16, "int8"),
     }
     # K6: the planes as passed; 2 M N K int8 operations per pair of
@@ -1408,14 +1504,14 @@ def main() -> int:
                                for w in bws)
     bounds["fused_baseline"] = bound(nbytes(ba, bx, *bws, bfn()), k5_ops, "bf16")
 
-    # the K skip: only the listed tiles' bytes of A (and of B the rows of
-    # the K tiles some row tile lists) and 2 * tile_m * tile_k * N
-    # operations per listed tile, N the logical columns
+    # the K skip: only the listed tiles' bytes of A (and of B the n real
+    # columns of the K tiles some row tile lists) and 2 * tile_m * tile_k * n
+    # operations per listed tile, n the logical columns
     def skip_bound(tm, a_tile_bytes, b, out, n):
         kcnt = tm.kcnt.clamp(0, tm.kidx.shape[1])
         visit = torch.arange(tm.kidx.shape[1], device=dev)[None, :] < kcnt[:, None]
         listed, k_tiles = int(kcnt.sum()), int(tm.kidx[visit].unique().numel())
-        b_bytes = k_tiles * tm.tile_k * b.digits.shape[0] * b.digits.shape[2]
+        b_bytes = k_tiles * tm.tile_k * b.digits.shape[0] * n
         ops = 2 * tm.tile_m * tm.tile_k * n * listed
         return bound(listed * a_tile_bytes + b_bytes + nbytes(out), ops, "int8"), listed
 
@@ -1442,7 +1538,7 @@ def main() -> int:
         print(f"phase 3: {k} bound {b_ms * 1e3:.2f} us ({by}); kernel {times[k][0] * 1e3:.1f} us, "
               f"plain {times[k][1] * 1e3:.1f} us{lib} [{card}]")
 
-    sources = {"packmm": ("packmm.cu", "qgtc_ppopp22_tpu/ops/packmm.py:664", launches),
+    sources = {"packmm": ("packmm_k2.cuh", "qgtc_ppopp22_tpu/ops/packmm.py:664", launches),
                "digitmm": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", launches),
                "fused_model": ("fused_model.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
                                mega_launches),
@@ -1455,7 +1551,7 @@ def main() -> int:
                "packmm_signed": ("packmm_signed.cu", "qgtc_ppopp22_tpu/ops/packmm.py:473",
                                  sweep_launches),
                # the TileMap K skip: the zero-tile path's mapped launches
-               "packmm_skip": ("packmm.cu", "qgtc_ppopp22_tpu/ops/packmm.py:664",
+               "packmm_skip": ("packmm_k2.cuh", "qgtc_ppopp22_tpu/ops/packmm.py:664",
                                {"packmm_skip": zero_launches["packmm with a map"]}),
                "digitmm_skip": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", digit_a_launches),
                # the kernel-study probes: the studies' launches

@@ -1,25 +1,34 @@
-"""Device time of the dense integer GEMM kernels built on
-``csrc/gemm_core.cuh``: K2 ``packmm`` and K3 ``digitmm`` at the step
-engine's C1 shapes (pn = 2560, 2-bit GCN, hidden 16, 40 classes), and
+"""Device time of the integer GEMM kernels K2 ``packmm`` and K3
+``digitmm`` at the step engine's C1 shapes (pn = 2560, 2-bit GCN, hidden
+16, 40 classes), K2 at C1 with a real adjacency's zero-tile map (batch 0
+of the arxiv stand-in, psize 1500, batch 20, with its pack-time map), and
 every row of the kernel sweep's Fig. 8a (K2 packed out at 1, 2 and 4
 bits, K4 ``packmm_signed`` at 8 bits).
 
-The script calls only what the port has offered since the kernel sweep
-(``packmm_to_digits``, ``packmm_to_f32``, ``digitmm_to_digits`` without
-a map, ``kernel_sweep.figure_cases``), so two checkouts can be timed
-on one card in one command: copy it into the other checkout's
+The script calls only what the port has offered since zero-tile jumping
+(``packmm_to_digits`` with and without a map, ``packmm_to_f32``,
+``digitmm_to_digits``, ``kernel_sweep.figure_cases``, a batch's
+``a_words`` and ``tile_kidx`` / ``tile_kcnt``), so two checkouts can be
+timed on one card in one command: copy it into the other checkout's
 ``benchmarks/`` folder and run it from each checkout's root in turns (A,
 B, B, A), each run on the kernels that its checkout builds. Operands come
 from ``np.random.default_rng(--seed)`` (the dense K loop does not depend
-on the data) and the sweep's ``default_rng(0)``.
+on the data), the sweep's ``default_rng(0)`` and the batcher's seed 3.
 
 Prints the card's name and power limit, then one JSON line per row
 (``{"tag", "row", "us"}``): the device time per call, the lesser of two
-rounds of ``--iters`` calls in one profiler session. Needs a CUDA device.
+rounds of ``--iters`` calls in one profiler session. Then the step
+engine's E1 and E1z on the same 75 batches (``QGTCEngine.run_epochs``,
+resident, dense and with ``zerotile_jump=True``): one line each
+(``{"tag", "row", "ms"}``) with the host-clock ms/epoch of ``--epoch-runs``
+runs of 5 epochs, taken in turns. ``--plans`` (K2's
+``packmm_plan(..., bnt=)``, this checkout only) adds K2 at C1's rows and
+at 4096² on each column tile it can take, each line with its plan. Needs
+a CUDA device.
 
 Usage::
 
-    python -m qgtc_ppopp22_tpu_torch.benchmarks.gemm_times [--tag NAME] [--iters 20]
+    python -m qgtc_ppopp22_tpu_torch.benchmarks.gemm_times [--tag NAME] [--iters 20] [--epoch-runs 3] [--plans]
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import torch
 from qgtc_ppopp22_tpu_torch.benchmarks import kernel_sweep
 from qgtc_ppopp22_tpu_torch.ops import digitmm, packmm
 from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack
-from qgtc_ppopp22_tpu_torch.ops.packmm import pack_rows
+from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, pack_rows
 
 PN, FEAT, HIDDEN, CLASSES, BITS = 2560, 128, 16, 40, 2
 
@@ -64,6 +73,92 @@ def c1_calls(seed: int, device) -> dict:
     }
 
 
+def c1_batches():
+    """The arxiv stand-in and C1's 75 cluster batches (psize 1500, batch
+    20, seed 3)."""
+    from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
+
+    ds = load_dataset("ogbn-arxiv", data_dir="qgtc_graphs")
+    return ds, ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=BITS, seed=3, cache_dir="./datasets")
+
+
+def c1_map_calls(seed: int, device, batcher) -> dict:
+    """K2 at C1 on batch 0's adjacency with its pack-time map (256 x 256
+    tiles), beside the same call without it."""
+    from qgtc_ppopp22_tpu_torch.ops.bitgemm import TileMap
+
+    b0 = batcher.batches[0]
+    pn = b0.padded_nodes
+    a = PackedTensor(words=b0.a_words.to(device), shape=(pn, pn), bits=1)
+    tm = TileMap(kidx=b0.tile_kidx.to(device), kcnt=b0.tile_kcnt.to(device), tile_m=256, tile_k=256)
+    rng = np.random.default_rng(seed)
+    h16 = digit_pack(torch.from_numpy(rng.integers(0, 1 << BITS, (pn, HIDDEN)).astype(np.int32)).to(device), BITS)
+    return {
+        f"packmm_to_digits A(batch 0)[{pn}x{pn}] with its map x H[{pn}x{HIDDEN}]":
+            lambda: packmm.packmm_to_digits(a, h16, BITS, tm),
+        f"packmm_to_digits A(batch 0)[{pn}x{pn}] x H[{pn}x{HIDDEN}], no map":
+            lambda: packmm.packmm_to_digits(a, h16, BITS),
+    }
+
+
+def plan_calls(seed: int, device) -> dict:
+    """K2 on every column tile its plan can take for 24-64 real columns:
+    at C1's 40 row tiles to digits and to f32 (``out_cols`` N), and
+    1-bit 4096² to words; the split is the plan's for that tile. Then C1's
+    aggregation to digits (N 16) at every split."""
+    import dataclasses
+
+    rng = np.random.default_rng(seed)
+
+    def levels(rows, cols, bits):
+        return torch.from_numpy(rng.integers(0, 1 << bits, (rows, cols)).astype(np.int32)).to(device)
+
+    rows = {}
+    for m, form, ns in ((PN, "digits", (40, 64)), (PN, "f32", (24, 40, 48, 64)), (4096, "packed", (40, 64))):
+        a = pack_rows(levels(m, m, 1), 1)
+        for n in ns:
+            b = digit_pack(levels(m, n, BITS), BITS)
+            out_cols = None if form == "digits" else n
+            ocp = packmm._stored_cols(form, out_cols, b.padded_cols)
+            pform = "words" if form == "packed" else form
+            chosen = packmm.packmm_plan(a.padded_rows, a.padded_cols, b.padded_cols, n, pform, ocp)
+            for bnt in (16, 32, 64):
+                plan = packmm.packmm_plan(a.padded_rows, a.padded_cols, b.padded_cols, n, pform, ocp, bnt=bnt)
+                ob = None if form == "f32" else (1 if form == "packed" else BITS)
+                mark = ", chosen" if plan == chosen else ""
+                rows[f"plan {form} A[{m}x{m}] 1-bit x B[{m}x{n}]: {dataclasses.astuple(plan)}{mark}"] = (
+                    lambda a=a, b=b, ob=ob, f=form, c=out_cols, p=plan:
+                    packmm._packmm(a, b, ob, f, 0, False, c, _plan=p))
+    # C1's aggregation to digits at every split
+    a, b = pack_rows(levels(PN, PN, 1), 1), digit_pack(levels(PN, HIDDEN, BITS), BITS)
+    chosen = packmm.packmm_plan(a.padded_rows, a.padded_cols, b.padded_cols, HIDDEN, "digits", b.padded_cols)
+    for s in range(1, packmm.MAX_SPLIT + 1):
+        plan = dataclasses.replace(chosen, splits=s, cluster=(1, 1, s), grid=(*chosen.grid[:2], s))
+        mark = ", chosen" if plan == chosen else ""
+        rows[f"plan digits A[{PN}x{PN}] 1-bit x H[{PN}x{HIDDEN}]: {dataclasses.astuple(plan)}{mark}"] = (
+            lambda p=plan: packmm._packmm(a, b, BITS, "digits", 0, False, _plan=p))
+    return rows
+
+
+def engine_rows(ds, batcher, device, runs: int) -> dict:
+    """E1 and E1z: the resident step engine's host-clock ms/epoch over
+    C1's batches, dense and with each batch's map, ``runs`` runs of 5
+    epochs each, in turns."""
+    from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
+
+    engines = {zj: QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gcn",
+                              bit_width=BITS, seed=3, device=device, zerotile_jump=zj)
+               for zj in (False, True)}
+    for eng in engines.values():
+        eng.run_epochs(batcher, n_epochs=2, resident=True)  # warm: staging, first launches
+    ms = {False: [], True: []}
+    for _ in range(runs):
+        for zj, eng in engines.items():
+            ms[zj].append(eng.run_epochs(batcher, n_epochs=5, resident=True).avg_ms)
+    return {"E1 resident step engine ms/epoch": ms[False],
+            "E1z resident step engine with zero-tile jumping ms/epoch": ms[True]}
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -75,6 +170,8 @@ def main(argv=None) -> int:
     p.add_argument("--tag", default="", help="label printed on every row")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--seed", type=int, default=3)
+    p.add_argument("--epoch-runs", type=int, default=3, help="runs of 5 epochs for E1 and E1z (0: none)")
+    p.add_argument("--plans", action="store_true", help="K2 on each column tile it can take")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_times: no CUDA device", file=sys.stderr)
@@ -82,16 +179,23 @@ def main(argv=None) -> int:
     from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms
 
     dev = torch.device("cuda")
+    ds, batcher = c1_batches()
     rows = c1_calls(args.seed, dev)
+    rows.update(c1_map_calls(args.seed, dev, batcher))
     for c in kernel_sweep.figure_cases("8a", np.random.default_rng(0), dev):
         kind = "packmm_signed" if c.bits == 8 else "packmm packed"
         rows[f"sweep 8a {kind} bits={c.bits} M=K={c.M} N={c.N}"] = c.run
+    if args.plans:
+        rows.update(plan_calls(args.seed, dev))
     fns = {(name, rep): fn for rep in (0, 1) for name, fn in rows.items()}
     dt = device_times_ms(fns, iters=args.iters)
     print(f"card: {card_line()}")
     for name in rows:
         us = min(dt[(name, 0)], dt[(name, 1)]) * 1e3
         print(json.dumps({"tag": args.tag, "row": name, "us": round(us, 2)}), flush=True)
+    if args.epoch_runs:
+        for name, ms in engine_rows(ds, batcher, dev, args.epoch_runs).items():
+            print(json.dumps({"tag": args.tag, "row": name, "ms": [round(v, 3) for v in ms]}), flush=True)
     return 0
 
 

@@ -85,16 +85,6 @@ __device__ __forceinline__ void row_slot(int m, int tm, int& wrow, int& sh) {
   sh = 8 * (rem & 3) + F * q;
 }
 
-// The F-bit fields at bit sh of four consecutive columns' words, as the
-// four bytes of one register (column j in byte j).
-template <int F>
-__device__ __forceinline__ uint32_t fields(const int4& v, int sh) {
-  constexpr uint32_t M = (1u << F) - 1;
-  return (((uint32_t)v.x >> sh) & M) | ((((uint32_t)v.y >> sh) & M) << 8) |
-         ((((uint32_t)v.z >> sh) & M) << 16) |
-         ((((uint32_t)v.w >> sh) & M) << 24);
-}
-
 // Byte k of four consecutive columns' words, by byte permutes only.
 __device__ __forceinline__ uint32_t bytes_at(const int4& v, int k) {
   const uint32_t sel = (uint32_t)k | ((uint32_t)(k + 4) << 4);

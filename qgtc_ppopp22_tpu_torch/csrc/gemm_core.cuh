@@ -1,5 +1,7 @@
-// Integer tile-GEMM core shared by the digitmm, packmm and packmm_signed
-// kernels.
+// Integer tile-GEMM core shared by the digitmm kernel, packmm's 8-bit
+// signed-plane route and the packmm_signed kernel (packmm's 1/2/4-bit
+// route is packmm_k2.cuh, which takes its fragment loads, mma and
+// epilogue stores from here).
 //
 // C = sum_{d<ND_A, e<ND_B} dot(A_d, B_e) << 4*(d+e), exact in int32, plus
 // an optional offset correction (CORR), followed by one fused epilogue:
@@ -156,7 +158,9 @@ struct Int8Loader {
 };
 
 // M-packed A (ops/packmm.py layout, above): decodes int32 words
-// [mp / (32 / F)][kp] of F-bit fields into the int8 A tile.
+// [mp / (32 / F)][kp] of F-bit fields into the int8 A tile, each row's
+// word address and shift computed every step (K2's loader before
+// packmm_k2.cuh; the kernel-study probe's k2loader row runs it).
 template <int F>
 struct PackedLoader {
   const int32_t* __restrict__ w;
@@ -186,6 +190,16 @@ struct PackedLoader {
     }
   }
 };
+
+// The F-bit fields at bit sh of four consecutive columns' words, as the
+// four bytes of one register (column j in byte j): an M-packed A's
+// unpack (packmm_k2.cuh, the kernel-study probes).
+template <int F>
+__device__ __forceinline__ uint32_t fields(const int4& v, int sh) {
+  constexpr uint32_t M = (1u << F) - 1;
+  return (((uint32_t)v.x >> sh) & M) | ((((uint32_t)v.y >> sh) & M) << 8) |
+         ((((uint32_t)v.z >> sh) & M) << 16) | ((((uint32_t)v.w >> sh) & M) << 24);
+}
 
 template <int ND_B, int NT = THREADS>
 __device__ __forceinline__ void load_b(int8_t (*Bs)[BN][LDS],

@@ -8,9 +8,10 @@
 // byte plane for 5-8 bits: bit in, bit out), with out_cols narrowing the
 // terminal stores. With a TileMap (kidx, kcnt) each CTA visits only the K
 // tiles its row tile lists (zero-tile jumping, the TPU kernel's
-// t < kcnt[i] guard at :890); for a signed-plane A the colsum correction
-// is summed over those tiles only, as the TPU kernel's is (:875-888). The
-// PreparedRHS variant is packmm_signed.cu.
+// t < kcnt[i] guard at :890, K skip at :811-814 and :840-895); for a
+// signed-plane A the colsum correction is summed over those tiles only,
+// as the TPU kernel's is (:875-888). The PreparedRHS variant is
+// packmm_signed.cu.
 //
 // A's layout (ops/packmm.py): within each 256-row group, logical row
 // q*4*gw + 4*i + k sits in bits [8k + f*q, 8k + f*(q+1)) of word row i,
@@ -18,48 +19,58 @@
 // word rows per group. Packed words out use the same layout, so the output
 // feeds the next product as its A.
 //
-// What bounds it on an H100: the step engine's aggregations A x H are
-// M = K = pn ~ 2560, N = 128 (16 or 40 real columns), about 0.84 GOP per
-// digit pair against 0.8 MB of packed A. The tensor cores need about a
-// microsecond for that; the unpack of A (shifts and masks, 8x the packed
-// bytes written to shared memory) and launch overhead bound it. The
-// kernel sweep's 1-bit bit-in/bit-out shape M = K = 4096, N = 64 needs
-// 2.15 G operations against 2.7 MB: 1.09 us at the int8 peak. With a map,
-// only the listed tiles' bytes and operations are needed (C1: a quarter
-// of the 256 x 256 tiles).
-// What the design does about it: A crosses device memory packed (1 bit
-// per value) and is unpacked straight into the shared-memory int8 tile
-// the mma fragments read; the requantize epilogue runs in registers, and
-// a packed-words output is built in shared memory by a CTA that owns the
-// whole 256-row group (16 warps), so only packed words reach device memory.
-// A skipped tile costs neither its load nor its K steps.
+// What bounds it on an H100. The step engine's aggregation at C1, A[2560²]
+// 1-bit x H[2560 x 16] 2-bit to digits, needs 1.19 MB (0.82 MB of words,
+// 0.04 MB for the 16 real columns of H, 0.33 MB for the 128-column digit
+// plane out): 0.35 us at 3.35 TB/s, against 0.21 G int8 operations
+// (0.11 us). The sweep's
+// 1-bit 4096² x 64 to words needs 2.15 G operations (1.09 us at 1,979
+// TOP/s) against 2.4 MB (0.72 us). Neither is near its bound: the time is
+// the K loop's per-step cost times the steps a CTA runs in sequence (40
+// at C1, 64 at 4096²), and how many CTAs share the card.
+// What each lever does (packmm_k2.cuh, the 1/2/4-bit route):
+//   * a column tile sized to N (16, 32 or 64 columns, chosen by the
+//     wrapper's plan): no MMAs or B traffic for padding columns, and
+//     column tiles past the real ones run no K loop at all (their outputs
+//     are stored as level 0);
+//   * each thread's word rows and bit offsets computed once per CTA, so
+//     the loop only adds the K offset;
+//   * a 4-stage cp.async ring for the words and B, unpacked from shared
+//     memory into double-buffered int8 tiles: one barrier per step, the
+//     loads in flight three steps ahead;
+//   * split-K over a thread-block cluster (S <= 4 CTAs per output tile,
+//     reduced through distributed shared memory): at C1, 40 row tiles
+//     become 120 CTAs on 132 SMs;
+//   * packed words from 64-row CTAs, four to a cluster, which assemble
+//     each 256-row group's words over distributed shared memory: 64 CTAs
+//     at M = 4096 where one CTA per group made 16.
+// A skipped tile costs neither its loads nor its K steps. The 8-bit
+// (signed plane) route stays on gemm_core.cuh's single-stage gemm_kernel.
+#include <algorithm>
+
 #include "gemm_core.cuh"
+#include "packmm_k2.cuh"
 
 using namespace qgtc;
-
-namespace {
-
-template <int F>
-int launch_packed(const void* a, const void* b, int nd_b, int mp, int kp,
-                  int np, const Epilogue& ep, const KMap& km, cudaStream_t s) {
-  const PackedLoader<F> la{static_cast<const int32_t*>(a), kp};
-  if (nd_b == 1) return launch<1, 1, CORR_NONE>(la, b, mp, kp, np, ep, km, s);
-  if (nd_b == 2) return launch<1, 2, CORR_NONE>(la, b, mp, kp, np, ep, km, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 // field_bits: 1, 2 or 4 for int32 words [mp / (32 / field_bits)][kp];
 // 8 for the offset-signed int8 plane [mp][kp]. mp counts logical rows.
 // b: int8[nd_b][kp][np]; ocp: stored columns of the f32 / i32 / packed
 // outputs (np for digits); kidx / kcnt: the TileMap, or null for the dense
 // contraction (tile_m a multiple of 256, tile_k of 64); see gemm_core.cuh.
+// n: B's real columns (those >= n hold level 0); bnt, grid (gx, gy, gz)
+// and cluster (cx, cy, cz): the launch of the 1/2/4-bit route as
+// ops/packmm.py packmm_plan chose it, which this entry only checks: the
+// column tile (16, 32 or 64), gx = ceil(min(round_up(n, 8), np or ocp) /
+// bnt) column tiles, gy = mp / 64 row tiles, gz = cz = the CTAs per output
+// tile (1-4; 1-2 for packed words), cx = 1 and cy = 4 for packed words (a
+// 256-row group), else 1. The 8-bit route ignores n, bnt, grid and cluster.
 extern "C" int qgtc_packmm(void* out, const void* a, const void* b,
                            int field_bits, int nd_b, int mp, int kp, int np,
                            int out_kind, int out_bits, int shift, int ocp,
                            const void* kidx, const void* kcnt, int tile_m,
-                           int tile_k, void* stream) {
+                           int tile_k, int n, int bnt, int gx, int gy, int gz,
+                           int cx, int cy, int cz, void* stream) {
   const KMap km{static_cast<const int*>(kidx), static_cast<const int*>(kcnt),
                 tile_m, tile_k};
   if (!shapes_ok(mp, kp, np, out_kind, out_bits, shift, ocp) || mp % GROUP ||
@@ -67,16 +78,24 @@ extern "C" int qgtc_packmm(void* out, const void* a, const void* b,
     return (int)cudaErrorInvalidValue;
   const Epilogue ep{out, mp, np, out_kind, out_bits, shift, ocp, np, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (field_bits == 8) {
+    const Int8Loader la{static_cast<const int8_t*>(a), mp, kp};
+    if (nd_b == 1) return launch<1, 1, CORR_COLSUM>(la, b, mp, kp, np, ep, km, s);
+    if (nd_b == 2) return launch<1, 2, CORR_COLSUM>(la, b, mp, kp, np, ep, km, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool pack = group_out(out_kind, out_bits);
+  if (n <= 0 || (bnt != 16 && bnt != 32 && bnt != 64)) return (int)cudaErrorInvalidValue;
+  const int ncomp = std::min((n + 7) / 8 * 8, out_kind == OUT_DIGITS ? np : ocp);
+  if (gx != (ncomp + bnt - 1) / bnt || gy != mp / BM || gz < 1 ||
+      gz > (pack ? 2 : k2::MAX_SPLIT) || cx != 1 || cy != (pack ? k2::PACK_ROWS : 1) || cz != gz)
+    return (int)cudaErrorInvalidValue;
+  const int32_t* w = static_cast<const int32_t*>(a);
+  const int8_t* bp = static_cast<const int8_t*>(b);
   switch (field_bits) {
-    case 1: return launch_packed<1>(a, b, nd_b, mp, kp, np, ep, km, s);
-    case 2: return launch_packed<2>(a, b, nd_b, mp, kp, np, ep, km, s);
-    case 4: return launch_packed<4>(a, b, nd_b, mp, kp, np, ep, km, s);
-    case 8: {
-      const Int8Loader la{static_cast<const int8_t*>(a), mp, kp};
-      if (nd_b == 1) return launch<1, 1, CORR_COLSUM>(la, b, mp, kp, np, ep, km, s);
-      if (nd_b == 2) return launch<1, 2, CORR_COLSUM>(la, b, mp, kp, np, ep, km, s);
-      return (int)cudaErrorInvalidValue;
-    }
+    case 1: return k2::launch_f1(w, bp, nd_b, kp, ep, km, bnt, gx, gz, s);
+    case 2: return k2::launch_f2(w, bp, nd_b, kp, ep, km, bnt, gx, gz, s);
+    case 4: return k2::launch_f4(w, bp, nd_b, kp, ep, km, bnt, gx, gz, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -91,15 +91,19 @@ def library() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(str(LIB_PATH))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # 17 arguments: (out, a, b, a_arg, nd_b, mp, kp, np, out_kind,
-        # out_bits, shift, ocp, kidx, kcnt, tile_m, tile_k, stream), a_arg
-        # being nd_a for digitmm and the field width for packmm, ocp the
-        # stored columns of the f32, i32 and packed outputs, kidx / kcnt
-        # the TileMap (null: dense); see csrc/gemm_core.cuh.
+        # digitmm's 17 arguments: (out, a, b, a_arg, nd_b, mp, kp, np,
+        # out_kind, out_bits, shift, ocp, kidx, kcnt, tile_m, tile_k,
+        # stream), a_arg being nd_a for digitmm and the field width for
+        # packmm, ocp the stored columns of the f32, i32 and packed
+        # outputs, kidx / kcnt the TileMap (null: dense); see
+        # csrc/gemm_core.cuh.
         mapped = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, i, i, p]
         lib.qgtc_digitmm.argtypes = mapped
         lib.qgtc_digitmm.restype = i
-        lib.qgtc_packmm.argtypes = mapped
+        # packmm adds (n, bnt, grid x/y/z, cluster x/y/z) before the
+        # stream: B's real columns and the 1/2/4-bit route's plan
+        # (ops/packmm.py packmm_plan), which the C entry checks.
+        lib.qgtc_packmm.argtypes = mapped[:-1] + [i] * 8 + [p]
         lib.qgtc_packmm.restype = i
         # (out, a, plane, corr, mp, kp, np, out_kind, out_bits, shift, ocp,
         # mask_n, stream); see csrc/packmm_signed.cu.

@@ -28,12 +28,15 @@ Dispatch: operands on the CPU run :func:`packmm_plain` (which takes a
 ``PreparedRHS`` to :func:`packmm_signed_plain`); operands on a CUDA
 device launch the kernel of ``csrc/packmm.cu`` (``LAUNCHES``), or of
 ``csrc/packmm_signed.cu`` for a ``PreparedRHS`` (``SIGNED_LAUNCHES``),
-or raise.
+or raise. A 1-, 2- or 4-bit A runs ``csrc/packmm_k2.cuh`` on the launch
+geometry that :func:`packmm_plan` chooses; a 5-8-bit A runs
+``csrc/gemm_core.cuh``'s single-stage kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -54,6 +57,11 @@ from qgtc_ppopp22_tpu_torch.ops.quantize import requantize_wrapped
 
 PACK_GROUP = 256  # rows per permutation group (layout contract)
 _OFFSET = 128  # signed-plane offset: stored byte = level - 128
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+RESIDENT = 4 * SMS  # K2's CTAs the card holds at once: what the split fills
+MAX_SPLIT = 4  # CTAs that share one output tile (csrc/packmm_k2.cuh)
+PACK_SPLIT = 2  # for packed words, beside the 4 CTAs of a group: a cluster <= 8
 
 LAUNCHES = 0  # csrc/packmm.cu launches since the count was last reset to 0
 MAPPED_LAUNCHES = 0  # those of them given a TileMap, likewise
@@ -314,6 +322,83 @@ def _stored_cols(out_form: str, out_cols: Optional[int], np_: int) -> int:
     return min(round_up(max(int(out_cols), 1), 8), np_)
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The launch of K2's 1/2/4-bit kernel: the column tile ``bnt``, the
+    ``splits`` CTAs that share each output tile (split-K), the thread-block
+    ``cluster`` (x, y, z) and the ``grid`` (column tiles, 64-row tiles,
+    splits)."""
+
+    bnt: int
+    splits: int
+    cluster: Tuple[int, int, int]
+    grid: Tuple[int, int, int]
+
+
+def packmm_plan(mp: int, kp: int, np_: int, n: int, out_form: str, ocp: int,
+                tile_map: Optional[TileMap] = None, bnt: Optional[int] = None) -> Plan:
+    """The launch geometry of K2 for an M-packed 1-, 2- or 4-bit A of
+    ``mp`` padded rows and ``kp`` padded columns against a B of ``n`` real
+    and ``np_`` padded columns. ``out_form``: ``"digits"``, ``"f32"``,
+    ``"i32"``, ``"plane"`` (the signed byte plane of 5-8-bit packed out) or
+    ``"words"`` (M-packed words); ``ocp``: the stored columns of the
+    terminal forms; ``bnt``: a column tile to take instead of the chosen
+    one (``benchmarks/gemm_times.py --plans`` compares them).
+
+    The computed columns are ``round_up(n, 8)`` (at most the stored ones);
+    the column tile is the narrowest of 16, 32 and 64 that holds them. Where
+    the row tiles number fewer than 2 an SM, narrower tiles win: each tile
+    unpacks A again, but more, narrower CTAs hide more of a step's latency.
+    There 64 columns are two tiles of 32, and up to 48 columns of a per-tile
+    output (not packed words) are tiles of 16. The split fills the CTAs the
+    card holds at once (4 an SM) where the grid is small: ``RESIDENT //
+    (column tiles x row tiles)``, at most 4 (2 for words, whose 4 CTAs of a
+    256-row group share the cluster too), with at least 4 K steps a CTA
+    dense or one listed K tile a CTA with ``tile_map``.
+
+    Measured (``benchmarks/gemm_times.py --plans``, one H100 SXM at 700 W),
+    on C1's 40 row tiles, to digits at N 16 23.8 / 14.6 / 12.1 / 10.5 us
+    at S 1 / 2 / 3 / 4; to f32 at N 24 10.4 us on tiles of 16, 11.0 on one
+    of 32; at N 40 11.6 / 12.5 / 17.1 on tiles of 16 / 32 / 64, at N 48
+    11.6 / 12.5; at N 64 14.5 on four of 16 (S 3), 12.7 on two of 32; to
+    digits at N 40 12.4 / 13.8 on 16 / 32. 1-bit 4096² to words at S 2: N
+    40 28.7 on either 16 or 32; N 64 34.5 / 29.0 / 41.7 on 16 / 32 / 64.
+
+    The plan depends only on these integers (and the map's ``tile_k``), so
+    it is computed once per shape."""
+    return _cached_plan(mp, kp, np_, n, out_form, ocp, None if tile_map is None else tile_map.tile_k, bnt)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan(mp: int, kp: int, np_: int, n: int, out_form: str, ocp: int,
+                 tile_k: Optional[int], bnt: Optional[int]) -> Plan:
+    if out_form not in ("digits", "f32", "i32", "plane", "words"):
+        raise ValueError(f"unknown out_form {out_form!r}")
+    ncomp = min(round_up(max(n, 1), 8), np_ if out_form == "digits" else ocp)
+    rows = mp // _gemm.TILE
+    if bnt is None:
+        small = rows < 2 * SMS
+        if ncomp <= 16 or (small and ncomp <= 48 and out_form != "words"):
+            bnt = 16
+        else:
+            bnt = 32 if ncomp <= 32 or (small and ncomp <= 64) else 64
+    tiles = (-(-ncomp // bnt), rows)
+    steps = kp // _gemm.TILE // 4 if tile_k is None else kp // tile_k
+    words = out_form == "words"
+    splits = max(1, min(PACK_SPLIT if words else MAX_SPLIT, RESIDENT // (tiles[0] * tiles[1]), steps))
+    return Plan(bnt=bnt, splits=splits, cluster=(1, PACK_GROUP // _gemm.TILE if words else 1, splits),
+                grid=(*tiles, splits))
+
+
+def _plan_form(out_bits: Optional[int], out_form: str, raw_i32: bool) -> str:
+    """The wrapper's output arguments as :func:`packmm_plan`'s form."""
+    if out_bits is None:
+        return "i32" if raw_i32 else "f32"
+    if out_form != "packed":
+        return "digits"
+    return "plane" if packed_signed(out_bits) else "words"
+
+
 def _check(a: PackedTensor, b: DigitTensor, out_form: str = "digits",
            out_cols: Optional[int] = None, tile_map: Optional[TileMap] = None) -> int:
     """The K2 checks (a map's tile_m a multiple of the 256-row group, as
@@ -426,7 +511,10 @@ def packmm_plain(
 
 
 def _packmm(a: PackedTensor, b: Rhs, out_bits, out_form, shift, raw_i32, out_cols=None,
-            tile_map=None):
+            tile_map=None, _plan: Optional[Plan] = None):
+    """Every ``packmm_*`` wrapper. ``_plan`` replaces :func:`packmm_plan`'s
+    choice for a 1/2/4-bit A on the card (the CUDA tests force each split
+    with it); the kernel refuses a plan it cannot run."""
     global LAUNCHES, MAPPED_LAUNCHES, SIGNED_LAUNCHES
     shape = (a.shape[0], b.shape[1])
     if isinstance(b, PreparedRHS):
@@ -449,10 +537,16 @@ def _packmm(a: PackedTensor, b: Rhs, out_bits, out_form, shift, raw_i32, out_col
         ocp = _check(a, b, out_form, out_cols, tile_map)
         if not a.words.is_cuda:
             return packmm_plain(a, b, out_bits, shift, raw_i32, out_form, out_cols, tile_map)
+        signed = packed_signed(a.bits)
+        plan = None if signed else _plan or packmm_plan(
+            a.padded_rows, a.padded_cols, b.padded_cols, b.shape[1],
+            _plan_form(out_bits, out_form, raw_i32), ocp, tile_map)
         out = _gemm.launch(
-            "qgtc_packmm", a.words, torch.int8 if packed_signed(a.bits) else torch.int32,
+            "qgtc_packmm", a.words, torch.int8 if signed else torch.int32,
             b.digits, a.padded_rows, shape, out_bits, out_form, shift, raw_i32, ocp,
-            head=(field_width(a.bits), b.ndigits), tail=_gemm.map_args(tile_map),
+            head=(field_width(a.bits), b.ndigits),
+            tail=(*_gemm.map_args(tile_map), b.shape[1],
+                  *((plan.bnt, *plan.grid, *plan.cluster) if plan else (0,) * 7)),
         )
         LAUNCHES += 1
         MAPPED_LAUNCHES += tile_map is not None

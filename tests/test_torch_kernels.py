@@ -13,6 +13,8 @@ else max |kernel - plain| <= 2^-6 * max |plain| per row of logits
 (``torch_cases``).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,9 @@ from torch_cases import (  # tests/ is on sys.path
     blocky_levels,
     edge_operands,
     hand_map,
+    k2_chain,
+    k2_group,
+    k2_groups,
     levels_plane,
     mega_case,
     operands,
@@ -563,6 +568,37 @@ def test_digitmm_tile_map_kernel_equals_plain(cuda, a_bits, b_bits, tiles, kind)
     _check(got, digitmm.digitmm_plain(da, b, b_bits, 2, tile_map=tm))
     _check(digitmm.digitmm_to_f32(da, b, tm), digitmm.digitmm_plain(da, b, tile_map=tm))
     _check(digitmm.digitmm_to_i32(da, b, tm), digitmm.digitmm_plain(da, b, raw_i32=True, tile_map=tm))
+
+
+# K2's 1/2/4-bit kernel (csrc/packmm_k2.cuh): every form of each group,
+# the whole output against plain, twice (no race checker runs on the card:
+# equal repeats are the evidence)
+@pytest.mark.parametrize("group", [kw for _, kw in k2_groups()], ids=[gid for gid, _ in k2_groups()])
+def test_k2_kernel_equals_plain(cuda, group):
+    for tag, kernel, plain in k2_group(cuda, **group):
+        before = packmm.LAUNCHES
+        got = kernel()
+        assert packmm.LAUNCHES == before + 1, tag
+        _check(got, plain())
+        _check(kernel(), got)
+
+
+@pytest.mark.parametrize("a_bits", [1, 2, 4])
+def test_k2_packed_words_chain(cuda, a_bits):
+    _, kernel, plain = k2_chain(cuda, a_bits)
+    got = kernel()
+    _check(got, plain())
+    _check(kernel(), got)
+
+
+def test_k2_refuses_a_plan_it_cannot_run(cuda):
+    a, b = _pt(operands(1, 512, 256, 16, 1, 2, 2, 0)[0], 1, cuda), _dt(operands(1, 512, 256, 16, 1, 2, 2, 0)[1], 2, cuda)
+    plan = packmm.packmm_plan(a.padded_rows, a.padded_cols, b.padded_cols, 16, "words", b.padded_cols)
+    wrong_tiles = dict(grid=(plan.grid[0] + 1, *plan.grid[1:]))  # the C entry checks the geometry
+    wrong_cluster = dict(cluster=(1, 1, plan.splits))  # words take a 256-row group a cluster
+    for bad in (dict(splits=3, cluster=(1, 4, 3)), dict(bnt=48), wrong_tiles, wrong_cluster):
+        with pytest.raises(RuntimeError, match="qgtc_packmm"):
+            packmm._packmm(a, b, 1, "packed", 0, False, _plan=dataclasses.replace(plan, **bad))
 
 
 def test_tile_map_kernel_refuses_a_map_on_another_device(cuda):

@@ -241,3 +241,123 @@ def baseline_case(seed, B, pn, dims, kind="random"):
             w = (rng.standard_normal((k, n)) * 0.1).astype(np.float32)
         ws.append(w)
     return a, x, ws
+
+
+# K2's 1/2/4-bit kernel (csrc/packmm_k2.cuh): the cases the CUDA tests and
+# chip_smoke.py hold against plain. Output forms as packmm._packmm's
+# (out_bits, out_form, shift, raw_i32, out_cols); "n" stores N columns.
+K2_WIDTHS = (8, 16, 24, 40, 64, 72, 200)
+K2_FORMS = ((2, "digits", 1, False, None), (None, "f32", 0, False, "n"), (None, "f32", 0, True, None),
+            (1, "packed", 0, False, "n"), (2, "packed", 0, False, None), (4, "packed", 0, False, "n"),
+            (8, "packed", 0, False, "n"))
+K2_KP = 448  # 64 * 7: an odd number of 64-deep steps
+
+
+def k2_operands(seed, m, k, n, a_bits, b_bits, device, kp=None, blocky=False):
+    """A at ``a_bits`` (M-packed) and B at ``b_bits`` (digit planes) on
+    ``device``; with ``kp`` (a multiple of 64 below the 128-padded depth)
+    both cut to that padded depth, whose dropped columns hold level 0."""
+    import torch
+
+    from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor, digit_pack
+    from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, pack_rows
+
+    rng = np.random.default_rng(seed)
+    qa = blocky_levels(seed, m, k, a_bits, 0.3) if blocky else rng.integers(0, 1 << a_bits, (m, k))
+    qb = rng.integers(0, 1 << b_bits, (k, n))
+    a = pack_rows(torch.from_numpy(qa.astype(np.int32)), a_bits)
+    b = digit_pack(torch.from_numpy(qb.astype(np.int32)), b_bits)
+    if kp is not None:
+        a = PackedTensor(words=a.words[:, :, :kp].contiguous(), shape=a.shape, bits=a.bits)
+        b = DigitTensor(digits=b.digits[:, :kp].contiguous(), shape=b.shape, bits=b.bits)
+    return a.to(device), b.to(device)
+
+
+def k2_calls(a, b, tile_map=None, splits=None, forms=K2_FORMS):
+    """(tag, kernel, plain) for each output form of ``a`` x ``b``: the
+    kernel through ``packmm._packmm`` on :func:`packmm.packmm_plan`'s plan,
+    its split replaced by ``splits`` where given (forms whose plan cannot
+    take that split are left out), and ``packmm_plain``."""
+    import dataclasses
+
+    from qgtc_ppopp22_tpu_torch.ops import packmm
+
+    n = b.shape[1]
+    calls = []
+    for out_bits, form, shift, raw, oc in forms:
+        out_cols = n if oc == "n" else oc
+        ocp = packmm._stored_cols(form, out_cols, b.padded_cols)
+        plan = packmm.packmm_plan(a.padded_rows, a.padded_cols, b.padded_cols, n,
+                                  packmm._plan_form(out_bits, form, raw), ocp, tile_map)
+        if splits is not None:
+            if plan.cluster[1] > 1 and splits > packmm.PACK_SPLIT:
+                continue
+            plan = dataclasses.replace(plan, splits=splits, cluster=(*plan.cluster[:2], splits),
+                                       grid=(*plan.grid[:2], splits))
+        tag = f"out_bits={out_bits} {form} shift={shift} i32={raw} out_cols={out_cols} {plan}"
+        calls.append((tag,
+                      lambda ob=out_bits, f=form, s=shift, r=raw, c=out_cols, p=plan:
+                      packmm._packmm(a, b, ob, f, s, r, c, tile_map, _plan=p),
+                      lambda ob=out_bits, f=form, s=shift, r=raw, c=out_cols:
+                      packmm.packmm_plain(a, b, ob, s, r, f, c, tile_map)))
+    return calls
+
+
+def k2_groups():
+    """Every group of K2 cases: (id, kwargs of :func:`k2_group`). Widths N
+    at 1/2/4 bits against one and two digit planes of B (one 256-row
+    group, depth 448); every split at N 24 (the plan takes 3 there); maps
+    with kcnt 0, kcnt below the split, entries outside the grid, kcnt past
+    the grid and -1 (``hand_map``) at every split; packed words stored at
+    out_cols 8, 40, 64 and 200."""
+    out = []
+    for n in K2_WIDTHS:
+        for a_bits in (1, 2, 4):
+            for b_bits in (2, 8):
+                out.append((f"widths-n{n}-a{a_bits}-b{b_bits}",
+                            dict(seed=n + 7 * a_bits + b_bits, m=256, k=K2_KP, n=n, a_bits=a_bits,
+                                 b_bits=b_bits, kp=K2_KP)))
+    for a_bits in (1, 2, 4):
+        for s in (1, 2, 3, 4):
+            out.append((f"split{s}-a{a_bits}", dict(seed=40 + a_bits, m=768, k=K2_KP, n=24, a_bits=a_bits,
+                                                   b_bits=2, kp=K2_KP, splits=s)))
+            out.append((f"map-split{s}-a{a_bits}", dict(seed=50 + a_bits, m=1280, k=512, n=40, a_bits=a_bits,
+                                                       b_bits=2, splits=s, hand=True)))
+    for oc in (8, 40, 64, 200):
+        for a_bits in (1, 2, 4):
+            out.append((f"words-oc{oc}-a{a_bits}", dict(seed=60 + oc + a_bits, m=512, k=K2_KP, n=200,
+                                                       a_bits=a_bits, b_bits=4, kp=K2_KP, out_cols=oc)))
+    return out
+
+
+def k2_group(device, seed, m, k, n, a_bits, b_bits, kp=None, splits=None, hand=False, out_cols=None):
+    """The (tag, kernel, plain) calls of one :func:`k2_groups` entry."""
+    from qgtc_ppopp22_tpu_torch.ops import packmm
+
+    a, b = k2_operands(seed, m, k, n, a_bits, b_bits, device, kp, blocky=hand)
+    tile_map = hand_map(packmm.build_tile_map_packed(a, 256, 128)) if hand else None
+    forms = K2_FORMS
+    if out_cols is not None:
+        forms = tuple((ob, "packed", 0, False, out_cols) for ob in (1, 2, 4))
+    return k2_calls(a, b, tile_map, splits, forms)
+
+
+def k2_chain(device, a_bits, seed=70):
+    """Packed words out fed back as the next product's A, twice, at each
+    output width: (tag, kernel, plain) of the last product, each side
+    chaining its own outputs."""
+    from qgtc_ppopp22_tpu_torch.ops import packmm
+    from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor
+
+    a, b1 = k2_operands(seed, 512, 300, 256, a_bits, 2, device)
+    _, b2 = k2_operands(seed + 1, 256, 256, 128, 1, 2, device)
+    _, b3 = k2_operands(seed + 2, 128, 128, 40, 1, 4, device)
+
+    def chain(mm):
+        x = mm(a, b1, a_bits)
+        x = mm(PackedTensor(words=x.words, shape=(512, 256), bits=a_bits), b2, a_bits)
+        return mm(PackedTensor(words=x.words, shape=(512, 128), bits=a_bits), b3, a_bits)
+
+    return (f"chain {a_bits}-bit words x3",
+            lambda: chain(lambda x, y, ob: packmm.packmm_to_packed(x, y, ob)),
+            lambda: chain(lambda x, y, ob: packmm.packmm_plain(x, y, ob, out_form="packed")))
