@@ -8,7 +8,8 @@ Runs, and stops with a non-zero exit at the first failure:
 0. Requires a CUDA device; prints the card's name and power limit;
    builds the kernels of ``qgtc_ppopp22_tpu_torch/csrc`` with nvcc and
    prints ``ptxas -v``'s report; every one of the 72 instantiations of
-   K2's 1/2/4-bit kernel (``csrc/packmm_k2.cuh``) must spill 0 bytes.
+   K2's 1/2/4-bit kernel (``csrc/packmm_k2.cuh``) and of the 48 of K6's
+   (``csrc/bitmm_k6.cuh``) must spill 0 bytes.
 1. Each kernel against its plain PyTorch version on the same CUDA
    tensors, at 1/2/4/8 bits, shifts 0 and 2, the slice's shapes
    (pn = 2560, K in {128, 2560}, N in {16, 40}) and one ragged
@@ -38,7 +39,14 @@ Runs, and stops with a non-zero exit at the first failure:
    N=40; operands that put the accumulator at 0, 2^b - 1, 2^b and
    2^b + 1; and with a TileMap: block-diagonal A with empty tiles and a
    row tile of kcnt 0 (equal to dense), and a hand-made map that omits
-   occupied tiles (equal to plain's masked product, not to dense).
+   occupied tiles (equal to plain's masked product, not to dense). Then
+   K6 under every forced plan (``torch_cases.k6_groups``): column tiles
+   16, 32 and 64 x splits 1-4, to bits and to f32, at C1's six GEMMs, N 40
+   and 64, GIN's hidden update, the ragged 300 x 520 x 40 at every plane
+   pair the kernel instantiates and at 3 x 5, maps (the builder's and
+   hand-made ones) on C1's aggregation and a ragged 2300 x 520 x 40, and
+   8 x 8 planes at 255 with K 33280 (sums past 2^31); each output twice,
+   both equal to plain.
    Then the PreparedRHS kernel ``packmm_signed`` against
    ``packmm_signed_plain``, whole outputs padding included: f32, i32,
    digits (2/4/8 bits, shifts 0 and 2), the signed byte plane (8 bits,
@@ -146,7 +154,11 @@ Runs, and stops with a non-zero exit at the first failure:
    K2 row (and K2's sweep rows) with its plan (column tile, split,
    cluster, grid), and in the same session K2's yardsticks, P1's concat
    on a 16-column tile at C1 and P1b's 4096^2 N 64 row, each criterion
-   of K2 against them printed as met or not; K4
+   of K2 against them printed as met or not; K6 at C1's four shapes
+   (aggregation to bits, to f32 at N 40, the updates at K 128 and K 16),
+   each with its plan, beside plain, its bound and ``torch._int_mm``, and
+   its criteria (the aggregation at or below K2's C1 aggregation, each row
+   below ``torch._int_mm``) printed as met or not; K4
    and K2's packed out at Fig. 8a's (4096, 4096, 64) beside plain,
    bound and ``torch._int_mm``; K1 at C1 8-bit, the levels form beside
    plain, the 2-digit route and its own compacted-schedule launch on the
@@ -169,8 +181,8 @@ is the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its operations over the card's dense peak (1,979 TOP/s
 int8, 989 TFLOP/s bf16); bitmm is charged 2 M N K int8 operations per
 pair of base-16 digits on the logical shapes (the data sheet gives no
-one-bit rate), and the work its padded shapes make it do is printed
-beside. The third line from the end is the card's name
+one-bit rate) and the bytes of A's and B's real columns, and the work its
+planned grid does is printed beside. The third line from the end is the card's name
 and power limit, the second ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -235,7 +247,8 @@ def main() -> int:
     from types import SimpleNamespace
 
     from torch_cases import (BF16_REL_TOL, baseline_case, bf16_rel_err, blocky_levels, chain_shifts, edge_operands,
-                             hand_map, k2_chain, k2_group, k2_groups, levels_plane, mega_case, operands)
+                             hand_map, k2_chain, k2_group, k2_groups, k6_group, k6_groups, levels_plane,
+                             mega_case, operands)
     from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe, exp_packmm, grid_overhead_study, kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward
@@ -261,7 +274,8 @@ def main() -> int:
     print(f"phase 0: built {_build.LIB_PATH.name} in {secs:.1f} s")
     entry = ""
     corr = {"0": "", "1": ", signed A", "2": ", PreparedRHS"}
-    k2_regs, k2_spill = {}, {}  # K2's 1/2/4-bit kernel: one line for all its instantiations
+    # K2's 1/2/4-bit kernel and K6's: one line each for all their instantiations
+    k2_regs, k2_spill, k6_regs, k6_spill = {}, {}, {}, {}
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -270,6 +284,11 @@ def main() -> int:
                 entry = (f"k2_kernel<{k[1]}-bit A, {k[2]} B plane(s), {k[3]} columns"
                          f"{', mapped' if k[4] == '1' else ''}{', packed words' if k[5] == '1' else ''}>")
                 k2_spill[entry] = 0
+                continue
+            k = re.search(r"k6_kernelILi(\d)ELi(\d)ELi(\d+)ELb(\d)E", entry)
+            if k:
+                entry = f"k6_kernel<{k[1]}x{k[2]} planes, {k[3]} columns{', mapped' if k[4] == '1' else ''}>"
+                k6_spill[entry] = 0
                 continue
             t = re.search(r"gemm_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)ENS_\d+([A-Za-z0-9]+?)"
                           r"(?:ILi(\d)E)?E", entry)
@@ -281,15 +300,16 @@ def main() -> int:
             else:
                 entry = next((entry[entry.find(k):][:60] for k in ("fused_model_kernel",
                                                                       "fused_baseline_kernel",
-                                                                      "bitmm_kernel", "exp_packmm_kernel",
+                                                                      "exp_packmm_kernel",
                                                                       "bitcast", "fragment_probe",
                                                                       "zero_body_kernel", "kdot_kernel")
                               if k in entry), entry[-60:])
-        elif entry in k2_spill:
+        elif entry in k2_spill or entry in k6_spill:
+            regs, spill = (k2_regs, k2_spill) if entry in k2_spill else (k6_regs, k6_spill)
             if "Used" in line:
-                k2_regs[entry] = int(re.search(r"Used (\d+) registers", line)[1])
+                regs[entry] = int(re.search(r"Used (\d+) registers", line)[1])
             elif "spill" in line:
-                k2_spill[entry] += sum(map(int, re.findall(r"(\d+) bytes spill", line)))
+                spill[entry] += sum(map(int, re.findall(r"(\d+) bytes spill", line)))
         elif "Used" in line:
             print(f"  ptxas: {entry}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill"):
@@ -300,6 +320,12 @@ def main() -> int:
     print(f"  ptxas: k2_kernel, {len(k2_regs)} instantiations (field 1/2/4 x B planes 1/2 x columns "
           f"16/32/64 x dense/mapped x per-tile/packed words): {min(k2_regs.values())}-"
           f"{max(k2_regs.values())} registers, 0 bytes of spill")
+    if len(k6_regs) != 48 or any(k6_spill.values()):
+        raise AssertionError(f"k6_kernel: {len(k6_regs)} instantiations (want 48), spills "
+                             f"{ {k: v for k, v in k6_spill.items() if v} }")
+    print(f"  ptxas: k6_kernel, {len(k6_regs)} instantiations (planes 1x1/1x2/1x4/1x8/2x2/4x4/8x8/run-time x "
+          f"columns 16/32/64 x dense/mapped): {min(k6_regs.values())}-{max(k6_regs.values())} registers, "
+          f"0 bytes of spill; " + ", ".join(f"{k} {v}" for k, v in k6_regs.items() if "16 columns>" in k))
 
     # -- phase 1: kernel vs plain --------------------------------------
     err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0, "bitmm": 0.0,
@@ -516,6 +542,16 @@ def main() -> int:
     check_bits(ad, hb, "hand-made map", outs=(2, None), tile_map=hand)
     if torch.equal(bitgemm.bitmm_to_int(ad, hb, tile_map=hand), bitgemm.bitmm_to_int(ad, hb)):
         raise AssertionError("bitmm: a map that omits occupied tiles gave the dense product")
+    # K6 (csrc/bitmm_k6.cuh) under every forced column tile and split, to
+    # bits and to f32, with and without maps; each output twice
+    k6_before, t_k6 = bitgemm.LAUNCHES, time.perf_counter()
+    for _, group in k6_groups():
+        for tag, kernel, plain in k6_group(dev, **group):
+            got = kernel()
+            compare("bitmm", got, plain(), f"K6 {tag}")
+            compare("bitmm", kernel(), got, f"K6 {tag}, again")
+    print(f"phase 1: K6 {len(k6_groups())} case groups, {bitgemm.LAUNCHES - k6_before} launches, each output "
+          f"twice, == plain ({time.perf_counter() - t_k6:.1f} s)")
     # K4: the PreparedRHS kernel against packmm_signed_plain, whole outputs
     def check_signed(qa, qb, tag):
         a = pack_rows(torch.from_numpy(qa).to(dev), 8)
@@ -1182,6 +1218,15 @@ def main() -> int:
 
     k2_plans = {"packmm_to_digits A[2560x2560] x H[2560x16]": plan_of(a, h16, 2),
                 "packmm_to_f32 A[2560x2560] x H[2560x40]": plan_of(a, h40, None, "f32")}
+    # K6 at C1's four GEMM shapes, each with bitmm_plan's choice: (kind,
+    # what, A, B, out_bits or None for f32)
+    k6_rows = [("bitmm", "bitmm_to_bits A[2560x2560] 1-bit x H[2560x16] 2-bit", ab, hb16, 2),
+               ("bitmm f32", "bitmm_to_int A[2560x2560] x H[2560x40]", ab, hb40, None),
+               ("bitmm update", "bitmm_to_bits X[2560x128] x W[128x16], 2-bit", xb, wb1, 2),
+               ("bitmm update K16", "bitmm_to_bits H[2560x16] x W[16x16], 2-bit", hb16, wb2, 2)]
+    for _, what, l, r, ob in k6_rows:
+        p6 = bitgemm.bitmm_plan(l.padded_rows, l.padded_cols, r.padded_cols, r.shape[1], "bits" if ob else "f32")
+        k2_plans[what] = f"BNT {p6.bnt}, S {p6.splits}, cluster {p6.cluster}, grid {p6.grid}"
     timed = [
         ("packmm", "packmm_to_digits A[2560x2560] x H[2560x16]",
          lambda: packmm.packmm_to_digits(a, h16, 2), lambda: packmm.packmm_plain(a, h16, 2)),
@@ -1191,15 +1236,8 @@ def main() -> int:
          lambda: digitmm.digitmm_to_digits(x, w1, 2), lambda: digitmm.digitmm_plain(x, w1, 2)),
         ("digitmm", "digitmm_to_digits H[2560x16] x W[16x16]",
          lambda: digitmm.digitmm_to_digits(h16, w2, 2), lambda: digitmm.digitmm_plain(h16, w2, 2)),
-        ("bitmm", "bitmm_to_bits A[2560x2560] 1-bit x H[2560x16] 2-bit",
-         lambda: bitgemm.bitmm_to_bits(ab, hb16, 2), lambda: bitgemm.bitmm_plain(ab, hb16, 2)),
-        ("bitmm update", "bitmm_to_bits X[2560x128] x W[128x16], 2-bit",
-         lambda: bitgemm.bitmm_to_bits(xb, wb1, 2), lambda: bitgemm.bitmm_plain(xb, wb1, 2)),
-        ("bitmm update", "bitmm_to_bits H[2560x16] x W[16x16], 2-bit",
-         lambda: bitgemm.bitmm_to_bits(hb16, wb2, 2), lambda: bitgemm.bitmm_plain(hb16, wb2, 2)),
-        ("bitmm f32", "bitmm_to_int A[2560x2560] x H[2560x40]",
-         lambda: bitgemm.bitmm_to_int(ab, hb40), lambda: bitgemm.bitmm_plain(ab, hb40, None)),
-    ]
+    ] + [(kind, what, lambda l=l, r=r, ob=ob: bitgemm.bitmm_to_bits(l, r, ob) if ob else bitgemm.bitmm_to_int(l, r),
+          lambda l=l, r=r, ob=ob: bitgemm.bitmm_plain(l, r, ob)) for kind, what, l, r, ob in k6_rows]
     # the mega path's one launch per epoch, at its shapes, beside plain
     staged = eng._stage_mega(batcher)
     if len(staged) != 1:
@@ -1347,8 +1385,8 @@ def main() -> int:
     # unpacked levels at the same shapes (the port never calls it)
     lib_ops = {"packmm": (unpack_rows(a).to(torch.int8), digit_unpack(h16).to(torch.int8)),
                "digitmm": (digit_unpack(x).to(torch.int8), digit_unpack(w1).to(torch.int8)),
-               "bitmm": (unpack_bits(ab).to(torch.int8), unpack_bits(hb16).to(torch.int8)),
-               "bitmm update": (unpack_bits(xb).to(torch.int8), unpack_bits(wb1).to(torch.int8)),
+               **{kind: (unpack_bits(l).to(torch.int8), unpack_bits(r).to(torch.int8))
+                  for kind, _, l, r, _ in k6_rows},
                # K4: the signed plane's N real columns (the ones lane and
                # the padding are the TPU layout's, not the product's)
                "packmm_signed": (k4c.a.words[0], k4c.b.plane[:, :k4c.N].contiguous()),
@@ -1443,6 +1481,14 @@ def main() -> int:
     for what, k_ms, y_ms, met in k2_reads:
         print(f"phase 3: K2 {what}: {k_ms * 1e3:.2f} against {y_ms * 1e3:.2f} us, "
               f"{'met' if met else 'not met'} [{card}]")
+    # K6 against K2 and the library, from the same session
+    k6_reads = [("C1 aggregation to bits at or below K2's C1 aggregation to digits", kernel_ms["bitmm"],
+                 kernel_ms["packmm"])]
+    k6_reads += [(f"{kind} below torch._int_mm on its unpacked operands", kernel_ms[kind], lib_ms[kind])
+                 for kind, *_ in k6_rows]
+    for what, k_ms, y_ms in k6_reads:
+        print(f"phase 3: K6 {what}: {k_ms * 1e3:.2f} against {y_ms * 1e3:.2f} us, "
+              f"{'met' if k_ms <= y_ms else 'not met'} [{card}]")
 
     # bounds at the timed shapes: inputs read once, outputs written once;
     # of B only its 16 real columns (the padding is layout, not work of the
@@ -1456,17 +1502,23 @@ def main() -> int:
         "digitmm": bound(nbytes(x.digits, w1.digits[:, :, :16], digitmm.digitmm_to_digits(x, w1, 2).digits),
                          2 * 2560 * 128 * 16, "int8"),
     }
-    # K6: the planes as passed; 2 M N K int8 operations per pair of
-    # base-16 digits on the logical shapes. The padded shapes' work (256
-    # columns for 16) is the kernel's own, printed beside, not its bound.
-    def bit_bound(lhs, rhs, what):
-        out = bitgemm.bitmm_to_bits(lhs, rhs, 2)
+    # K6: of A and B only their real columns (the words of A's K columns,
+    # of B's real N columns and the word rows that hold its K rows), the
+    # output whole (the kernel writes its padded words); 2 M N K int8
+    # operations per pair of base-16 digits on the logical shapes. The work
+    # of the planned grid (its computed columns) is printed beside.
+    def bit_bound(lhs, rhs, out_bits, what):
+        out = bitgemm.bitmm_to_bits(lhs, rhs, out_bits) if out_bits else bitgemm.bitmm_to_int(lhs, rhs)
+        out_bytes = nbytes(out.planes) if out_bits else lhs.padded_rows * rhs.padded_cols * 4
+        K, N = lhs.shape[1], rhs.shape[1]
         pairs = num_digits(lhs.bits) * num_digits(rhs.bits)
-        ops = 2 * lhs.shape[0] * rhs.shape[1] * lhs.shape[1] * pairs
-        padded = 2 * lhs.padded_rows * rhs.padded_cols * lhs.padded_cols * pairs
-        print(f"phase 3: {what}: {ops / 1e9:.3f} G int8 operations needed, {padded / 1e9:.3f} G "
-              f"on the padded shapes the kernel computes")
-        return bound(nbytes(lhs.planes, rhs.planes, out.planes), ops, "int8")
+        ops = 2 * lhs.shape[0] * N * K * pairs
+        p6 = bitgemm.bitmm_plan(lhs.padded_rows, lhs.padded_cols, rhs.padded_cols, N, "bits" if out_bits else "f32")
+        computed = 2 * lhs.padded_rows * p6.grid[0] * p6.bnt * lhs.padded_cols * pairs
+        print(f"phase 3: {what}: {ops / 1e9:.3f} G int8 operations needed, {computed / 1e9:.3f} G "
+              f"on the columns and padded K the planned grid computes")
+        in_bytes = nbytes(lhs.planes[:, :, :K], rhs.planes[:, :-(-K // 32), :N])
+        return bound(in_bytes + out_bytes, ops, "int8")
 
     # K4 and K2 packed out: 2 M N K int8 operations on the logical shapes;
     # of B only the N real columns (and of K4's corr its N entries), since
@@ -1476,8 +1528,8 @@ def main() -> int:
                                            k4_out.words), 2 * k4c.M * k4c.N * k4c.K, "int8")
     bounds["packmm packed"] = bound(nbytes(k2c.a.words, k2c.b.digits[:, :, :k2c.N], k2_out.words),
                                     2 * k2c.M * k2c.N * k2c.K, "int8")
-    bounds["bitmm"] = bit_bound(ab, hb16, "bitmm A[2560x2560] x H[2560x16]")
-    bounds["bitmm update"] = bit_bound(xb, wb1, "bitmm X[2560x128] x W[128x16]")
+    for kind, what, l, r, ob in k6_rows:
+        bounds[kind] = bit_bound(l, r, ob, what)
     # K1: the aggregations count only the blocks its schedule lists
     a_st, x_st, ws_k1 = args[0], args[1], args[2]
     sched = kw["blk_sched"]
@@ -1547,7 +1599,7 @@ def main() -> int:
                                       levels_launches),
                "fused_baseline": ("fused_baseline.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:1299",
                                   base_launches),
-               "bitmm": ("bitmm.cu", "qgtc_ppopp22_tpu/ops/bitgemm.py:266", bits_launches),
+               "bitmm": ("bitmm_k6.cuh", "qgtc_ppopp22_tpu/ops/bitgemm.py:266", bits_launches),
                "packmm_signed": ("packmm_signed.cu", "qgtc_ppopp22_tpu/ops/packmm.py:473",
                                  sweep_launches),
                # the TileMap K skip: the zero-tile path's mapped launches

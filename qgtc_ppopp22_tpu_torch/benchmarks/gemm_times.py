@@ -1,14 +1,15 @@
-"""Device time of the integer GEMM kernels K2 ``packmm`` and K3
-``digitmm`` at the step engine's C1 shapes (pn = 2560, 2-bit GCN, hidden
-16, 40 classes), K2 at C1 with a real adjacency's zero-tile map (batch 0
-of the arxiv stand-in, psize 1500, batch 20, with its pack-time map), and
-every row of the kernel sweep's Fig. 8a (K2 packed out at 1, 2 and 4
-bits, K4 ``packmm_signed`` at 8 bits).
+"""Device time of the integer GEMM kernels K2 ``packmm``, K3
+``digitmm`` and K6 ``bitmm`` at the step engines' C1 shapes (pn = 2560,
+2-bit GCN, hidden 16, 40 classes), K2 at C1 with a real adjacency's
+zero-tile map (batch 0 of the arxiv stand-in, psize 1500, batch 20, with
+its pack-time map), and every row of the kernel sweep's Fig. 8a (K2
+packed out at 1, 2 and 4 bits, K4 ``packmm_signed`` at 8 bits).
 
 The script calls only what the port has offered since zero-tile jumping
 (``packmm_to_digits`` with and without a map, ``packmm_to_f32``,
-``digitmm_to_digits``, ``kernel_sweep.figure_cases``, a batch's
-``a_words`` and ``tile_kidx`` / ``tile_kcnt``), so two checkouts can be
+``digitmm_to_digits``, ``bitmm_to_bits``, ``bitmm_to_int``,
+``kernel_sweep.figure_cases``, a batch's ``a_words`` and ``tile_kidx`` /
+``tile_kcnt``, ``QGTCEngine(fmt="bits")``), so two checkouts can be
 timed on one card in one command: copy it into the other checkout's
 ``benchmarks/`` folder and run it from each checkout's root in turns (A,
 B, B, A), each run on the kernels that its checkout builds. Operands come
@@ -18,13 +19,14 @@ on the data), the sweep's ``default_rng(0)`` and the batcher's seed 3.
 Prints the card's name and power limit, then one JSON line per row
 (``{"tag", "row", "us"}``): the device time per call, the lesser of two
 rounds of ``--iters`` calls in one profiler session. Then the step
-engine's E1 and E1z on the same 75 batches (``QGTCEngine.run_epochs``,
-resident, dense and with ``zerotile_jump=True``): one line each
-(``{"tag", "row", "ms"}``) with the host-clock ms/epoch of ``--epoch-runs``
-runs of 5 epochs, taken in turns. ``--plans`` (K2's
-``packmm_plan(..., bnt=)``, this checkout only) adds K2 at C1's rows and
-at 4096² on each column tile it can take, each line with its plan. Needs
-a CUDA device.
+engines' E1, E1z and E4 on the same 75 batches (``QGTCEngine.run_epochs``,
+resident: digits dense, digits with ``zerotile_jump=True``, and
+``fmt="bits"``): one line each (``{"tag", "row", "ms"}``) with the
+host-clock ms/epoch of ``--epoch-runs`` runs of 5 epochs, taken in turns.
+``--plans`` (``packmm_plan(..., bnt=)`` and ``bitmm_plan(..., bnt=)``,
+this checkout only) adds K2 at C1's rows and at 4096² on each column tile
+it can take, and K6 at C1's aggregations on each column tile and split,
+each line with its plan. Needs a CUDA device.
 
 Usage::
 
@@ -42,7 +44,8 @@ import numpy as np
 import torch
 
 from qgtc_ppopp22_tpu_torch.benchmarks import kernel_sweep
-from qgtc_ppopp22_tpu_torch.ops import digitmm, packmm
+from qgtc_ppopp22_tpu_torch.ops import bitgemm, digitmm, packmm
+from qgtc_ppopp22_tpu_torch.ops.bitpack import pack_bits
 from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack
 from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, pack_rows
 
@@ -58,11 +61,12 @@ def c1_calls(seed: int, device) -> dict:
     def levels(rows, cols, bits):
         return torch.from_numpy(rng.integers(0, 1 << bits, (rows, cols)).astype(np.int32)).to(device)
 
-    a = pack_rows(levels(PN, PN, 1), 1)
-    h16 = digit_pack(levels(PN, HIDDEN, BITS), BITS)
-    h40 = digit_pack(levels(PN, CLASSES, BITS), BITS)
-    x = digit_pack(levels(PN, FEAT, BITS), BITS)
-    w = digit_pack(levels(FEAT, HIDDEN, BITS), BITS)
+    qa, qh16, qh40 = levels(PN, PN, 1), levels(PN, HIDDEN, BITS), levels(PN, CLASSES, BITS)
+    qx, qw, qw2 = levels(PN, FEAT, BITS), levels(FEAT, HIDDEN, BITS), levels(HIDDEN, HIDDEN, BITS)
+    a = pack_rows(qa, 1)
+    h16, h40, x, w = (digit_pack(q, BITS) for q in (qh16, qh40, qx, qw))
+    ab = pack_bits(qa, 1)
+    hb16, hb40, xb, wb, wb2 = (pack_bits(q, BITS) for q in (qh16, qh40, qx, qw, qw2))
     return {
         f"packmm_to_digits A[{PN}x{PN}] 1-bit x H[{PN}x{HIDDEN}] 2-bit":
             lambda: packmm.packmm_to_digits(a, h16, BITS),
@@ -70,6 +74,14 @@ def c1_calls(seed: int, device) -> dict:
             lambda: packmm.packmm_to_f32(a, h40),
         f"digitmm_to_digits X[{PN}x{FEAT}] x W[{FEAT}x{HIDDEN}] 2-bit":
             lambda: digitmm.digitmm_to_digits(x, w, BITS),
+        f"bitmm_to_bits A[{PN}x{PN}] 1-bit x H[{PN}x{HIDDEN}] 2-bit":
+            lambda: bitgemm.bitmm_to_bits(ab, hb16, BITS),
+        f"bitmm_to_int A[{PN}x{PN}] 1-bit x H[{PN}x{CLASSES}] 2-bit":
+            lambda: bitgemm.bitmm_to_int(ab, hb40),
+        f"bitmm_to_bits X[{PN}x{FEAT}] x W[{FEAT}x{HIDDEN}] 2-bit":
+            lambda: bitgemm.bitmm_to_bits(xb, wb, BITS),
+        f"bitmm_to_bits H[{PN}x{HIDDEN}] x W[{HIDDEN}x{HIDDEN}] 2-bit":
+            lambda: bitgemm.bitmm_to_bits(hb16, wb2, BITS),
     }
 
 
@@ -137,26 +149,43 @@ def plan_calls(seed: int, device) -> dict:
         mark = ", chosen" if plan == chosen else ""
         rows[f"plan digits A[{PN}x{PN}] 1-bit x H[{PN}x{HIDDEN}]: {dataclasses.astuple(plan)}{mark}"] = (
             lambda p=plan: packmm._packmm(a, b, BITS, "digits", 0, False, _plan=p))
+    # K6 at C1's aggregations (to bits at N 16, to f32 at N 40 and 64) on
+    # each column tile and split
+    ab = pack_bits(levels(PN, PN, 1), 1)
+    for n, ob in ((HIDDEN, BITS), (CLASSES, None), (64, None)):
+        hb = pack_bits(levels(PN, n, BITS), BITS)
+        form = "bits" if ob else "f32"
+        chosen = bitgemm.bitmm_plan(ab.padded_rows, ab.padded_cols, hb.padded_cols, n, form)
+        for bnt in (16, 32, 64):
+            tile = bitgemm.bitmm_plan(ab.padded_rows, ab.padded_cols, hb.padded_cols, n, form, bnt=bnt)
+            for s in range(1, bitgemm.MAX_SPLIT + 1):
+                plan = dataclasses.replace(tile, splits=s, cluster=(1, 1, s), grid=(*tile.grid[:2], s))
+                mark = ", chosen" if plan == chosen else ""
+                rows[f"plan bitmm {form} A[{PN}x{PN}] 1-bit x H[{PN}x{n}]: {dataclasses.astuple(plan)}{mark}"] = (
+                    lambda hb=hb, ob=ob, p=plan: bitgemm._bitmm(ab, hb, ob, None, _plan=p))
     return rows
 
 
 def engine_rows(ds, batcher, device, runs: int) -> dict:
-    """E1 and E1z: the resident step engine's host-clock ms/epoch over
-    C1's batches, dense and with each batch's map, ``runs`` runs of 5
-    epochs each, in turns."""
+    """E1, E1z and E4: the resident step engine's host-clock ms/epoch over
+    C1's batches, on digit planes dense and with each batch's map, and on
+    bit planes (``fmt="bits"``, every GEMM one ``bitmm``), ``runs`` runs of
+    5 epochs each, in turns."""
     from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
 
-    engines = {zj: QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gcn",
-                              bit_width=BITS, seed=3, device=device, zerotile_jump=zj)
-               for zj in (False, True)}
+    kw = dict(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gcn", bit_width=BITS, seed=3,
+              device=device)
+    engines = {"E1 resident step engine ms/epoch": QGTCEngine(**kw),
+               "E1z resident step engine with zero-tile jumping ms/epoch": QGTCEngine(zerotile_jump=True, **kw),
+               "E4 resident bits step engine ms/epoch": QGTCEngine(fmt="bits", **kw)}
     for eng in engines.values():
+        eng.warmup(batcher)
         eng.run_epochs(batcher, n_epochs=2, resident=True)  # warm: staging, first launches
-    ms = {False: [], True: []}
+    ms = {name: [] for name in engines}
     for _ in range(runs):
-        for zj, eng in engines.items():
-            ms[zj].append(eng.run_epochs(batcher, n_epochs=5, resident=True).avg_ms)
-    return {"E1 resident step engine ms/epoch": ms[False],
-            "E1z resident step engine with zero-tile jumping ms/epoch": ms[True]}
+        for name, eng in engines.items():
+            ms[name].append(eng.run_epochs(batcher, n_epochs=5, resident=True).avg_ms)
+    return ms
 
 
 def card_line() -> str:
@@ -170,8 +199,8 @@ def main(argv=None) -> int:
     p.add_argument("--tag", default="", help="label printed on every row")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--seed", type=int, default=3)
-    p.add_argument("--epoch-runs", type=int, default=3, help="runs of 5 epochs for E1 and E1z (0: none)")
-    p.add_argument("--plans", action="store_true", help="K2 on each column tile it can take")
+    p.add_argument("--epoch-runs", type=int, default=3, help="runs of 5 epochs for E1, E1z and E4 (0: none)")
+    p.add_argument("--plans", action="store_true", help="K2 and K6 on each column tile they can take")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_times: no CUDA device", file=sys.stderr)

@@ -260,6 +260,18 @@ __device__ __forceinline__ int requant(int acc, int out_bits, int shift) {
   return r & (ub - 1);
 }
 
+// `rows` rows of a row-major buffer from base, bytes [byte0, byte0 +
+// nbytes) of each, set to a 4-byte pattern; every extent a multiple of 8
+// (the columns past the grid of K2's and K6's epilogues).
+__device__ __forceinline__ void fill_rows(unsigned char* base, size_t stride, int rows,
+                                          int byte0, int nbytes, uint32_t pattern) {
+  const int per = nbytes / 8;
+  for (int i = threadIdx.x; i < rows * per; i += THREADS) {
+    const int r = i / per, c = i - r * per;
+    *reinterpret_cast<uint2*>(base + r * stride + byte0 + 8 * c) = make_uint2(pattern, pattern);
+  }
+}
+
 // Requantize two adjacent sums and store them at element idx of each of
 // the nd_o = ceil(out_bits / 4) base-16 digit planes o[d * plane]. A
 // caller that knows nd_o at compile time passes it as a constant, so the

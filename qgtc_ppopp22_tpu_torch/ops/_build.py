@@ -117,9 +117,10 @@ def library() -> ctypes.CDLL:
         # csrc/fused_baseline.cu.
         lib.qgtc_fused_baseline.argtypes = [p, p, p, p, p, p, i, p]
         lib.qgtc_fused_baseline.restype = i
-        # (out, a, b, kidx, kcnt, a_bits, b_bits, mp, kp, np, out_bits,
-        # tile_m, tile_k, stream); see csrc/bitmm.cu.
-        lib.qgtc_bitmm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        # (out, a, b, kidx, kcnt, meta, stream); meta is a host int array
+        # of the sizes, B's real columns and ops/bitgemm.py bitmm_plan's
+        # launch, which the C entry checks; laid out in csrc/bitmm.cu.
+        lib.qgtc_bitmm.argtypes = [p] * 7
         lib.qgtc_bitmm.restype = i
         # The kernel-study probes (benchmarks/): (out, a, b, variant,
         # field_bits, mp, kp, np, tm, out_bits, stream), csrc/exp_packmm.cu;

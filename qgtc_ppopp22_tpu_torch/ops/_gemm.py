@@ -1,9 +1,11 @@
 """Plumbing shared by the GEMM modules (``digitmm``, ``packmm``,
 ``bitgemm``): the int32 accumulator guard, the zero-tile map's checks and
-visit counts, the plain product and epilogue, and the kernel launch."""
+visit counts, the plain product and epilogue, the launch plan of the
+cluster kernels, and the kernel launch."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -21,6 +23,20 @@ from qgtc_ppopp22_tpu_torch.ops.quantize import requantize_wrapped
 
 OUT_DIGITS, OUT_F32, OUT_I32, OUT_PACKED = 0, 1, 2, 3  # csrc/gemm_core.cuh OutKind
 TILE = 64  # the kernels' BM = BN = BK; padded extents must be multiples
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The launch of a split-K cluster kernel (K2's 1/2/4-bit route,
+    K6): the column tile ``bnt``, the ``splits`` CTAs that share each
+    output tile (split-K), the thread-block ``cluster`` (x, y, z) and the
+    ``grid`` (column tiles, 64-row tiles, splits)."""
+
+    bnt: int
+    splits: int
+    cluster: Tuple[int, int, int]
+    grid: Tuple[int, int, int]
 
 
 def check_accumulator(nd_a: int, nd_b: int, kp: int, signed: bool = False) -> None:

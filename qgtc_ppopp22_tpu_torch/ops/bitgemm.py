@@ -13,26 +13,35 @@ An optional :class:`TileMap` skips the left operand's all-zero
 
 Dispatch: operands on the CPU run :func:`bitmm_plain`; operands on a
 CUDA device launch the one-bit tensor-core kernel of ``csrc/bitmm.cu``
-or raise.
+(``bitmm_k6.cuh``) on the launch :func:`bitmm_plan` chooses, or raise.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from qgtc_ppopp22_tpu_torch.ops import _gemm
 from qgtc_ppopp22_tpu_torch.ops._build import check, library
+from qgtc_ppopp22_tpu_torch.ops._gemm import SMS, Plan
 from qgtc_ppopp22_tpu_torch.ops.bitpack import (
     ROWS_PER_WORD,
     BitTensor,
     pack_bits,
+    round_up,
     u32_to_i32,
     unpack_bits,
 )
 from qgtc_ppopp22_tpu_torch.ops.quantize import requantize_wrapped
+
+K_STEP = 256  # contraction bits of one K step (csrc/bitmm_k6.cuh KC)
+RESIDENT = 4 * SMS  # the kernel's CTAs the card holds at once: what the split fills
+MAX_SPLIT = 4  # CTAs that share one output tile (csrc/bitmm_k6.cuh)
+MIN_STEPS = 4  # K steps a CTA of a split holds at least
 
 LAUNCHES = 0  # kernel launches since the count was last reset to 0
 
@@ -144,10 +153,69 @@ def bitmm_plain(
     return pack_bits(requantize_wrapped(acc, out_bits), out_bits)
 
 
+def bitmm_plan(mp: int, kp: int, np_: int, n: int, out_form: str,
+               tile_map: Optional[TileMap] = None, bnt: Optional[int] = None) -> Plan:
+    """The launch geometry of K6 for an A of ``mp`` padded rows and ``kp``
+    padded columns against a B of ``n`` real and ``np_`` padded columns.
+    ``out_form``: ``"bits"`` (requantized planes) or ``"f32"``; ``bnt``: a
+    column tile to take instead of the chosen one
+    (``benchmarks/gemm_times.py --plans`` compares them).
+
+    The computed columns are ``round_up(n, 8)`` (at most ``np_``); the
+    column tile is the narrowest of 16, 32 and 64 that holds them, 64 above
+    that: each column tile transposes A again. The split fills the CTAs
+    the card holds at once (4 an SM) where the grid is small:
+    ``RESIDENT // (column tiles x row tiles)``, at most 4, with at least
+    ``MIN_STEPS`` 256-deep K steps a CTA and, with ``tile_map``, at most
+    its K tiles a row. A contraction of fewer steps (an update at K <= 256)
+    runs unsplit.
+
+    Measured (``benchmarks/gemm_times.py --plans``, one H100 SXM at 700 W),
+    C1's 40 row tiles (10 K steps): to bits at N 16 on a 16-column tile
+    6.89 / 5.44 / 5.49 / 5.66 us at S 1 / 2 / 3 / 4; to f32 at N 40 on
+    three 16-column tiles 7.36 / 7.42 / 7.12 / 9.27, on one of 64 9.11 /
+    7.44 / 8.90 / 8.71; at N 64 on one of 64 9.10 / 7.45 / 8.89 / 8.71, two
+    of 32 7.56 / 7.52 / 7.69 / 8.06: the cluster's reduction costs more
+    than a split of fewer than 4 steps a CTA saves.
+
+    The plan depends only on these integers (and the map's ``tile_k``), so
+    it is computed once per shape."""
+    return _cached_plan(mp, kp, np_, n, out_form, None if tile_map is None else tile_map.tile_k, bnt)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan(mp: int, kp: int, np_: int, n: int, out_form: str, tile_k: Optional[int],
+                 bnt: Optional[int]) -> Plan:
+    if out_form not in ("bits", "f32"):
+        raise ValueError(f"unknown out_form {out_form!r}")
+    ncomp = min(round_up(max(n, 1), 8), np_)
+    if bnt is None:
+        bnt = next((t for t in (16, 32) if ncomp <= t), 64)
+    tiles = (-(-ncomp // bnt), mp // _gemm.TILE)
+    steps = kp // K_STEP // MIN_STEPS
+    if tile_k is not None:
+        steps = min(steps, kp // tile_k)
+    splits = max(1, min(MAX_SPLIT, RESIDENT // (tiles[0] * tiles[1]), steps))
+    return Plan(bnt=bnt, splits=splits, cluster=(1, 1, splits), grid=(*tiles, splits))
+
+
+@functools.lru_cache(maxsize=None)
+def _meta(a_bits: int, b_bits: int, mp: int, kp: int, np_: int, out_bits: int, tm: int, tk: int,
+          n: int, tile_k: Optional[int], plan: Optional[Plan]) -> ctypes.Array:
+    """``qgtc_bitmm``'s int arguments as one host array (``csrc/bitmm.cu``),
+    built once per shape and plan: ``plan`` or, if None, :func:`bitmm_plan`'s
+    choice (``tile_k``: the map's, None for a dense K)."""
+    if plan is None:
+        plan = _cached_plan(mp, kp, np_, n, "bits" if out_bits else "f32", tile_k, None)
+    ints = (a_bits, b_bits, mp, kp, np_, out_bits, tm, tk, n, plan.bnt, *plan.grid, *plan.cluster)
+    return (ctypes.c_int * len(ints))(*ints)
+
+
 def _launch(a: BitTensor, b: BitTensor, out_bits: Optional[int],
-            tile_map: Optional[TileMap], tm: int, tk: int) -> torch.Tensor:
-    """Run ``qgtc_bitmm``; the output is allocated here and written whole
-    by the kernel, padding included."""
+            tile_map: Optional[TileMap], tm: int, tk: int, plan: Optional[Plan]) -> torch.Tensor:
+    """Run ``qgtc_bitmm`` on ``plan`` (None: :func:`bitmm_plan`'s); the
+    output is allocated here and written whole by the kernel, padding
+    included."""
     dev = a.planes.device
     mp, kp, np_ = a.padded_rows, a.padded_cols, b.padded_cols
     if out_bits is None:
@@ -157,21 +225,26 @@ def _launch(a: BitTensor, b: BitTensor, out_bits: Optional[int],
     a_ptr = _gemm._operand(a.planes, torch.int32, "A planes")
     b_ptr = _gemm._operand(b.planes, torch.int32, "B planes")
     kidx, kcnt, _, _ = _gemm.map_args(tile_map)
+    meta = _meta(a.bits, b.bits, mp, kp, np_, out_bits or 0, tm, tk, b.shape[1],
+                 None if tile_map is None else tile_map.tile_k, plan)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.qgtc_bitmm(out.data_ptr(), a_ptr, b_ptr, kidx, kcnt, a.bits, b.bits,
-                             mp, kp, np_, out_bits or 0, tm, tk, stream)
+        err = lib.qgtc_bitmm(out.data_ptr(), a_ptr, b_ptr, kidx, kcnt, meta, stream)
     check(err, "qgtc_bitmm")
     return out
 
 
-def _bitmm(a: BitTensor, b: BitTensor, out_bits: Optional[int], tile_map: Optional[TileMap]):
+def _bitmm(a: BitTensor, b: BitTensor, out_bits: Optional[int], tile_map: Optional[TileMap],
+           _plan: Optional[Plan] = None):
+    """Both wrappers. ``_plan`` replaces :func:`bitmm_plan`'s choice on the
+    card (the CUDA tests force each column tile and split with it); the
+    kernel refuses a plan it cannot run."""
     global LAUNCHES
     tm, tk = _check(a, b, out_bits, tile_map)
     if not a.planes.is_cuda:
         return bitmm_plain(a, b, out_bits, tile_map)
-    out = _launch(a, b, out_bits, tile_map, tm, tk)
+    out = _launch(a, b, out_bits, tile_map, tm, tk, _plan)
     LAUNCHES += 1
     M, N = a.shape[0], b.shape[1]
     if out_bits is None:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from qgtc_ppopp22_tpu_torch.ops import _gemm
+from qgtc_ppopp22_tpu_torch.ops._gemm import SMS, Plan
 from qgtc_ppopp22_tpu_torch.ops.bitgemm import TileMap
 from qgtc_ppopp22_tpu_torch.ops.bitpack import (
     DIGIT_BITS,
@@ -58,7 +59,6 @@ from qgtc_ppopp22_tpu_torch.ops.quantize import requantize_wrapped
 PACK_GROUP = 256  # rows per permutation group (layout contract)
 _OFFSET = 128  # signed-plane offset: stored byte = level - 128
 
-SMS = 132  # streaming multiprocessors of an H100 SXM
 RESIDENT = 4 * SMS  # K2's CTAs the card holds at once: what the split fills
 MAX_SPLIT = 4  # CTAs that share one output tile (csrc/packmm_k2.cuh)
 PACK_SPLIT = 2  # for packed words, beside the 4 CTAs of a group: a cluster <= 8
@@ -320,19 +320,6 @@ def _stored_cols(out_form: str, out_cols: Optional[int], np_: int) -> int:
             "chained GEMMs and keep their padding"
         )
     return min(round_up(max(int(out_cols), 1), 8), np_)
-
-
-@dataclasses.dataclass(frozen=True)
-class Plan:
-    """The launch of K2's 1/2/4-bit kernel: the column tile ``bnt``, the
-    ``splits`` CTAs that share each output tile (split-K), the thread-block
-    ``cluster`` (x, y, z) and the ``grid`` (column tiles, 64-row tiles,
-    splits)."""
-
-    bnt: int
-    splits: int
-    cluster: Tuple[int, int, int]
-    grid: Tuple[int, int, int]
 
 
 def packmm_plan(mp: int, kp: int, np_: int, n: int, out_form: str, ocp: int,

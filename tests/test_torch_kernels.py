@@ -35,6 +35,8 @@ from torch_cases import (  # tests/ is on sys.path
     k2_chain,
     k2_group,
     k2_groups,
+    k6_group,
+    k6_groups,
     levels_plane,
     mega_case,
     operands,
@@ -653,6 +655,36 @@ def test_bitmm_kernel_is_repeatable_and_checks_devices(cuda):
         _check_bits(bitgemm.bitmm_to_bits(a, b, 2), first)
     with pytest.raises(ValueError, match="operands on"):
         bitgemm.bitmm_to_int(a, _bt(qb, 2, "cpu"))
+
+
+# K6's kernel (csrc/bitmm_k6.cuh): every column tile and split of each
+# group, to bits and to f32, the whole output against plain, twice (no race
+# checker runs on the card: equal repeats are the evidence)
+@pytest.mark.parametrize("group", [kw for _, kw in k6_groups()], ids=[gid for gid, _ in k6_groups()])
+def test_k6_kernel_equals_plain(cuda, group):
+    for tag, kernel, plain in k6_group(cuda, **group):
+        before = bitgemm.LAUNCHES
+        got = kernel()
+        assert bitgemm.LAUNCHES == before + 1, tag
+        want = plain()
+        if isinstance(want, torch.Tensor):
+            _check(got, want)
+            _check(kernel(), got)
+        else:
+            _check_bits(got, want)
+            _check_bits(kernel(), got)
+
+
+def test_k6_refuses_a_plan_it_cannot_run(cuda):
+    qa, qb = operands(1, 512, 512, 16, 1, 2, 2, 0)
+    a, b = _bt(qa, 1, cuda), _bt(qb, 2, cuda)
+    plan = bitgemm.bitmm_plan(a.padded_rows, a.padded_cols, b.padded_cols, 16, "bits")
+    bad_plans = (dict(bnt=48), dict(grid=(plan.grid[0] + 1, *plan.grid[1:])),  # the C entry checks the geometry
+                 dict(splits=5, cluster=(1, 1, 5), grid=(*plan.grid[:2], 5)),
+                 dict(cluster=(1, 2, plan.splits)), dict(grid=(plan.grid[0], plan.grid[1] - 1, plan.grid[2])))
+    for bad in bad_plans:
+        with pytest.raises(RuntimeError, match="qgtc_bitmm"):
+            bitgemm._bitmm(a, b, 2, None, _plan=dataclasses.replace(plan, **bad))
 
 
 @pytest.mark.parametrize("model", ["gcn", "gin"])

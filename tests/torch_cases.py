@@ -361,3 +361,72 @@ def k2_chain(device, a_bits, seed=70):
     return (f"chain {a_bits}-bit words x3",
             lambda: chain(lambda x, y, ob: packmm.packmm_to_packed(x, y, ob)),
             lambda: chain(lambda x, y, ob: packmm.packmm_plain(x, y, ob, out_form="packed")))
+
+
+# K6's kernel (csrc/bitmm_k6.cuh): the cases the CUDA tests and
+# chip_smoke.py hold against plain under every forced plan.
+
+def k6_groups():
+    """Every group of K6 cases: (id, kwargs of :func:`k6_group`). C1's six
+    GEMMs (the layer-0 update X[2560x128] x W[128x16]; the aggregation
+    A[2560²] x H[2560x16] to bits, twice a batch; the hidden updates
+    H[2560x16] x W[16x16] and x W[16x40]; the aggregation x H[2560x40] to
+    f32), the aggregation at N 40 and 64 and GIN's hidden update (64 x 64),
+    the ragged 300 x 520 x 40 (three K steps, fewer than S = 4), every plane
+    pair the kernel instantiates (1 x 1, 2, 4, 8; 2 x 2, 4 x 4, 8 x 8) and a
+    run-time one (3 x 5), maps (the builder's and ``hand_map``'s: occupied
+    tiles left out, kcnt 0, -1 and past the grid, entries outside it) on
+    C1's aggregation and a ragged 2300 x 520 x 40 (nine 256-row map rows),
+    and 8 x 8 planes at 255 with K
+    33280, whose sums pass 2^31 and wrap."""
+    c1 = [("c1-update0", 2560, 128, 16, 2, 2), ("c1-agg", 2560, 2560, 16, 1, 2),
+          ("c1-update1", 2560, 16, 16, 2, 2), ("c1-update2", 2560, 16, 40, 2, 2),
+          ("c1-agg40", 2560, 2560, 40, 1, 2), ("agg-n64", 2560, 2560, 64, 1, 2),
+          ("gin-update", 2560, 64, 64, 2, 2)]
+    out = [(gid, dict(seed=80 + i, m=m, k=k, n=n, a_bits=ab, b_bits=bb))
+           for i, (gid, m, k, n, ab, bb) in enumerate(c1)]
+    for ab, bb in ((1, 1), (1, 2), (1, 4), (1, 8), (2, 2), (4, 4), (8, 8), (3, 5)):
+        out.append((f"ragged-a{ab}-b{bb}", dict(seed=90 + 9 * ab + bb, m=300, k=520, n=40, a_bits=ab,
+                                                b_bits=bb)))
+    for kind in ("real", "hand"):
+        out.append((f"c1-agg-map-{kind}", dict(seed=120, m=2560, k=2560, n=16, a_bits=1, b_bits=2, tile_map=kind)))
+        out.append((f"ragged-map-{kind}", dict(seed=121, m=2300, k=520, n=40, a_bits=3, b_bits=2, tile_map=kind)))
+    out.append(("wrap-8x8-k33280", dict(seed=130, m=256, k=33280, n=16, a_bits=8, b_bits=8, full=True)))
+    return out
+
+
+def k6_group(device, seed, m, k, n, a_bits, b_bits, tile_map=None, full=False):
+    """The (tag, kernel, plain) calls of one :func:`k6_groups` entry: to
+    ``b_bits`` planes and to f32, each on every column tile and every
+    split 1-4 forced through ``bitgemm._bitmm(..., _plan=)``; plain is
+    computed once per output form."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from qgtc_ppopp22_tpu_torch.ops import bitgemm
+    from qgtc_ppopp22_tpu_torch.ops.bitpack import pack_bits
+
+    if full:
+        qa, qb = np.full((m, k), (1 << a_bits) - 1, np.int32), np.full((k, n), (1 << b_bits) - 1, np.int32)
+    elif tile_map is not None:
+        qa, qb = blocky_levels(seed, m, k, a_bits, 0.05), operands(seed, m, k, n, a_bits, b_bits, 2, 0)[1]
+    else:
+        qa, qb = operands(seed, m, k, n, a_bits, b_bits, min(b_bits, 4), 0)
+    a, b = (pack_bits(torch.from_numpy(q).to(device), bits) for q, bits in ((qa, a_bits), (qb, b_bits)))
+    tm = None
+    if tile_map is not None:
+        tm = bitgemm.build_tile_map(a)
+        tm = hand_map(tm) if tile_map == "hand" else tm
+    calls = []
+    for out_bits in (b_bits, None):
+        plain = functools.cache(lambda ob=out_bits: bitgemm.bitmm_plain(a, b, ob, tm))
+        for bnt in (16, 32, 64):
+            chosen = bitgemm.bitmm_plan(a.padded_rows, a.padded_cols, b.padded_cols, n,
+                                        "f32" if out_bits is None else "bits", tm, bnt=bnt)
+            for s in range(1, bitgemm.MAX_SPLIT + 1):
+                plan = dataclasses.replace(chosen, splits=s, cluster=(1, 1, s), grid=(*chosen.grid[:2], s))
+                tag = f"{a_bits}x{b_bits} M={m} K={k} N={n} out_bits={out_bits} map={tile_map} {plan}"
+                calls.append((tag, lambda ob=out_bits, p=plan: bitgemm._bitmm(a, b, ob, tm, _plan=p), plain))
+    return calls
