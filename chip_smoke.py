@@ -8,8 +8,9 @@ Runs, and stops with a non-zero exit at the first failure:
 0. Requires a CUDA device; prints the card's name and power limit;
    builds the kernels of ``qgtc_ppopp22_tpu_torch/csrc`` with nvcc and
    prints ``ptxas -v``'s report; every one of the 72 instantiations of
-   K2's 1/2/4-bit kernel (``csrc/packmm_k2.cuh``) and of the 48 of K6's
-   (``csrc/bitmm_k6.cuh``) must spill 0 bytes.
+   K2's 1/2/4-bit kernel (``csrc/packmm_k2.cuh``), of the 48 of K6's
+   (``csrc/bitmm_k6.cuh``) and of the 34 of K1's (``csrc/fused_model_k1.cuh``)
+   must spill 0 bytes.
 1. Each kernel against its plain PyTorch version on the same CUDA
    tensors, at 1/2/4/8 bits, shifts 0 and 2, the slice's shapes
    (pn = 2560, K in {128, 2560}, N in {16, 40}) and one ragged
@@ -25,7 +26,17 @@ Runs, and stops with a non-zero exit at the first failure:
    ``chunk_occ``, shifts none and [1, 2, 1, 2, 1], at pn 512 and 2560;
    ``clamp_bits`` 4 under 8-bit levels; 3 batches at pn 768; each equal
    to plain and to the 2-digit route's launch on the same levels, and
-   each one levels-form launch. Then the bf16 baseline kernel
+   each one levels-form launch. Then K1 under every forced plan
+   (``torch_cases.k1_groups``): the chosen plan, 64- and 128-row CTAs,
+   each stage depth on a ring of 3 and a 2-CTA cluster, at C1's shape (pn
+   2560, 2 batches) and pn 768 with 3 batches, GCN hidden 16 and GIN
+   hidden 64, every form of X (digit planes at 2 and 8 bits, levels at 8
+   bits in the signed and split forms, levels at 1 and 2 bits signed and
+   at 1, 2 and 4 bits split, 3-bit levels with every higher bit of each
+   byte set), feature widths 100 and 128, dense, a schedule that leaves
+   out occupied blocks and
+   ``chunk_occ``, shifts from ``chain_shifts``; each output twice, both
+   equal to plain. Then the bf16 baseline kernel
    ``fused_baseline`` (sage hidden 16 and gin hidden 64, 1 and 3 layers,
    pn in {512, 2560}, 2 batches): equal to plain bit for bit on the
    "integer" case (nothing rounds) and the "rounding" case (every cast
@@ -160,9 +171,11 @@ Runs, and stops with a non-zero exit at the first failure:
    its criteria (the aggregation at or below K2's C1 aggregation, each row
    below ``torch._int_mm``) printed as met or not; K4
    and K2's packed out at Fig. 8a's (4096, 4096, 64) beside plain,
-   bound and ``torch._int_mm``; K1 at C1 8-bit, the levels form beside
-   plain, the 2-digit route and its own compacted-schedule launch on the
-   same batches; and every sweep
+   bound and ``torch._int_mm``; K1 at C1 (compact and dense), at C1-8
+   (the levels form dense and with C1's schedule, beside the 2-digit
+   route on the same batches) and C1 with X as 2-bit levels (the 1-4-bit
+   form), each with its plan (``fused_model_plan``), bound and plain time;
+   and every sweep
    row's us and TFLOP/s
    beside ``BASELINE.md``'s sm_86 figure for it, in the same profiler
    session; and the K skip at C1 (batch 0's adjacency and its map:
@@ -247,8 +260,8 @@ def main() -> int:
     from types import SimpleNamespace
 
     from torch_cases import (BF16_REL_TOL, baseline_case, bf16_rel_err, blocky_levels, chain_shifts, edge_operands,
-                             hand_map, k2_chain, k2_group, k2_groups, k6_group, k6_groups, levels_plane,
-                             mega_case, operands)
+                             hand_map, k1_group, k1_groups, k2_chain, k2_group, k2_groups, k6_group, k6_groups,
+                             levels_plane, mega_case, operands)
     from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe, exp_packmm, grid_overhead_study, kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward
@@ -275,7 +288,7 @@ def main() -> int:
     entry = ""
     corr = {"0": "", "1": ", signed A", "2": ", PreparedRHS"}
     # K2's 1/2/4-bit kernel and K6's: one line each for all their instantiations
-    k2_regs, k2_spill, k6_regs, k6_spill = {}, {}, {}, {}
+    k2_regs, k2_spill, k6_regs, k6_spill, k1_regs, k1_spill = {}, {}, {}, {}, {}, {}
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -290,6 +303,12 @@ def main() -> int:
                 entry = f"k6_kernel<{k[1]}x{k[2]} planes, {k[3]} columns{', mapped' if k[4] == '1' else ''}>"
                 k6_spill[entry] = 0
                 continue
+            k = re.search(r"k1_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)ELi(\d+)E", entry)
+            if k:
+                entry = (f"k1_kernel<{('digits', 'split', 'signed')[int(k[1])]} X x{k[2]}, W x{k[3]}, "
+                         f"H x{k[4]}, {k[5]} rows>")
+                k1_spill[entry] = 0
+                continue
             t = re.search(r"gemm_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)ENS_\d+([A-Za-z0-9]+?)"
                           r"(?:ILi(\d)E)?E", entry)
             if t:  # the digitmm, packmm and packmm_signed instances
@@ -298,14 +317,14 @@ def main() -> int:
                          f"{', mapped' if t[5] == '1' else ''}> {t[6]}"
                          + (f"<{t[7]}>" if t[7] else ""))
             else:
-                entry = next((entry[entry.find(k):][:60] for k in ("fused_model_kernel",
-                                                                      "fused_baseline_kernel",
+                entry = next((entry[entry.find(k):][:60] for k in ("fused_baseline_kernel",
                                                                       "exp_packmm_kernel",
                                                                       "bitcast", "fragment_probe",
                                                                       "zero_body_kernel", "kdot_kernel")
                               if k in entry), entry[-60:])
-        elif entry in k2_spill or entry in k6_spill:
-            regs, spill = (k2_regs, k2_spill) if entry in k2_spill else (k6_regs, k6_spill)
+        elif entry in k2_spill or entry in k6_spill or entry in k1_spill:
+            regs, spill = ((k2_regs, k2_spill) if entry in k2_spill else
+                           (k6_regs, k6_spill) if entry in k6_spill else (k1_regs, k1_spill))
             if "Used" in line:
                 regs[entry] = int(re.search(r"Used (\d+) registers", line)[1])
             elif "spill" in line:
@@ -326,6 +345,13 @@ def main() -> int:
     print(f"  ptxas: k6_kernel, {len(k6_regs)} instantiations (planes 1x1/1x2/1x4/1x8/2x2/4x4/8x8/run-time x "
           f"columns 16/32/64 x dense/mapped): {min(k6_regs.values())}-{max(k6_regs.values())} registers, "
           f"0 bytes of spill; " + ", ".join(f"{k} {v}" for k, v in k6_regs.items() if "16 columns>" in k))
+
+    if len(k1_regs) != 34 or any(k1_spill.values()):
+        raise AssertionError(f"k1_kernel: {len(k1_regs)} instantiations (want 34), spills "
+                             f"{ {k: v for k, v in k1_spill.items() if v} }")
+    print(f"  ptxas: k1_kernel, {len(k1_regs)} instantiations (X digits x1/x2, split x1/x2, signed x W "
+          f"planes x H planes x 64/128 rows): {min(k1_regs.values())}-{max(k1_regs.values())} registers, "
+          f"0 bytes of spill; " + ", ".join(f"{k} {v}" for k, v in k1_regs.items() if "x1, W x1, H x1" in k))
 
     # -- phase 1: kernel vs plain --------------------------------------
     err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0, "bitmm": 0.0,
@@ -473,6 +499,19 @@ def main() -> int:
                          model=model, shifts=[1, 2, 1, 2, 1], out_cols=40, x_levels_bits=8, **zkw)
     print(f"phase 1: fused_model levels form == plain == the 2-digit route in "
           f"{ncase['fused_model_levels']} cases ({lv_forms})")
+    # K1 under every forced plan (torch_cases.k1_groups): each output twice
+    t1, k1_cases = time.perf_counter(), 0
+    for gid, kw in k1_groups():
+        for tag, kernel, plain in k1_group(dev, **kw):
+            before = fused_model.LAUNCHES
+            got = kernel()
+            if fused_model.LAUNCHES != before + 1:
+                raise AssertionError(f"{tag}: not one fused_model launch")
+            compare("fused_model", got, plain(), tag)
+            compare("fused_model", kernel(), got, f"{tag}, computed again")
+            k1_cases += 1
+    print(f"phase 1: K1 in {len(k1_groups())} case groups under every forced plan ({k1_cases} cases, each "
+          f"output twice) == plain ({time.perf_counter() - t1:.1f} s)")
     # the bf16 baseline kernel: bit-exact ("integer", "rounding") and
     # random cases
     for model, hidden in (("sage", 16), ("gin", 64)):
@@ -1253,6 +1292,16 @@ def main() -> int:
     # the dense kernel is timed alone
     timed.append(("fused_model dense", f"{what}, dense",
                   lambda: fused_model.fused_model_epoch(*args, **dense_kw), None))
+    # the 1-4-bit levels form (no caller stages it): C1's 2-bit X read as
+    # one plane of 2-bit levels, the signed chain
+    low_kw = dict(kw, x_levels_bits=2)
+    if fused_model.plan(args[0].shape, args[1].shape, args[2], 2, "gcn", kw["shifts"], kw["out_cols"],
+                        None if kw["blk_sched"] is None else kw["blk_sched"].shape, 2).form != "signed" \
+            or not torch.equal(fused_model.fused_model_epoch(*args, **low_kw),
+                               fused_model.fused_model_epoch_plain(*args, **low_kw)):
+        raise AssertionError("C1 as 2-bit levels: not the signed chain, or the kernel != plain")
+    timed.append(("fused_model_levels low", f"{what}, X as 2-bit levels (the signed chain), compact schedule",
+                  lambda: fused_model.fused_model_epoch(*args, **low_kw), None))
     # K1's levels form at C1 8-bit beside the 2-digit route on the same
     # batches (the levels split back into 2 digit planes on the card)
     fn8 = eng8._stage_mega(batcher8)[0][1]
@@ -1277,6 +1326,24 @@ def main() -> int:
         raise AssertionError("C1 8-bit: the compacted schedule changed the logits")
     timed.append(("fused_model_levels compact", f"{what8}, levels form with the compacted block schedule",
                   lambda: fused_model.fused_model_epoch(a8s, xl8, ws8, 8, **kwc_8), None))
+
+    def k1_plan_of(a_, x_, ws_, ob, k):
+        """fused_model_plan's choice for a K1 call, as printed beside its time."""
+        p = fused_model.plan(a_.shape, x_.shape, ws_, ob, k["model"], k.get("shifts"), k.get("out_cols"),
+                             None if k.get("blk_sched") is None else k["blk_sched"].shape, k.get("x_levels_bits"))
+        kp = fused_model.fused_model_plan(p, k["model"])
+        return (f"rows {kp.rows}, cl {kp.cl}, stages {kp.stages}, depth {kp.depth}, "
+                f"smem {kp.smem}, grid {kp.grid}")
+
+    k1_plan_str = {"fused_model": k1_plan_of(*args[:3], 2, kw),
+                   "fused_model dense": k1_plan_of(*args[:3], 2, dense_kw),
+                   "fused_model_levels": k1_plan_of(a8s, xl8, ws8, 8, fn8.keywords),
+                   "fused_model 2-digit": k1_plan_of(a8s, x2_8, ws8, 8, kw2_8),
+                   "fused_model_levels compact": k1_plan_of(a8s, xl8, ws8, 8, kwc_8),
+                   "fused_model_levels low": k1_plan_of(*args[:3], 2, low_kw)}
+    for kind, what_, *_ in timed:
+        if kind in k1_plan_str:
+            k2_plans[what_] = k1_plan_str[kind]
     bfn = bstaged[0][1]
     timed.append(("fused_baseline", f"fused_baseline epoch (sage hidden 16), {nb} batches of "
                   f"pn={beng.mega_buckets[0]['pn']}", bfn,
@@ -1530,23 +1597,36 @@ def main() -> int:
                                     2 * k2c.M * k2c.N * k2c.K, "int8")
     for kind, what, l, r, ob in k6_rows:
         bounds[kind] = bit_bound(l, r, ob, what)
-    # K1: the aggregations count only the blocks its schedule lists
+    # K1: the logical work (2 pn^2 N per aggregation over the blocks the
+    # schedule lists, 2 pn K N per update, per digit pair on the logical
+    # shapes) and the bytes of its operands, logits and schedule
+    def k1_bound(a_st, x_st, ws_k1, out, sched):
+        pn_k1, B_k1 = a_st.shape[2], a_st.shape[0]
+        share = 1.0
+        if sched is not None:
+            cb = pn_k1 // (sched.shape[2] - 1)
+            share = float(sched[:, :, 0].sum().item()) * (pn_k1 // sched.shape[1]) * cb / (B_k1 * pn_k1 ** 2)
+        k1_w = [w.shape for w in ws_k1]
+        ops = B_k1 * (2 * pn_k1 ** 2 * share * sum(s[1] for s in k1_w)
+                      + 2 * pn_k1 * sum(s[0] * s[1] for s in k1_w))
+        return bound(nbytes(a_st, x_st, *(w.digits for w in ws_k1), out)
+                     + (0 if sched is None else nbytes(sched)), ops, "int8")
+
     a_st, x_st, ws_k1 = args[0], args[1], args[2]
-    sched = kw["blk_sched"]
-    pn_k1, B_k1 = a_st.shape[2], a_st.shape[0]
-    share = 1.0
-    if sched is not None:
-        cb = pn_k1 // (sched.shape[2] - 1)
-        share = float(sched[:, :, 0].sum().item()) * (pn_k1 // sched.shape[1]) * cb / (B_k1 * pn_k1 ** 2)
-    k1_w = [w.shape for w in ws_k1]
-    k1_ops = B_k1 * (2 * pn_k1 ** 2 * share * sum(s[1] for s in k1_w)
-                     + 2 * pn_k1 * sum(s[0] * s[1] for s in k1_w))
-    bounds["fused_model"] = bound(nbytes(a_st, x_st, *(w.digits for w in ws_k1), mega_fn())
-                                  + (0 if sched is None else nbytes(sched)), k1_ops, "int8")
+    bounds["fused_model"] = k1_bound(a_st, x_st, ws_k1, mega_fn(), kw["blk_sched"])
     # K1's levels form: the same logical work, X one byte a value
-    k1l_ops = a8s.shape[0] * (2 * a8s.shape[2] ** 2 * sum(w.shape[1] for w in ws8)
-                              + 2 * a8s.shape[2] * sum(w.shape[0] * w.shape[1] for w in ws8))
-    bounds["fused_model_levels"] = bound(nbytes(a8s, xl8, *(w.digits for w in ws8), fn8()), k1l_ops, "int8")
+    bounds["fused_model_levels"] = k1_bound(a8s, xl8, ws8, fn8(), None)
+    k1_rows = {"fused_model": ("C1, compact", bounds["fused_model"], "fused_model"),
+               "fused_model dense": ("C1, dense", k1_bound(a_st, x_st, ws_k1, mega_fn(), None), "fused_model"),
+               "fused_model_levels": ("C1-8, levels (signed), dense", bounds["fused_model_levels"],
+                                      "fused_model_levels"),
+               "fused_model_levels compact": ("C1-8, levels (signed), C1's schedule",
+                                              k1_bound(a8s, xl8, ws8, fn8(), sched8), "fused_model_levels"),
+               "fused_model_levels low": ("C1 as 2-bit levels (signed), compact", bounds["fused_model"],
+                                          "fused_model")}
+    for k, (row, (b_ms, by), plain_of) in k1_rows.items():
+        print(f"phase 3: K1 {row}: kernel {kernel_ms[k] * 1e3:.1f} us, plain {times[plain_of][1] * 1e3:.1f} us, "
+              f"bound {b_ms * 1e3:.2f} us ({by}), library none; plan {k1_plan_str[k]} [{card}]")
     print(f"phase 3: K1 at C1 8-bit: levels form {kernel_ms['fused_model_levels'] * 1e3:.1f} us (compacted "
           f"schedule {kernel_ms['fused_model_levels compact'] * 1e3:.1f}), the 2-digit route "
           f"{kernel_ms['fused_model 2-digit'] * 1e3:.1f} us per epoch; 2-bit {kernel_ms['fused_model'] * 1e3:.1f}"
@@ -1592,10 +1672,10 @@ def main() -> int:
 
     sources = {"packmm": ("packmm_k2.cuh", "qgtc_ppopp22_tpu/ops/packmm.py:664", launches),
                "digitmm": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", launches),
-               "fused_model": ("fused_model.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
+               "fused_model": ("fused_model_k1.cuh", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
                                mega_launches),
                # levels-form X: the 8-bit mega path's signed-chain launches
-               "fused_model_levels": ("fused_model_signed.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
+               "fused_model_levels": ("fused_model_k1.cuh", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
                                       levels_launches),
                "fused_baseline": ("fused_baseline.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:1299",
                                   base_launches),

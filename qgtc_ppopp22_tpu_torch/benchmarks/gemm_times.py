@@ -2,14 +2,19 @@
 ``digitmm`` and K6 ``bitmm`` at the step engines' C1 shapes (pn = 2560,
 2-bit GCN, hidden 16, 40 classes), K2 at C1 with a real adjacency's
 zero-tile map (batch 0 of the arxiv stand-in, psize 1500, batch 20, with
-its pack-time map), and every row of the kernel sweep's Fig. 8a (K2
-packed out at 1, 2 and 4 bits, K4 ``packmm_signed`` at 8 bits).
+its pack-time map), every row of the kernel sweep's Fig. 8a (K2
+packed out at 1, 2 and 4 bits, K4 ``packmm_signed`` at 8 bits), and the
+whole-model kernel K1 ``fused_model_epoch`` over C1's 75 batches: 2-bit
+with the compacted block schedule and dense (C1), and 8-bit levels (C1-8,
+``shifts=[6, 2, 11, 2, 11]``: the signed chain) dense and with C1's
+schedule.
 
 The script calls only what the port has offered since zero-tile jumping
 (``packmm_to_digits`` with and without a map, ``packmm_to_f32``,
 ``digitmm_to_digits``, ``bitmm_to_bits``, ``bitmm_to_int``,
 ``kernel_sweep.figure_cases``, a batch's ``a_words`` and ``tile_kidx`` /
-``tile_kcnt``, ``QGTCEngine(fmt="bits")``), so two checkouts can be
+``tile_kcnt``, ``QGTCEngine(fmt="bits")``, ``fused_model_epoch`` and
+``run_epochs_mega``), so two checkouts can be
 timed on one card in one command: copy it into the other checkout's
 ``benchmarks/`` folder and run it from each checkout's root in turns (A,
 B, B, A), each run on the kernels that its checkout builds. Operands come
@@ -22,15 +27,21 @@ rounds of ``--iters`` calls in one profiler session. Then the step
 engines' E1, E1z and E4 on the same 75 batches (``QGTCEngine.run_epochs``,
 resident: digits dense, digits with ``zerotile_jump=True``, and
 ``fmt="bits"``): one line each (``{"tag", "row", "ms"}``) with the
-host-clock ms/epoch of ``--epoch-runs`` runs of 5 epochs, taken in turns.
-``--plans`` (``packmm_plan(..., bnt=)`` and ``bitmm_plan(..., bnt=)``,
-this checkout only) adds K2 at C1's rows and at 4096² on each column tile
-it can take, and K6 at C1's aggregations on each column tile and split,
-each line with its plan. Needs a CUDA device.
+host-clock ms/epoch of ``--epoch-runs`` runs of 5 epochs, taken in turns,
+then E3 and E3-8 (``run_epochs_mega``, 2-bit and 8-bit, 20 epochs a run).
+``--plans`` (``packmm_plan(..., bnt=)``, ``bitmm_plan(..., bnt=)`` and
+``fused_model_plan``, this checkout only) adds K2 at C1's rows and at
+4096² on each column tile it can take, K6 at C1's aggregations on each
+column tile and split, and K1 at C1 and C1-8 on each of its plans' rows
+per CTA, stage depths and ring depths, each line with its plan.
+``--scaling`` adds K1 at C1 dense over the first 1, 8, 16, 32 and 75
+batches, on one batch on clusters of 1 and 2 CTAs, and on all 75 on
+clusters of 2, 4, 5 and 8. Needs a CUDA device.
 
 Usage::
 
-    python -m qgtc_ppopp22_tpu_torch.benchmarks.gemm_times [--tag NAME] [--iters 20] [--epoch-runs 3] [--plans]
+    python -m qgtc_ppopp22_tpu_torch.benchmarks.gemm_times [--tag NAME] [--iters 20] [--epoch-runs 3] \
+        [--mega-runs 3] [--plans] [--scaling]
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack
 from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, pack_rows
 
 PN, FEAT, HIDDEN, CLASSES, BITS = 2560, 128, 16, 40, 2
+C1_8_SHIFTS = (6, 2, 11, 2, 11)  # C1-8's requantize shifts (torch_cases.chain_shifts on batch 0)
 
 
 def c1_calls(seed: int, device) -> dict:
@@ -166,6 +178,128 @@ def plan_calls(seed: int, device) -> dict:
     return rows
 
 
+def _x_stack(batcher, bits: int, device) -> torch.Tensor:
+    """The batches' features as the mega engine stages them: digit planes
+    int8[B, nd, pn, xp], or at 5-8 bits one plane of byte levels."""
+    from qgtc_ppopp22_tpu_torch.ops.digits import planes_stack_to_digits
+
+    bs = batcher.batches
+    planes = torch.stack([b.bit_X.planes for b in bs]).to(device)
+    d = torch.cat([planes_stack_to_digits(planes[i:i + 16], bs[0].bit_X.shape, bits)
+                   for i in range(0, len(bs), 16)])
+    if d.shape[1] == 2:
+        d = (d[:, :1].to(torch.int32) | (d[:, 1:].to(torch.int32) << 4)).to(torch.uint8).view(torch.int8)
+    return d.contiguous()
+
+
+def k1_operands(ds, batcher, batcher8, device):
+    """K1's operands over C1's batches, staged as the mega engine stages
+    them (``fused_model_epoch``'s arguments): {name: (args, kwargs)}; C1-8
+    is the same batches packed at 8 bits, X one plane of byte levels."""
+    from qgtc_ppopp22_tpu_torch.ops import fused_model
+    from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine, mega_block_sched
+
+    bs = batcher.batches
+    pn = bs[0].padded_nodes
+    a = torch.stack([b.a_words for b in bs])[:, 0].to(device).contiguous()
+    a8 = torch.stack([b.a_words for b in batcher8.batches])[:, 0].to(device).contiguous()
+    sched = torch.from_numpy(np.stack([mega_block_sched(b.a_words.numpy(), 512, fused_model.mega_colblock(pn))
+                                       for b in bs])).to(device)
+    kw = dict(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, seed=3, device=device)
+    w2, w8 = (QGTCEngine(bit_width=bw, **kw).weights for bw in (BITS, 8))
+    x2, xl = _x_stack(batcher, BITS, device), _x_stack(batcher8, 8, device)
+    base = dict(model="gcn", out_cols=ds.num_classes, x_cols=batcher.feat_dim)
+    lv = dict(base, shifts=C1_8_SHIFTS, x_levels_bits=8)
+    return {
+        "C1 compact": ((a, x2, w2, BITS), dict(base, blk_sched=sched)),
+        "C1 dense": ((a, x2, w2, BITS), dict(base)),
+        "C1-8 levels dense": ((a8, xl, w8, 8), lv),
+        "C1-8 levels with C1's schedule": ((a8, xl, w8, 8), dict(lv, blk_sched=sched)),
+    }
+
+
+def k1_calls(ops: dict) -> dict:
+    """K1 over C1's 75 batches at C1 and C1-8, through ``fused_model_epoch``."""
+    from qgtc_ppopp22_tpu_torch.ops import fused_model
+
+    return {f"K1 fused_model_epoch {name}": (lambda a=a, k=k: fused_model.fused_model_epoch(*a, **k))
+            for name, (a, k) in ops.items()}
+
+
+def k1_plan_calls(ops: dict) -> dict:
+    """K1 at C1 (compact, dense) and C1-8 on each rows per CTA, stage
+    depth and ring depth ``fused_model_plan`` can take (the cluster its
+    rule gives); the default plan is marked."""
+    from qgtc_ppopp22_tpu_torch.ops import fused_model
+
+    rows = {}
+    for name, (a, k) in ops.items():
+        if name == "C1-8 levels with C1's schedule":
+            continue
+        p = fused_model.plan(a[0].shape, a[1].shape, a[2], a[3], k["model"], k.get("shifts"), k["out_cols"],
+                             None if k.get("blk_sched") is None else k["blk_sched"].shape, k.get("x_levels_bits"))
+        chosen = fused_model.fused_model_plan(p, "gcn")
+        tries = [dict(rows=r, depth=d, stages=s) for r in fused_model.K1_ROWS for d in fused_model.K1_DEPTHS
+                 for s in fused_model.K1_STAGES]
+        seen = set()
+        for kw_ in tries:
+            try:
+                plan = fused_model.fused_model_plan(p, "gcn", **kw_)
+            except ValueError:
+                continue
+            if plan in seen:
+                continue
+            seen.add(plan)
+            mark = ", chosen" if plan == chosen else ""
+            rows[f"plan K1 {name}: rows {plan.rows} cl {plan.cl} stages {plan.stages} depth {plan.depth} "
+                 f"smem {plan.smem}{mark}"] = (
+                lambda a=a, k=k, pl=plan: fused_model.fused_model_epoch(*a, **k, _plan=pl))
+    return rows
+
+
+def k1_scaling_calls(ops: dict) -> dict:
+    """K1 at C1 dense on the first B of C1's batches, B in 1 .. 75, on the
+    plan fused_model_plan gives each; one batch on clusters of 1 and 2
+    CTAs, all 75 on clusters of 2, 4, 5 and 8, and on 64-row CTAs small
+    enough for two an SM: how a CTA's time per stage scales with the
+    batches in flight, the tiles a CTA owns and the CTAs an SM holds."""
+    from qgtc_ppopp22_tpu_torch.ops import fused_model
+
+    (a, x, w, ob), k = ops["C1 dense"]
+    rows = {}
+    for B, cls in ((1, (1, 2, None)), (8, (None,)), (16, (None,)), (32, (None,)), (75, (None, 2, 4, 5, 8))):
+        aa, xx = a[:B].contiguous(), x[:B].contiguous()
+        p = fused_model.plan(aa.shape, xx.shape, w, ob, "gcn", None, k["out_cols"])
+        for cl in cls:
+            plan = fused_model.fused_model_plan(p, "gcn", cl=cl)
+            stages = -(-p.pn // plan.rows // plan.cl) * (p.pn // plan.depth) * len(w)  # a CTA's, dense
+            rows[f"scaling K1 C1 dense B {B}: rows {plan.rows} cl {plan.cl} depth {plan.depth}, "
+                 f"{stages} stages a CTA, {plan.grid} CTAs"] = (
+                lambda aa=aa, xx=xx, pl=plan: fused_model.fused_model_epoch(aa, xx, w, ob, **k, _plan=pl))
+    # 64-row CTAs small enough for two an SM (registers allow two of 128 threads)
+    p = fused_model.plan(a.shape, x.shape, w, ob, "gcn", None, k["out_cols"])
+    for depth, stages in ((256, 3), (128, 3)):
+        plan = fused_model.fused_model_plan(p, "gcn", rows=64, depth=depth, stages=stages)
+        rows[f"scaling K1 C1 dense B 75: rows 64 cl {plan.cl} depth {depth} stages {stages}, "
+             f"smem {plan.smem}"] = lambda pl=plan: fused_model.fused_model_epoch(a, x, w, ob, **k, _plan=pl)
+    return rows
+
+
+def mega_rows(ds, batcher, batcher8, device, runs: int) -> dict:
+    """E3 and E3-8: ``run_epochs_mega`` over C1's batches, 2-bit and 8-bit
+    (C1-8's shifts), 20 epochs a run, ``runs`` runs in turns."""
+    from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
+
+    kw = dict(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gcn", seed=3, device=device)
+    runs_of = {"E3 mega engine 2-bit ms/epoch": (QGTCEngine(bit_width=BITS, **kw), batcher),
+               "E3-8 mega engine 8-bit ms/epoch": (QGTCEngine(bit_width=8, shifts=C1_8_SHIFTS, **kw), batcher8)}
+    ms = {name: [] for name in runs_of}
+    for _ in range(runs):
+        for name, (eng, bt) in runs_of.items():
+            ms[name].append(eng.run_epochs_mega(bt, n_epochs=20).avg_ms)
+    return ms
+
+
 def engine_rows(ds, batcher, device, runs: int) -> dict:
     """E1, E1z and E4: the resident step engine's host-clock ms/epoch over
     C1's batches, on digit planes dense and with each batch's map, and on
@@ -200,7 +334,11 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--seed", type=int, default=3)
     p.add_argument("--epoch-runs", type=int, default=3, help="runs of 5 epochs for E1, E1z and E4 (0: none)")
-    p.add_argument("--plans", action="store_true", help="K2 and K6 on each column tile they can take")
+    p.add_argument("--mega-runs", type=int, default=3, help="runs of 20 epochs for E3 and E3-8 (0: none)")
+    p.add_argument("--plans", action="store_true",
+                   help="K2 and K6 on each column tile they can take, K1 on each of its plans")
+    p.add_argument("--scaling", action="store_true",
+                   help="K1 at C1 dense over 1 to 75 batches and cluster sizes")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_times: no CUDA device", file=sys.stderr)
@@ -214,8 +352,16 @@ def main(argv=None) -> int:
     for c in kernel_sweep.figure_cases("8a", np.random.default_rng(0), dev):
         kind = "packmm_signed" if c.bits == 8 else "packmm packed"
         rows[f"sweep 8a {kind} bits={c.bits} M=K={c.M} N={c.N}"] = c.run
+    from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher
+
+    batcher8 = ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=8, seed=3, cache_dir="./datasets")
+    k1_ops = k1_operands(ds, batcher, batcher8, dev)
+    rows.update(k1_calls(k1_ops))
     if args.plans:
         rows.update(plan_calls(args.seed, dev))
+        rows.update(k1_plan_calls(k1_ops))
+    if args.scaling:
+        rows.update(k1_scaling_calls(k1_ops))
     fns = {(name, rep): fn for rep in (0, 1) for name, fn in rows.items()}
     dt = device_times_ms(fns, iters=args.iters)
     print(f"card: {card_line()}")
@@ -224,6 +370,9 @@ def main(argv=None) -> int:
         print(json.dumps({"tag": args.tag, "row": name, "us": round(us, 2)}), flush=True)
     if args.epoch_runs:
         for name, ms in engine_rows(ds, batcher, dev, args.epoch_runs).items():
+            print(json.dumps({"tag": args.tag, "row": name, "ms": [round(v, 3) for v in ms]}), flush=True)
+    if args.mega_runs:
+        for name, ms in mega_rows(ds, batcher, batcher8, dev, args.mega_runs).items():
             print(json.dumps({"tag": args.tag, "row": name, "ms": [round(v, 3) for v in ms]}), flush=True)
     return 0
 

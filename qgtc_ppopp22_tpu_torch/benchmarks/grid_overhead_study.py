@@ -52,7 +52,7 @@ from qgtc_ppopp22_tpu_torch.ops._build import check, library
 from qgtc_ppopp22_tpu_torch.ops.bitpack import u32_to_i32
 
 XCOLS = 128  # kdot's x width, the roll's period
-MAX_CLUSTER = 8  # csrc/fused_model.cuh MAX_CLUSTER
+MAX_CLUSTER = 8  # csrc/fused_model_k1.cuh MAX_CLUSTER
 ZERO_BODY_SHAPES = ((1024, 75), (2048, 50))  # (pn, B)
 KDOT_SHAPE = (2048, 50)
 KDOT_ROWS = ((0, 8), (0, 48), (0, 120), (1, 48), (2, 48))  # (K, oc)
@@ -65,7 +65,7 @@ KDOT_LAUNCHES = 0  # its kdot launches, likewise
 
 
 def cluster_size(pn: int) -> int:
-    """The CTAs per batch that K1 launches (``csrc/fused_model.cu``)."""
+    """The CTAs per batch of K1's first design: one per 64-row tile, at most 8."""
     return min(pn // 64, MAX_CLUSTER)
 
 

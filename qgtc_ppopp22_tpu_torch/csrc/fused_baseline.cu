@@ -19,7 +19,7 @@
 // reads A once per layer from device memory (3 x 491.5 MB at C1); the
 // previous layer's bf16 rows come from L2.
 //
-// Design (the scaffolding of fused_model.cuh): one launch per bucket, one
+// Design (the first K1's scaffolding): one launch per bucket, one
 // thread-block cluster of CL <= 8 CTAs per batch, CTA r owning the 64-row
 // tiles r, r + CL, ... First each CTA rounds its rows of X into the bf16
 // ping-pong scratch P0; a cluster barrier (after __threadfence) separates

@@ -27,7 +27,7 @@ using namespace qgtc;
 
 namespace {
 
-constexpr int MAX_CLUSTER = 8;  // fused_model.cuh MAX_CLUSTER
+constexpr int MAX_CLUSTER = 8;  // fused_model_k1.cuh MAX_CLUSTER
 constexpr int XCOLS = 128;      // kdot's x width (the roll's period)
 
 struct StudyArgs {

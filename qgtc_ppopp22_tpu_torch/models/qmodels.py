@@ -143,41 +143,44 @@ def _shifts(shifts, n_layers: int) -> List[int]:
 
 
 def qgcn_forward(
-    a,
-    x,
-    ws: Sequence,
+    bit_a,
+    bit_x,
+    bit_ws: Sequence,
     out_bits: int,
+    tile_map: Optional[TileMap] = None,
+    *,
     shifts: Optional[Sequence[int]] = None,
     plain: bool = False,
-    tile_map: Optional[TileMap] = None,
 ) -> torch.Tensor:
     """Cluster-GCN forward -> float32 logits [M, out_dim], over a
     ``PackedTensor`` adjacency with ``DigitTensor`` features and weights,
-    or ``BitTensor``\\ s throughout. ``shifts``: the optional per-GEMM
+    or ``BitTensor``\\ s throughout. JAX's names and order: a positional
+    fifth argument is the ``tile_map``. ``shifts``: the optional per-GEMM
     requant shifts (2 per hidden layer + 1, digit path only)."""
-    sh = iter(_shifts(shifts, len(ws)))
-    h = x
-    for l, w in enumerate(ws):
+    sh = iter(_shifts(shifts, len(bit_ws)))
+    h = bit_x
+    for l, w in enumerate(bit_ws):
         h = _mm_to_bits(h, w, out_bits, next(sh), plain)
-        if l < len(ws) - 1:
-            h = _mm_to_bits(a, h, out_bits, next(sh), plain, tile_map)
-    return _mm_to_f32(a, h, plain, tile_map)
+        if l < len(bit_ws) - 1:
+            h = _mm_to_bits(bit_a, h, out_bits, next(sh), plain, tile_map)
+    return _mm_to_f32(bit_a, h, plain, tile_map)
 
 
 def qgin_forward(
-    a,
-    x,
-    ws: Sequence,
+    bit_a,
+    bit_x,
+    bit_ws: Sequence,
     out_bits: int,
+    tile_map: Optional[TileMap] = None,
+    *,
     shifts: Optional[Sequence[int]] = None,
     plain: bool = False,
-    tile_map: Optional[TileMap] = None,
 ) -> torch.Tensor:
-    """Batched-GIN forward -> float32 logits [M, out_dim]; operands as in
-    :func:`qgcn_forward`."""
-    sh = iter(_shifts(shifts, len(ws)))
-    h = _mm_to_bits(a, x, out_bits, next(sh), plain, tile_map)
-    for w in ws[:-1]:
+    """Batched-GIN forward -> float32 logits [M, out_dim]; operands and
+    arguments as in :func:`qgcn_forward`."""
+    sh = iter(_shifts(shifts, len(bit_ws)))
+    h = _mm_to_bits(bit_a, bit_x, out_bits, next(sh), plain, tile_map)
+    for w in bit_ws[:-1]:
         h = _mm_to_bits(h, w, out_bits, next(sh), plain)
-        h = _mm_to_bits(a, h, out_bits, next(sh), plain, tile_map)
-    return _mm_to_f32(h, ws[-1], plain)
+        h = _mm_to_bits(bit_a, h, out_bits, next(sh), plain, tile_map)
+    return _mm_to_f32(h, bit_ws[-1], plain)

@@ -28,12 +28,13 @@ block), is compacted on its device into that schedule
 a TPU residency tier: on the card A is read from device memory (or L2)
 either way, so ``False`` is the same launch.
 
-Levels-form X (``x_levels_bits``, 5-8): ``x_stack`` int8[B, 1, pn, xp]
+Levels-form X (``x_levels_bits``, 1-8): ``x_stack`` int8[B, 1, pn, xp]
 holds each feature's whole level in one byte, as the JAX engine stages
-5-8-bit features. When every weight has a free padded lane (real width
+5-8-bit features (JAX takes 1-4 bits too: the split form then has one
+digit, masked to the bits). When every weight has a free padded lane (real width
 below its padded width, JAX's test) the kernel runs the offset-signed
 single-plane chain: every operand one int8 plane of level - 128, one
-int8 pass per GEMM, exact rank-1 corrections (``csrc/fused_model.cuh``),
+int8 pass per GEMM, exact rank-1 corrections (``csrc/fused_model_k1.cuh``),
 with the weights' planes and correction rows built by
 :func:`signed_weights`. Otherwise it splits the bytes into base-16
 digits as it loads them and runs the digit chain. ``MegaPlan.form`` says which ("signed", "split" or
@@ -42,7 +43,9 @@ the last padded logit column (``out_cols`` past ``cp - 8``); here every
 padded column is the product's 0.
 
 Dispatch: tensors on the CPU run :func:`fused_model_epoch_plain`;
-tensors on a CUDA device launch the kernel or raise. Not ported:
+tensors on a CUDA device launch the kernel or raise, on the launch that
+:func:`fused_model_plan` chooses (rows per CTA, CTAs per batch, the
+ring's depth and its stages' depth). Not ported:
 ``unpack_once``, a TPU VMEM tier.
 
 K5 (``csrc/fused_baseline.cu``): the dense bf16 chain of
@@ -55,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -74,8 +78,9 @@ BASELINE_LAUNCHES = 0  # fused_baseline launches, likewise
 
 _RPW = 32  # adjacency rows per packed word (1-bit)
 _OFFSET = 128  # the signed chain's operands hold level - 128
-_WIDTH = 32  # the kernel's column granule: real widths round up to it
-MAX_LAYERS = 8  # csrc/fused_model.cu MAX_LAYERS
+_PAD = 32  # padded operand widths are multiples of it
+_WIDTH = 16  # the kernel's column granule: real widths round up to it
+MAX_LAYERS = 8  # csrc/fused_model_k1.cuh MAX_LAYERS
 
 
 def mega_colblock(pn: int) -> int:
@@ -126,9 +131,8 @@ def plan(
     if x_levels_bits is not None:
         if nd_x != 1:
             raise ValueError(f"x_levels_bits given but x_stack has {nd_x} planes")
-        if not 5 <= x_levels_bits <= 8:
-            raise ValueError(f"x_levels_bits must be in [5, 8], got {x_levels_bits}: the "
-                             "levels form carries 2-digit features; pass fewer bits as a digit plane")
+        if not 1 <= x_levels_bits <= 8:
+            raise ValueError(f"x_levels_bits must be in [1, 8], got {x_levels_bits}")
         x_bits = int(x_levels_bits)
         nd_x = num_digits(x_bits)  # the int32 guard counts the levels' digits
         # JAX's choice (ops/fused_model.py:442-444): a free padded lane on
@@ -151,8 +155,8 @@ def plan(
     nd_w = ws[0].ndigits
     if any(w.ndigits != nd_w for w in ws) or nd_w > 2 or nd_x > 2:
         raise ValueError("every weight needs the same 1 or 2 digit planes, X 1 or 2")
-    if xp % _WIDTH or any(w.padded_cols % _WIDTH for w in ws):
-        raise ValueError(f"padded widths must be multiples of {_WIDTH}")
+    if xp % _PAD or any(w.padded_cols % _PAD for w in ws):
+        raise ValueError(f"padded widths must be multiples of {_PAD}")
     if ws[0].padded_rows != xp:
         raise ValueError(f"x width {xp} != first weight's padded rows {ws[0].padded_rows}")
     for prev, w in zip(ws, ws[1:]):
@@ -183,6 +187,106 @@ def plan(
         if nj < 1 or pn % nj or (pn // nj) % 128:
             raise ValueError(f"blk_sched nj={nj} incompatible with pn={pn}")
     return MegaPlan(B, pn, nd_x, xp, nd_w, nd_h, chunk, nj, oc, widths, form, x_bits)
+
+
+# -- K1's launch plan (csrc/fused_model_k1.cuh) -------------------------------
+
+K1_ROWS = (128, 64)  # rows per CTA tile (8 or 4 warps of 16 rows): 64 only where 128 does not fit
+K1_MAX_CLUSTER = 8  # CTAs per batch: a portable cluster
+K1_STAGES = (4, 3)  # depths of the cp.async ring
+K1_DEPTHS = (256, 128, 64)  # columns of the contraction a ring stage holds
+_XCHUNK = 128  # GCN's first update reads X in column chunks of at most this
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """One launch of K1: ``grid`` = B * ``cl`` CTAs of ``rows // 16`` warps
+    in clusters of ``cl`` (one per batch); CTA r of a cluster owns row tiles
+    r, r + cl, ... Every aggregation streams its B operand (X or the hidden
+    plane) through the ring beside A. ``smem``: dynamic shared memory in
+    bytes (``_k1_smem``). ``depth``: the contraction columns of one ring
+    stage (one barrier each)."""
+
+    rows: int
+    cl: int
+    stages: int
+    smem: int
+    grid: int
+    depth: int
+
+
+def _k1_dims(p: MegaPlan, model: str) -> tuple:
+    """(nd_h, nd_w, nd_xm, nd_xd, planes, qws, kins): the planes of H,
+    W, X in memory and X as digits after the load (the signed chain has one
+    of each); the widths of the hidden planes each aggregation reads, the
+    widths the aggregations leave in Q, and each update's contraction."""
+    sg = p.form == "signed"
+    nd_h, nd_w = (1, 1) if sg else (p.nd_h, p.nd_w)
+    nd_xm = 1 if p.form != "digits" else p.nd_x
+    nd_xd = 1 if sg else p.nd_x
+    w, n, gin = p.widths, len(p.widths), model == "gin"
+    planes = w[:n - 1] if gin else w[:n]
+    qws = ([p.xp] if gin else []) + w[:n - 1]
+    kins = [p.xp] + w[:n - 1]
+    return nd_h, nd_w, nd_xm, nd_xd, planes, qws, kins
+
+
+def _k1_smem(p: MegaPlan, model: str, rows: int, stages: int, depth: int) -> int:
+    """K1's dynamic shared memory for one launch (csrc/fused_model_k1.cuh
+    ``layout``, the same sums): the aggregation phase (the ring of
+    ``depth``-column stages, their word rows padded by 64 bytes and B's rows,
+    GIN's transposed X tile) or GCN's first update (X's rows), whichever is
+    larger; then Q, the layer's weights, each warp's staging of the hidden
+    plane and each ring slot's step (eight ints)."""
+    nd_h, nd_w, nd_xm, nd_xd, planes, qws, kins = _k1_dims(p, model)
+    gin, lda = model == "gin", depth + 16
+    slot_b = max(nd_xm * depth * 64 if gin else 0, nd_h * 64 * lda if planes else 0)
+    agg = stages * (8 * (4 * depth + 64) + slot_b) + (2 * nd_xd * 64 * lda if gin else 0)
+    front = max(agg, 0 if gin else nd_xd * rows * (min(p.xp, _XCHUNK) + 16))
+    q = nd_h * rows * (round_up(max(qws), 32) + 16) if qws else 0
+    wt = nd_w * max(nw * (round_up(k, 32) + 16) for nw, k in zip(p.widths, kins))
+    return front + q + wt + (rows // 16) * nd_h * 64 * 16 + 8 * 4 * max(K1_STAGES)
+
+
+def fused_model_plan(p: MegaPlan, model: str, rows: Optional[int] = None, cl: Optional[int] = None,
+                     stages: Optional[int] = None, depth: Optional[int] = None) -> K1Plan:
+    """K1's launch for the geometry ``p`` (from :func:`plan`) of ``model``,
+    cached per shape. Each argument given forces that choice; raises
+    ``ValueError`` on a plan the kernel cannot run (the C entry refuses
+    the same). Defaults: the first tile height of ``K1_ROWS`` (128 rows,
+    else 64) at which some plan fits the shared memory; the cluster that
+    gives each CTA the fewest row tiles, the smallest such; the deepest
+    stage (256, 128, 64 columns), then 4 stages or 3, that fit."""
+    return _cached_k1_plan(p.B, p.pn, p.xp, p.form, p.nd_x, p.nd_w, p.nd_h, tuple(p.widths), model,
+                           rows, cl, stages, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_k1_plan(B, pn, xp, form, nd_x, nd_w, nd_h, widths, model, rows, cl, stages, depth) -> K1Plan:
+    p = MegaPlan(B, pn, nd_x, xp, nd_w, nd_h, 512, 0, 8, list(widths), form)
+    if model not in ("gcn", "gin"):
+        raise ValueError(model)
+    if rows is not None and (rows not in K1_ROWS or pn % rows):
+        raise ValueError(f"rows per CTA {rows}: the kernel takes {K1_ROWS} dividing pn={pn}")
+    if stages is not None and stages not in K1_STAGES:
+        raise ValueError(f"ring depth {stages}: the kernel takes {K1_STAGES}")
+    if depth is not None and depth not in K1_DEPTHS:
+        raise ValueError(f"stage depth {depth}: the kernel takes {K1_DEPTHS}")
+    tries = [(r, d, s) for r in ([rows] if rows else K1_ROWS)
+             for d in ([depth] if depth else K1_DEPTHS) for s in ([stages] if stages else K1_STAGES)]
+    fit = next((t for t in tries if _k1_smem(p, model, t[0], t[2], t[1]) <= _SMEM_LIMIT), None)
+    if fit is None:
+        r, d, s = tries[-1]
+        raise ValueError(f"K1 needs {_k1_smem(p, model, r, s, d)} bytes of shared memory at rows {r}, "
+                         f"stages {s}, depth {d}; a block has {_SMEM_LIMIT}")
+    rows, depth, stages = fit
+    tiles = pn // rows
+    if cl is None:
+        cl = min(range(1, min(K1_MAX_CLUSTER, tiles) + 1), key=lambda c: (-(-tiles // c), c))
+    if not 1 <= cl <= min(K1_MAX_CLUSTER, tiles):
+        raise ValueError(f"{cl} CTAs per batch: the kernel takes 1..{min(K1_MAX_CLUSTER, tiles)} "
+                         f"over {tiles} row tiles")
+    return K1Plan(rows, cl, stages, _k1_smem(p, model, rows, stages, depth), B * cl, depth)
 
 
 def _refuse_unported(unpack_once) -> None:
@@ -344,6 +448,7 @@ def fused_model_epoch(
     chunk_occ: Optional[torch.Tensor] = None,
     resident_a: Optional[bool] = None,
     unpack_once: Optional[bool] = None,
+    _plan: Optional[K1Plan] = None,
 ) -> torch.Tensor:
     """The whole model over every stacked batch in one kernel launch.
 
@@ -358,15 +463,21 @@ def fused_model_epoch(
     (:func:`chunk_occ_sched`), exclusive with one.
     ``resident_a`` (None, True or False) is the same launch: on this card
     A is read from device memory or L2 either way; ``blk_sched`` with
-    ``False`` is refused, as JAX refuses it."""
+    ``False`` is refused, as JAX refuses it. ``_plan`` forces a launch
+    (:func:`fused_model_plan`'s record; tests only); on the CPU it is
+    checked against the shape and the plain version runs."""
     global LAUNCHES, LEVELS_LAUNCHES
     _refuse_unported(unpack_once)
     _exclusive(blk_sched, chunk_occ, resident_a)
     if not a_stack.is_cuda:
+        if _plan is not None:
+            _check_forced(_plan, plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
+                                      None if blk_sched is None else blk_sched.shape, x_levels_bits), model)
         return fused_model_epoch_plain(a_stack, x_stack, ws, out_bits, model, shifts,
                                        out_cols, blk_sched, x_cols, chunk_occ, x_levels_bits)
     p = plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
              None if blk_sched is None else blk_sched.shape, x_levels_bits)
+    kp = fused_model_plan(p, model) if _plan is None else _check_forced(_plan, p, model)
     dev = a_stack.device
     if chunk_occ is not None:  # compacted on the card, into the launch's schedule
         blk_sched = chunk_occ_sched(chunk_occ.to(dev), p.B, p.pn, p.chunk)
@@ -386,13 +497,15 @@ def fused_model_epoch(
         nd_w = nd_h = 1
     else:
         blob, offs = _weights_blob([w.digits for w in ws])
-    hw = max(p.widths + ([p.xp] if model == "gin" else []))
-    scratch = torch.empty((p.B, 3, nd_h, p.pn, hw), dtype=torch.int8, device=dev)
+    hw = max(p.widths)
+    # the hidden planes P0 / P1, transposed: [B][2][nd_h][hw][pn]
+    scratch = torch.empty((p.B, 2, nd_h, hw, p.pn), dtype=torch.int8, device=dev)
     out = torch.empty((p.B, p.pn, p.oc), dtype=torch.float32, device=dev)
     sh = list(shifts) if shifts is not None else [0] * (2 * n - 1)
     x_form = {"digits": 0, "split": 1, "signed": 2}[p.form]  # csrc XForm
     meta = [p.B, p.pn, p.nd_x if p.form != "signed" else 1, p.xp, nd_w, nd_h, n,
-            int(model == "gin"), out_bits, p.oc, p.chunk, p.nj, hw, x_form, p.x_bits]
+            int(model == "gin"), out_bits, p.oc, p.chunk, p.nj, hw, x_form, p.x_bits,
+            kp.rows, kp.cl, kp.stages, kp.smem, kp.depth]
     for l, w in enumerate(ws):
         meta += [w.padded_rows, w.padded_cols, p.widths[l], offs[l], c_offs[l]]
     meta += sh
@@ -414,6 +527,15 @@ def fused_model_epoch(
     LAUNCHES += 1
     LEVELS_LAUNCHES += p.form != "digits"
     return out
+
+
+def _check_forced(kp: K1Plan, p: MegaPlan, model: str) -> K1Plan:
+    """A forced launch must be the plan its own choices give at this
+    shape (the C entry checks the same sums); returns it."""
+    want = fused_model_plan(p, model, rows=kp.rows, cl=kp.cl, stages=kp.stages, depth=kp.depth)
+    if want != kp:
+        raise ValueError(f"forced plan {kp} is not the kernel's at this shape: {want}")
+    return kp
 
 
 # -- K5: the full-precision baseline in one launch --------------------------

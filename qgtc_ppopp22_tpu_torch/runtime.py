@@ -270,7 +270,7 @@ class QGTCEngine(_Engine):
                         torch.stack([b.bit_X.planes for b in bs])))
         return out
 
-    def _stage_mega(self, batcher: ClusterBatcher) -> List[tuple]:
+    def _stage_mega(self, batcher: ClusterBatcher, resident_a: Optional[bool] = None) -> List[tuple]:
         """Move every bucket to the device once -> [(indices, fn)]: ``fn()``
         runs the bucket's epoch and returns its logits, float32[B, pn, oc]
         from one fused_model kernel launch, or, for a bucket the kernel
@@ -278,7 +278,16 @@ class QGTCEngine(_Engine):
         each bucket's choices in ``self.mega_buckets``: ``form`` is the
         kernel's (``MegaPlan.form``), ``"signed"`` or ``"split"`` for 5-8-bit
         features, which cross as one plane of byte levels (JAX
-        ``runtime.py:504-516``), else ``"digits"``."""
+        ``runtime.py:504-516``), else ``"digits"``.
+
+        ``resident_a`` is JAX's residency tier (``runtime.py:531-613``):
+        ``False`` (streamed A) never takes the compacted block schedule and
+        passes the occupancy map as ``chunk_occ`` when ``zerotile_jump`` is
+        True or, with it None, at >= 30% skippable blocks; ``True`` and
+        ``None`` take the resident kernel's compact gate. On the card both
+        tiers are the same launch. On a CUDA device a bucket whose launch
+        plan (:func:`fused_model.fused_model_plan`: the shared-memory
+        budget, JAX's VMEM probe) refuses it falls back too."""
         if self.fmt != "digits":
             raise ValueError("mega mode requires fmt='digits'")
         ws, dev, bw = self.weights, self.device, self.bit_width
@@ -289,12 +298,15 @@ class QGTCEngine(_Engine):
             B, xshape = len(idx), bs[0].bit_X.shape
             x_shape = (B, 1 if levels else num_digits(bw), round_up(xshape[0], LANE),
                        round_up(feat, LANE))
-            info = dict(pn=pn, batches=B, fallback=False, compact=False, skippable=None, form=None)
+            info = dict(pn=pn, batches=B, fallback=False, compact=False, chunk_occ=False,
+                        resident_a=resident_a, skippable=None, form=None)
             self.mega_buckets.append(info)
             try:
                 geo = fused_model.plan(a_np[:, 0].shape, x_shape, ws, self.clamp_bits, self.model,
                                        self.shifts, self.cfg.out_dim,
                                        x_levels_bits=bw if levels else None)
+                if dev.type == "cuda":
+                    fused_model.fused_model_plan(geo, self.model)
             except ValueError as e:
                 # Loudly: a silent fallback would turn a "mega" measurement
                 # into a step-engine one.
@@ -317,29 +329,37 @@ class QGTCEngine(_Engine):
             occ = np.stack([mega_block_occ(b.a_words.numpy(), geo.chunk, cb) for b in bs])
             info["skippable"] = float(1.0 - occ.mean())
             zj = self.zerotile_jump
-            sched = None
-            # The JAX engine's gate for its resident kernel
-            # (runtime.py:595-607); every bucket the kernel takes counts as
-            # resident here.
-            if zj is True or (zj is None and info["skippable"] >= 0.45
-                              and pn >= 2048 and bw <= 4):
+            sched = chunk_occ = None
+            if resident_a is False:
+                # JAX's streaming tier: every skipped block saves its
+                # crossing, so the map is on at >= 30% skippable
+                if zj is True or (zj is None and info["skippable"] >= 0.30):
+                    chunk_occ = torch.from_numpy(occ).to(dev)
+                    info["chunk_occ"] = True
+            elif zj is True or (zj is None and info["skippable"] >= 0.45
+                                and pn >= 2048 and bw <= 4):
+                # The JAX engine's gate for its resident kernel
+                # (runtime.py:595-607)
                 sched = torch.from_numpy(np.stack([
                     mega_block_sched(b.a_words.numpy(), geo.chunk, cb) for b in bs
                 ])).to(dev)
                 info["compact"] = True
+            tier = {} if resident_a is None else dict(resident_a=resident_a)
+            if chunk_occ is not None:
+                tier["chunk_occ"] = chunk_occ
             staged.append((idx, functools.partial(
                 fused_model.fused_model_epoch, a_stack, x_stack, ws, self.clamp_bits,
                 model=self.model, shifts=self.shifts, out_cols=self.cfg.out_dim,
                 blk_sched=sched, x_cols=self.cfg.in_dim,
-                x_levels_bits=bw if levels else None,
+                x_levels_bits=bw if levels else None, **tier,
             )))
         return staged
 
-    def _mega_logits(self, batcher: ClusterBatcher) -> List[torch.Tensor]:
+    def _mega_logits(self, batcher: ClusterBatcher, resident_a: Optional[bool] = None) -> List[torch.Tensor]:
         """Each batch's mega-engine logits, in ``batcher.batches`` order
         ([pn, oc] from the kernel, [pn, classes] from a fallback)."""
         out: List[Optional[torch.Tensor]] = [None] * len(batcher.batches)
-        for idx, fn in self._stage_mega(batcher):
+        for idx, fn in self._stage_mega(batcher, resident_a):
             for i, logits in zip(idx, fn()):
                 out[i] = logits
         return out
@@ -349,14 +369,16 @@ class QGTCEngine(_Engine):
         batcher: ClusterBatcher,
         n_epochs: int = 20,
         sync_every_epoch: bool = False,
+        resident_a: Optional[bool] = None,
     ) -> EpochStats:
         """Timed epochs of the mega engine: the buckets are staged on the
         device once (outside the timed region), and each epoch launches
         one fused_model kernel per bucket. Every bucket's output is kept
         by the epoch, so no bucket's work can be dropped (the JAX
         engine's guard, runtime.py:659-666). Timing as in ``run_epochs``:
-        all epochs launched, one synchronize, divided."""
-        staged = self._stage_mega(batcher)
+        all epochs launched, one synchronize, divided. ``resident_a``: the
+        JAX engine's tier choice (:meth:`_stage_mega`)."""
+        staged = self._stage_mega(batcher, resident_a)
         fns = [fn for _, fn in staged]
 
         def one_epoch():
@@ -527,22 +549,33 @@ class BaselineEngine(_Engine):
     def _stage_mega(self, batcher: ClusterBatcher, dataset) -> List[tuple]:
         """Stage every bucket as int8 stacks -> [(indices, fn)]: ``fn()``
         runs the bucket's epoch, one fused_baseline launch returning
-        float32[B, pn, classes]. Records each bucket in
-        ``self.mega_buckets``. Raises ``ValueError`` where the kernel
-        refuses a bucket or the weights (``run_epochs_fused`` takes any
-        shape): a mega epoch is one launch per bucket or nothing."""
+        float32[B, pn, classes]. A bucket that ``fused_model.baseline_plan``
+        refuses (or every bucket, when the kernel refuses the weights) runs
+        through the fused loop instead (:meth:`_fused_bucket`, per-batch
+        logits), and says so: JAX runs such a bucket through its scan epoch
+        (``runtime.py:954-971``). Records each bucket in
+        ``self.mega_buckets`` (``fallback``). Only the plan's refusal is
+        caught: a launch that fails raises."""
         shapes = [tuple(w.shape) for w in self.weights]
-        for b in batcher.batches:
-            a, x = self._dense(b, dataset, batcher.features)
-            try:
-                fused_model.baseline_plan((1,) + tuple(a.shape), (1,) + tuple(x.shape), shapes)
-            except ValueError as e:
-                raise ValueError(f"fused_baseline refuses the bucket pn={a.shape[0]}: {e}; "
-                                 "the fused mode takes it") from e
-        packed = fused_model.pack_baseline_weights(self.weights)
+        try:
+            packed, refused = fused_model.pack_baseline_weights(self.weights), None
+        except ValueError as e:
+            packed, refused = None, e
         staged, self.mega_buckets = [], []
         for idx, a_stack, x_stack in self._stage(batcher, dataset, torch.int8):
-            self.mega_buckets.append(dict(pn=a_stack.shape[1], batches=len(idx)))
+            info = dict(pn=a_stack.shape[1], batches=len(idx), fallback=False)
+            self.mega_buckets.append(info)
+            try:
+                if refused is not None:
+                    raise refused
+                fused_model.baseline_plan(a_stack.shape, x_stack.shape, shapes)
+            except ValueError as e:
+                # Loudly, as the quantized mega engine's fallback
+                print(f"[mega] baseline bucket pn={info['pn']}: falling back to the fused loop "
+                      f"({type(e).__name__}: {e})")
+                info["fallback"] = True
+                staged.append((idx, functools.partial(self._fused_bucket, a_stack, x_stack)))
+                continue
             staged.append((idx, functools.partial(
                 fused_model.fused_baseline_epoch, a_stack, x_stack, self.weights, packed=packed)))
         return staged

@@ -13,6 +13,8 @@ gives the reason): a float32 sum taken in another order can move a bf16
 rounding by one ulp at any of the chain's 2n casts.
 """
 
+import contextlib
+import io
 import json
 
 import jax
@@ -301,15 +303,22 @@ def test_engine_epoch_stats(pair, mode, sync_every_epoch):
 
 
 def test_mega_refuses_what_the_kernel_cannot_take():
-    """Weights the kernel refuses (a layer wider than 128 columns) stop
-    the mega mode before anything is staged: it never gives way to the
-    plain chain. The fused mode takes them."""
+    """Weights the kernel refuses (a layer wider than 128 columns) no
+    longer stop the mega mode: every bucket runs the fused loop, loudly,
+    with the fused mode's logits (JAX runs such a bucket through its scan
+    epoch). It never gives way to the plain chain silently."""
     ds, it, _, _, _, _ = _baseline_pair("sage")
     te = BaselineEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, hidden=144, device="cpu")
-    for run in (lambda: te._mega_logits(it, ds), lambda: te.run_epochs_mega(it, ds, n_epochs=1)):
-        with pytest.raises(ValueError, match="fused_baseline refuses the bucket pn=.*at most 128"):
-            run()
-    assert te.mega_buckets == []
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = te._mega_logits(it, ds)
+        assert te.run_epochs_mega(it, ds, n_epochs=1).n_batches == len(it)
+    assert "falling back to the fused loop" in buf.getvalue() and "at most 128" in buf.getvalue()
+    assert te.mega_buckets and all(b["fallback"] for b in te.mega_buckets)
+    fused = [lg for _, a, x in te._stage(it, ds, torch.uint8) for lg in te._fused_bucket(a, x)]
+    order = [i for idx, _, _ in te._stage(it, ds, torch.uint8) for i in idx]
+    for i, want in zip(order, fused):
+        assert torch.equal(got[i], want)
     assert te.run_epochs_fused(it, ds, n_epochs=1).n_batches == len(it)
 
 
@@ -366,14 +375,17 @@ def test_cli_regular(tmp_path, monkeypatch, capsys, mode, gin):
 
 
 def test_cli_regular_mega_refuses_wide_layers(tmp_path, monkeypatch, capsys):
+    """The kernel refuses a layer wider than 128 columns: the mega mode
+    runs the fused loop for every bucket, says so, and records it."""
     _toy_npz(tmp_path)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--dataset", "toy", "--data-dir", str(tmp_path), "--psize", "4",
-                  "--batch-size", "2", "--n-epochs", "1", "--device", "cpu", "--regular",
-                  "--mode", "mega", "--hidden", "144"])
-    err = capsys.readouterr().err
-    assert exc.value.code == 2 and "at most 128" in err and "--mode fused" in err
+    rc = cli.main(["--dataset", "toy", "--data-dir", str(tmp_path), "--psize", "4",
+                   "--batch-size", "2", "--n-epochs", "1", "--device", "cpu", "--regular",
+                   "--mode", "mega", "--hidden", "144"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "at most 128" in out and "falling back to the fused loop" in out
+    record = json.loads(out.strip().splitlines()[-1])
+    assert record["buckets"] and all(b["fallback"] for b in record["buckets"])
 
 
 @pytest.mark.parametrize("engine", ["--use_QGTC", "--regular"])

@@ -32,6 +32,8 @@ from torch_cases import (  # tests/ is on sys.path
     blocky_levels,
     edge_operands,
     hand_map,
+    k1_group,
+    k1_groups,
     k2_chain,
     k2_group,
     k2_groups,
@@ -309,6 +311,35 @@ def test_run_epochs_mega_on_card_equals_cpu(cuda, model):
         np.testing.assert_array_equal(g[:n, :k].cpu().numpy(), c[:n, :k].numpy())
     # evaluation with zerotile_jump=True: the step engine with its maps
     assert gpu.evaluate(it, ds.labels) == cpu.evaluate(it, ds.labels)
+
+
+# K1 redesigned (csrc/fused_model_k1.cuh): every form of X, every zero-block
+# form, under every forced plan, the whole output against plain, twice (no
+# race checker runs on the card: equal repeats are the evidence)
+@pytest.mark.parametrize("group", [kw for _, kw in k1_groups()], ids=[gid for gid, _ in k1_groups()])
+def test_k1_kernel_equals_plain(cuda, group):
+    for tag, kernel, plain in k1_group(cuda, **group):
+        before = fused_model.LAUNCHES
+        got = kernel()
+        assert fused_model.LAUNCHES == before + 1, tag
+        _check(got, plain())
+        _check(kernel(), got)
+
+
+def test_k1_refuses_a_plan_it_cannot_run(cuda, monkeypatch):
+    """The C entry checks the plan against its own sums: past the Python
+    check (patched out here), a plan of another shared-memory size, rows,
+    cluster, ring depth or stage depth is refused at the launch."""
+    a, x, ws, bits, _ = _mega_args(cuda, "gcn", 2, 1024, None)
+    p = fused_model.plan(a.shape, x.shape, ws, bits, "gcn", None, None)
+    kp = fused_model.fused_model_plan(p, "gcn")
+    monkeypatch.setattr(fused_model, "_check_forced", lambda plan, p, model: plan)
+    for bad in (dict(smem=kp.smem + 16), dict(rows=96), dict(cl=9), dict(rows=128, cl=9), dict(stages=2),
+                dict(stages=5), dict(depth=32), dict(smem=300 * 1024)):
+        with pytest.raises(RuntimeError, match="qgtc_fused_model"):
+            fused_model.fused_model_epoch(a, x, ws, bits, _plan=dataclasses.replace(kp, **bad))
+    assert torch.equal(fused_model.fused_model_epoch(a, x, ws, bits, _plan=kp),
+                       fused_model.fused_model_epoch_plain(a, x, ws, bits))
 
 
 # -- fused_model: levels-form X (the signed chain, the in-kernel split) ----

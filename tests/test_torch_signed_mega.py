@@ -234,7 +234,8 @@ def test_signed_weights_correction_rows(k):
     """The signed operands' algebra over any K from the weight's real rows
     (70) to its padded ones: Hs Ws[:K] + 128 rowsum(Hs) + corr == H W[:K]
     in int64, whatever Hs holds in the columns past the real rows (they
-    meet level 0). The kernel contracts the real widths rounded to 32."""
+    meet level 0). The kernel contracts the real widths rounded to 32
+    (its column granule, 16, rounded to the mma's depth)."""
     rng = np.random.default_rng(k)
     qw = rng.integers(0, 256, (70, 90))
     w = digits.digit_pack(torch.from_numpy(qw), 8)
@@ -254,11 +255,14 @@ def test_levels_plan_checks():
     ws = [digits.digit_pack(torch.from_numpy(w), 8) for w in qws]
     with pytest.raises(ValueError, match="x_levels_bits given but x_stack has 2 planes"):
         plan(aw.shape, xd.shape, ws, 8, "gcn", None, None, x_levels_bits=8)
-    for bad in (4, 9):
-        with pytest.raises(ValueError, match=r"x_levels_bits must be in \[5, 8\]"):
+    for bad in (0, 9):
+        with pytest.raises(ValueError, match=r"x_levels_bits must be in \[1, 8\]"):
             plan(aw.shape, levels_plane(xd).shape, ws, 8, "gcn", None, None, x_levels_bits=bad)
     p = plan(aw.shape, levels_plane(xd).shape, ws, 8, "gcn", None, None, x_levels_bits=8)
-    assert (p.form, p.x_bits, p.nd_x, p.widths) == ("signed", 8, 2, [32, 32, 128])
+    assert (p.form, p.x_bits, p.nd_x, p.widths) == ("signed", 8, 2, [16, 16, 128])
+    # 1-4-bit levels: one digit (JAX's x_split masks it to the bits)
+    p = plan(aw.shape, levels_plane(xd).shape, ws, 8, "gcn", None, None, x_levels_bits=4)
+    assert (p.form, p.x_bits, p.nd_x) == ("signed", 4, 1)
 
 
 # -- the engine: shifts, clamp_bits and the 8-bit mega path ------------------

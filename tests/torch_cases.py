@@ -430,3 +430,110 @@ def k6_group(device, seed, m, k, n, a_bits, b_bits, tile_map=None, full=False):
                 tag = f"{a_bits}x{b_bits} M={m} K={k} N={n} out_bits={out_bits} map={tile_map} {plan}"
                 calls.append((tag, lambda ob=out_bits, p=plan: bitgemm._bitmm(a, b, ob, tm, _plan=p), plain))
     return calls
+
+
+# K1's whole-model kernel (csrc/fused_model_k1.cuh): the cases the CUDA
+# tests and chip_smoke.py hold against plain under every forced plan.
+# Forms of X: (bits, levels form, hidden width or None for the model's,
+# every byte's bits above ``bits`` set: the split form must mask them off)
+K1_FORMS = {"digits2": (2, False, None, False), "digits8": (8, False, None, False),
+            "signed8": (8, True, None, False), "split8": (8, True, 128, False),
+            "signed1": (1, True, None, False), "signed2": (2, True, None, False),
+            "split1": (1, True, 128, False), "split2": (2, True, 128, False), "split4": (4, True, 128, False),
+            "split3-noisy": (3, True, 128, True)}
+# shapes: (B, pn) and each batch's occupied column blocks per row chunk
+# (``mega_case``'s keep): chunks with all, none, one, odd and even counts
+K1_SHAPES = {
+    "c1": (2, 2560, [[[0, 1, 2, 3, 4], [], [2], [0, 2, 4], [1, 3]],
+                     [[0, 1, 2], [4], [0, 1, 2, 3, 4], [], [0, 3]]]),
+    "pn768": (3, 768, [[[0, 1, 2], [1], []], [[2], [0, 2], [0, 1, 2]], [[], [0], [1, 2]]]),
+}
+
+
+def k1_groups():
+    """Every group of K1 cases: (id, kwargs of :func:`k1_group`). C1's
+    shape (pn 2560, 2 batches) and odd remainders (pn 768, 3 batches of 12
+    row tiles); GCN at hidden 16 and GIN at hidden 64; every form of X
+    (digit planes at 2 and 8 bits, the signed chain at 8, 1 and 2 bits and
+    the split form at 8, 1, 2 and 4 bits: the 1-4-bit levels form, each with
+    its own masks; the split forms at hidden 128, where no weight has a free
+    lane; 3-bit levels whose bytes carry set bits above the level);
+    feature widths 100 and 128 in turns."""
+    out = []
+    for s, sname in enumerate(K1_SHAPES):
+        for model, hidden in (("gcn", 16), ("gin", 64)):
+            for i, form in enumerate(K1_FORMS):
+                feat = 100 if (i + s) % 2 else 128
+                out.append((f"{sname}-{model}-{form}-f{feat}",
+                            dict(shape=sname, model=model, hidden=hidden, form=form, feat=feat,
+                                 seed=200 + 17 * s + 5 * i + (model == "gin"))))
+    return out
+
+
+def k1_plans(p, model):
+    """Every launch the tests force for the geometry ``p``: the chosen
+    plan, 64- and 128-row CTAs, the chosen rows at each stage depth (64,
+    128, 256 columns) on a ring of 3 stages, and on a cluster of 2 CTAs
+    (more row tiles each); the plans the kernel cannot run (too much shared
+    memory) are left out."""
+    from qgtc_ppopp22_tpu_torch.ops import fused_model
+
+    chosen = fused_model.fused_model_plan(p, model)
+    tries = [{}] + [dict(rows=r) for r in fused_model.K1_ROWS]
+    tries += [dict(rows=chosen.rows, depth=d, stages=3) for d in fused_model.K1_DEPTHS]
+    tries += [dict(rows=chosen.rows, cl=2)]
+    plans = []
+    for kw in tries:
+        try:
+            kp = fused_model.fused_model_plan(p, model, **kw)
+        except ValueError:
+            continue
+        if kp not in plans:
+            plans.append(kp)
+    return plans
+
+
+def k1_group(device, shape, model, hidden, form, feat, seed):
+    """The (tag, kernel, plain) calls of one :func:`k1_groups` entry: dense,
+    a block schedule that leaves out occupied blocks, and the 2-D
+    occupancy map as ``chunk_occ``, each under every plan of
+    :func:`k1_plans` through ``fused_model_epoch(..., _plan=)``; plain is
+    computed once per zero-block form. Shifts from :func:`chain_shifts` on
+    batch 0 keep every stage off its requantize rail."""
+    import functools
+
+    import torch
+
+    from qgtc_ppopp22_tpu_torch.ops import fused_model
+    from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack
+    from qgtc_ppopp22_tpu_torch.runtime import mega_block_occ, mega_block_sched
+
+    bits, levels, wide, noisy = K1_FORMS[form]
+    hidden = wide or hidden
+    B, pn, keep = K1_SHAPES[shape]
+    chunk = 512 if pn % 512 == 0 else 256
+    cb = fused_model.mega_colblock(pn)
+    qa, qx, qws, aw, xd = mega_case(seed, B, pn, bits, hidden, keep=keep, chunk=chunk, cb=cb, feat=feat)
+    shifts = chain_shifts(qa[0], qx[0], qws, model, bits)[0]
+    xn = levels_plane(xd) if levels else xd
+    if noisy:  # every bit above the level set
+        xn = (xn.view(np.uint8) | np.uint8(0xFF ^ ((1 << bits) - 1))).view(np.int8)
+    x = torch.from_numpy(xn).to(device)
+    a = torch.from_numpy(aw).to(device)
+    ws = [digit_pack(torch.from_numpy(w).to(device), bits) for w in qws]
+    sched = np.stack([mega_block_sched(w[None], chunk, cb) for w in aw])
+    full = int(np.argmax(sched[0, :, 0]))  # batch 0's fullest chunk
+    sched[0, full, 0] -= 2  # its last two listed (occupied) blocks left out
+    occ = np.stack([mega_block_occ(w[None], chunk, cb) for w in aw])
+    kw = dict(model=model, shifts=shifts, out_cols=40, x_cols=feat, x_levels_bits=bits if levels else None)
+    p = fused_model.plan(a.shape, x.shape, ws, bits, model, shifts, 40, x_levels_bits=kw["x_levels_bits"])
+    calls = []
+    for zname, zkw in (("dense", {}), ("blk_sched", dict(blk_sched=torch.from_numpy(sched).to(device))),
+                       ("chunk_occ", dict(chunk_occ=torch.from_numpy(occ).to(device)))):
+        plain = functools.cache(lambda z=zkw: fused_model.fused_model_epoch_plain(a, x, ws, bits, **kw, **z))
+        for kp in k1_plans(p, model):
+            tag = (f"K1 {model} {form} B={B} pn={pn} hidden={hidden} feat={feat} {zname} ({p.form}) "
+                   f"rows {kp.rows} cl {kp.cl} stages {kp.stages} depth {kp.depth}")
+            calls.append((tag, lambda z=zkw, pl=kp: fused_model.fused_model_epoch(a, x, ws, bits, **kw, **z,
+                                                                                  _plan=pl), plain))
+    return calls
