@@ -9,8 +9,10 @@ Runs, and stops with a non-zero exit at the first failure:
    builds the kernels of ``qgtc_ppopp22_tpu_torch/csrc`` with nvcc and
    prints ``ptxas -v``'s report; every one of the 72 instantiations of
    K2's 1/2/4-bit kernel (``csrc/packmm_k2.cuh``), of the 48 of K6's
-   (``csrc/bitmm_k6.cuh``) and of the 34 of K1's (``csrc/fused_model_k1.cuh``)
-   must spill 0 bytes.
+   (``csrc/bitmm_k6.cuh``), of the 34 of K1's (``csrc/fused_model_k1.cuh``),
+   of the 16 of K3's (``csrc/digitmm_k3.cuh``) and of the 2 of K5's
+   (``csrc/fused_baseline_k5.cuh``) must spill 0 bytes, and ptxas must
+   not serialize K5's wgmmas (warnings C7512, C7520).
 1. Each kernel against its plain PyTorch version on the same CUDA
    tensors, at 1/2/4/8 bits, shifts 0 and 2, the slice's shapes
    (pn = 2560, K in {128, 2560}, N in {16, 40}) and one ragged
@@ -42,7 +44,16 @@ Runs, and stops with a non-zero exit at the first failure:
    "integer" case (nothing rounds) and the "rounding" case (every cast
    rounds, every sum exact), and within max |kernel - plain| <= 2^-6 max
    |plain| per row of logits on random 0/1 adjacency at arxiv density
-   plus a few dense rows. Then the one-bit tensor-core kernel ``bitmm``
+   plus a few dense rows. Then K5 under every forced plan
+   (``torch_cases.k5_groups``: the chosen plan and one and two batches
+   in flight; pn 512, 768 and 2560, sage hidden 16 and gin hidden 64, 1, 2, 3 and 8 layers, 2, 3
+   and 5 batches, X 200 wide at ragged widths): "integer" and "rounding"
+   bit for bit, "random" within 2^-6 per row, each output twice, equal.
+   Then K3 under every forced plan (``torch_cases.k3_groups``: C1's three
+   updates, N 16-200, K 16-700, 1 and 2 digit planes,
+   ``build_tile_map_digits``'s and hand-made maps; column tiles 16 and 32,
+   rows 16, 32, 64; digits, f32 and i32 out): the whole padded output bit for bit,
+   each output twice. Then the one-bit tensor-core kernel ``bitmm``
    against ``bitmm_plain``, word for word: (a_bits, b_bits) in (1,1),
    (1,2), (2,2), (3,5), (4,4), (8,8), (1,8), each to 1/2/4/8-bit planes
    and to float32, at C1's aggregation (A[2560x2560] x H[2560x16]) and
@@ -260,8 +271,8 @@ def main() -> int:
     from types import SimpleNamespace
 
     from torch_cases import (BF16_REL_TOL, baseline_case, bf16_rel_err, blocky_levels, chain_shifts, edge_operands,
-                             hand_map, k1_group, k1_groups, k2_chain, k2_group, k2_groups, k6_group, k6_groups,
-                             levels_plane, mega_case, operands)
+                             hand_map, k1_group, k1_groups, k2_chain, k2_group, k2_groups, k3_group, k3_groups,
+                             k5_group, k5_groups, k6_group, k6_groups, levels_plane, mega_case, operands)
     from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe, exp_packmm, grid_overhead_study, kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward
@@ -288,7 +299,8 @@ def main() -> int:
     entry = ""
     corr = {"0": "", "1": ", signed A", "2": ", PreparedRHS"}
     # K2's 1/2/4-bit kernel and K6's: one line each for all their instantiations
-    k2_regs, k2_spill, k6_regs, k6_spill, k1_regs, k1_spill = {}, {}, {}, {}, {}, {}
+    k2_regs, k2_spill, k6_regs, k6_spill, k1_regs, k1_spill, k3_regs, k3_spill = {}, {}, {}, {}, {}, {}, {}, {}
+    k5_regs, k5_spill, serialized = {}, {}, []
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -302,6 +314,16 @@ def main() -> int:
             if k:
                 entry = f"k6_kernel<{k[1]}x{k[2]} planes, {k[3]} columns{', mapped' if k[4] == '1' else ''}>"
                 k6_spill[entry] = 0
+                continue
+            k = re.search(r"k3_kernelILi(\d)ELi(\d)ELi(\d+)ELb(\d)E", entry)
+            if k:
+                entry = f"k3_kernel<{k[1]}x{k[2]} planes, {k[3]} columns{', mapped' if k[4] == '1' else ''}>"
+                k3_spill[entry] = 0
+                continue
+            k = re.search(r"k5_kernelILi(\d+)E", entry)
+            if k:
+                entry = f"k5_kernel<{k[1]} update n-tiles>"
+                k5_spill[entry] = 0
                 continue
             k = re.search(r"k1_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)ELi(\d+)E", entry)
             if k:
@@ -317,14 +339,17 @@ def main() -> int:
                          f"{', mapped' if t[5] == '1' else ''}> {t[6]}"
                          + (f"<{t[7]}>" if t[7] else ""))
             else:
-                entry = next((entry[entry.find(k):][:60] for k in ("fused_baseline_kernel",
-                                                                      "exp_packmm_kernel",
+                entry = next((entry[entry.find(k):][:60] for k in ("exp_packmm_kernel",
                                                                       "bitcast", "fragment_probe",
                                                                       "zero_body_kernel", "kdot_kernel")
                               if k in entry), entry[-60:])
-        elif entry in k2_spill or entry in k6_spill or entry in k1_spill:
+        elif "wgmma" in line and "serialized" in line:  # ptxas C7512 / C7520
+            serialized.append(line.strip())
+        elif entry in k2_spill or entry in k6_spill or entry in k1_spill or entry in k3_spill or entry in k5_spill:
             regs, spill = ((k2_regs, k2_spill) if entry in k2_spill else
-                           (k6_regs, k6_spill) if entry in k6_spill else (k1_regs, k1_spill))
+                           (k6_regs, k6_spill) if entry in k6_spill else
+                           (k3_regs, k3_spill) if entry in k3_spill else
+                           (k5_regs, k5_spill) if entry in k5_spill else (k1_regs, k1_spill))
             if "Used" in line:
                 regs[entry] = int(re.search(r"Used (\d+) registers", line)[1])
             elif "spill" in line:
@@ -346,6 +371,16 @@ def main() -> int:
           f"columns 16/32/64 x dense/mapped): {min(k6_regs.values())}-{max(k6_regs.values())} registers, "
           f"0 bytes of spill; " + ", ".join(f"{k} {v}" for k, v in k6_regs.items() if "16 columns>" in k))
 
+    if len(k3_regs) != 16 or any(k3_spill.values()):
+        raise AssertionError(f"k3_kernel: {len(k3_regs)} instantiations (want 16), spills "
+                             f"{ {k: v for k, v in k3_spill.items() if v} }")
+    print(f"  ptxas: k3_kernel, {len(k3_regs)} instantiations (planes 1x1/1x2/2x1/2x2 x columns 16/32 x "
+          f"dense/mapped): {min(k3_regs.values())}-{max(k3_regs.values())} registers, 0 bytes of spill")
+    if len(k5_regs) != 2 or any(k5_spill.values()) or serialized:
+        raise AssertionError(f"k5_kernel: {len(k5_regs)} instantiations (want 2), spills "
+                             f"{ {k: v for k, v in k5_spill.items() if v} }, serialized wgmma: {serialized}")
+    print(f"  ptxas: k5_kernel, 2 instantiations: " + ", ".join(f"{k} {v} registers" for k, v in k5_regs.items())
+          + ", 0 bytes of spill, no serialized wgmma")
     if len(k1_regs) != 34 or any(k1_spill.values()):
         raise AssertionError(f"k1_kernel: {len(k1_regs)} instantiations (want 34), spills "
                              f"{ {k: v for k, v in k1_spill.items() if v} }")
@@ -539,6 +574,49 @@ def main() -> int:
                     worst_rel = max(worst_rel, rel)
                     if rel > BF16_REL_TOL:
                         raise AssertionError(f"{what}: relative error {rel} > {BF16_REL_TOL} in a row")
+    # K5 under every forced plan (torch_cases.k5_groups): the "integer" and
+    # "rounding" cases bit for bit, "random" within BF16_REL_TOL per row,
+    # each output twice
+    t1, k5_cases = time.perf_counter(), 0
+    for _, kw in k5_groups():
+        for tag, kind, kernel, plain in k5_group(dev, **kw):
+            before = fused_model.BASELINE_LAUNCHES
+            got = kernel()
+            if fused_model.BASELINE_LAUNCHES != before + 1:
+                raise AssertionError(f"{tag}: not one fused_baseline launch")
+            want = plain()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{tag}: {tuple(got.shape)} vs {tuple(want.shape)}")
+            err["fused_baseline"] = max(err["fused_baseline"], (got - want).abs().max().item())
+            if kind != "random":
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{tag}: kernel != plain bit for bit")
+            else:
+                rel = bf16_rel_err(got, want)
+                worst_rel = max(worst_rel, rel)
+                if rel > BF16_REL_TOL:
+                    raise AssertionError(f"{tag}: relative error {rel} > {BF16_REL_TOL} in a row")
+            if not torch.equal(kernel(), got):
+                raise AssertionError(f"{tag}: computed again, the output differs")
+            k5_cases += 1
+    print(f"phase 1: K5 in {len(k5_groups())} case groups under every forced plan ({k5_cases} cases, each "
+          f"output twice) == plain ({time.perf_counter() - t1:.1f} s)")
+    # K3 under every forced plan (torch_cases.k3_groups): every out form,
+    # bit for bit over the whole padded output, each output twice
+    t1, k3_cases = time.perf_counter(), 0
+    for _, kw in k3_groups():
+        for tag, kernel, plain in k3_group(dev, **kw):
+            before = digitmm.LAUNCHES
+            got = kernel()
+            if digitmm.LAUNCHES != before + 1:
+                raise AssertionError(f"{tag}: not one digitmm launch")
+            compare("digitmm", got, plain(), tag)
+            compare("digitmm", kernel(), got, f"{tag}, computed again")
+            k3_cases += 1
+    print(f"phase 1: K3 in {len(k3_groups())} case groups under every forced plan ({k3_cases} cases, each "
+          f"output twice) == plain ({time.perf_counter() - t1:.1f} s)")
+
     # the one-bit tensor-core kernel, word for word against plain
     def on_bits(q, bits):
         return pack_bits(torch.from_numpy(q).to(dev), bits)
@@ -1248,6 +1326,7 @@ def main() -> int:
                                ((qa, 1), (qh16, 2), (qx, 2), (qw1, 2), (qh40, 2)))
     qw2 = operands(SEED, 16, 16, 16, 2, 2, 2, 0)[1]
     w2, wb2 = on_card(qw2, 2), on_bits(qw2, 2)
+    w40 = on_card(operands(SEED, 16, 16, 40, 2, 2, 2, 0)[1], 2)
     def plan_of(a_, b_, out_bits, out_form="digits", raw=False, out_cols=None, tile_map=None):
         """packmm_plan's choice for a K2 call, as printed beside its time."""
         ocp = packmm._stored_cols(out_form, out_cols, b_.padded_cols)
@@ -1266,6 +1345,13 @@ def main() -> int:
     for _, what, l, r, ob in k6_rows:
         p6 = bitgemm.bitmm_plan(l.padded_rows, l.padded_cols, r.padded_cols, r.shape[1], "bits" if ob else "f32")
         k2_plans[what] = f"BNT {p6.bnt}, S {p6.splits}, cluster {p6.cluster}, grid {p6.grid}"
+    for what, l, r in (("digitmm_to_digits X[2560x128] x W[128x16]", x, w1),
+                       ("digitmm_to_digits H[2560x16] x W[16x16]", h16, w2),
+                       ("digitmm_to_digits H[2560x16] x W[16x40]", h16, w40)):
+        p3_ = digitmm.digitmm_plan(l.ndigits, r.ndigits, l.padded_rows, l.padded_cols, r.digits.shape[2],
+                                   l.shape[1], r.shape[1])
+        k2_plans[what] = (f"K {p3_.kr}, N {p3_.nr}, BNT {p3_.bnt}, rows {p3_.rows}, stage {p3_.ks}, "
+                          f"grid {p3_.grid}")
     timed = [
         ("packmm", "packmm_to_digits A[2560x2560] x H[2560x16]",
          lambda: packmm.packmm_to_digits(a, h16, 2), lambda: packmm.packmm_plain(a, h16, 2)),
@@ -1275,6 +1361,8 @@ def main() -> int:
          lambda: digitmm.digitmm_to_digits(x, w1, 2), lambda: digitmm.digitmm_plain(x, w1, 2)),
         ("digitmm", "digitmm_to_digits H[2560x16] x W[16x16]",
          lambda: digitmm.digitmm_to_digits(h16, w2, 2), lambda: digitmm.digitmm_plain(h16, w2, 2)),
+        ("digitmm", "digitmm_to_digits H[2560x16] x W[16x40]",
+         lambda: digitmm.digitmm_to_digits(h16, w40, 2), lambda: digitmm.digitmm_plain(h16, w40, 2)),
     ] + [(kind, what, lambda l=l, r=r, ob=ob: bitgemm.bitmm_to_bits(l, r, ob) if ob else bitgemm.bitmm_to_int(l, r),
           lambda l=l, r=r, ob=ob: bitgemm.bitmm_plain(l, r, ob)) for kind, what, l, r, ob in k6_rows]
     # the mega path's one launch per epoch, at its shapes, beside plain
@@ -1357,6 +1445,17 @@ def main() -> int:
     timed.append(("fused_baseline gin", "fused_baseline epoch, gin widths (hidden 64)",
                   lambda: fused_model.fused_baseline_epoch(*bfn.args[:2], bgin.weights, packed=p_gin),
                   None))
+    # a record, not the library column: cuBLAS's bf16 batched product for
+    # the first layer's aggregation (A and X in bf16), whether the hand
+    # kernel's MMAs reach it
+    k5_bmm = (bfn.args[0].to(torch.bfloat16), bfn.args[1].to(torch.bfloat16))
+    timed.append(("fused_baseline bmm", "torch.bmm bf16 A x X, the first layer's aggregation (a record)",
+                  lambda: torch.bmm(*k5_bmm), None))
+    for what_, fws in ((timed[-4][1], bfn.args[2]), (timed[-3][1], w_one), (timed[-2][1], bgin.weights)):
+        p5 = fused_model.fused_baseline_plan(bfn.args[0].shape, bfn.args[1].shape, [tuple(w.shape) for w in fws],
+                                             sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+        k2_plans[what_] = (f"groups {p5.groups}, ctas {p5.ctas}, stage depths {p5.kd}, smem {p5.smem}, "
+                           f"grid {p5.grid}")
     # zero-tile jumping at C1's shape: batch 0's real adjacency with its
     # map, beside the same call without it (K2; K3 over the adjacency as
     # a digit plane, with the digit builder's map)
@@ -1553,6 +1652,9 @@ def main() -> int:
                  kernel_ms["packmm"])]
     k6_reads += [(f"{kind} below torch._int_mm on its unpacked operands", kernel_ms[kind], lib_ms[kind])
                  for kind, *_ in k6_rows]
+    print(f"phase 3: K5's first layer {kernel_ms['fused_baseline 1 layer'] * 1e3:.1f} us (its aggregation, "
+          f"update and X's conversion) against cuBLAS's bf16 aggregation alone (torch.bmm, a record) "
+          f"{kernel_ms['fused_baseline bmm'] * 1e3:.1f} us [{card}]")
     for what, k_ms, y_ms in k6_reads:
         print(f"phase 3: K6 {what}: {k_ms * 1e3:.2f} against {y_ms * 1e3:.2f} us, "
               f"{'met' if k_ms <= y_ms else 'not met'} [{card}]")
@@ -1671,13 +1773,13 @@ def main() -> int:
               f"plain {times[k][1] * 1e3:.1f} us{lib} [{card}]")
 
     sources = {"packmm": ("packmm_k2.cuh", "qgtc_ppopp22_tpu/ops/packmm.py:664", launches),
-               "digitmm": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", launches),
+               "digitmm": ("digitmm_k3.cuh", "qgtc_ppopp22_tpu/ops/digitmm.py:193", launches),
                "fused_model": ("fused_model_k1.cuh", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
                                mega_launches),
                # levels-form X: the 8-bit mega path's signed-chain launches
                "fused_model_levels": ("fused_model_k1.cuh", "qgtc_ppopp22_tpu/ops/fused_model.py:329",
                                       levels_launches),
-               "fused_baseline": ("fused_baseline.cu", "qgtc_ppopp22_tpu/ops/fused_model.py:1299",
+               "fused_baseline": ("fused_baseline_k5.cuh", "qgtc_ppopp22_tpu/ops/fused_model.py:1299",
                                   base_launches),
                "bitmm": ("bitmm_k6.cuh", "qgtc_ppopp22_tpu/ops/bitgemm.py:266", bits_launches),
                "packmm_signed": ("packmm_signed.cu", "qgtc_ppopp22_tpu/ops/packmm.py:473",
@@ -1685,7 +1787,7 @@ def main() -> int:
                # the TileMap K skip: the zero-tile path's mapped launches
                "packmm_skip": ("packmm_k2.cuh", "qgtc_ppopp22_tpu/ops/packmm.py:664",
                                {"packmm_skip": zero_launches["packmm with a map"]}),
-               "digitmm_skip": ("digitmm.cu", "qgtc_ppopp22_tpu/ops/digitmm.py:193", digit_a_launches),
+               "digitmm_skip": ("digitmm_k3.cuh", "qgtc_ppopp22_tpu/ops/digitmm.py:193", digit_a_launches),
                # the kernel-study probes: the studies' launches
                "exp_packmm": ("exp_packmm.cu", "benchmarks/exp_packmm.py:146", probe_launches),
                "exp_packmm_packedout": ("exp_packmm.cu", "benchmarks/exp_packmm.py:60", probe_launches),

@@ -7,14 +7,18 @@ packed out at 1, 2 and 4 bits, K4 ``packmm_signed`` at 8 bits), and the
 whole-model kernel K1 ``fused_model_epoch`` over C1's 75 batches: 2-bit
 with the compacted block schedule and dense (C1), and 8-bit levels (C1-8,
 ``shifts=[6, 2, 11, 2, 11]``: the signed chain) dense and with C1's
-schedule.
+schedule; K3 at C1's three updates (X x W0, H x W1, H x W2); the bf16
+baseline's K5 ``fused_baseline_epoch`` over the same 75 batches as the
+baseline mega engine stages them (C1-baseline: sage, 128 -> 16 -> 16 ->
+40), its first layer alone (128 -> 40) and the gin widths (hidden 64).
 
 The script calls only what the port has offered since zero-tile jumping
 (``packmm_to_digits`` with and without a map, ``packmm_to_f32``,
 ``digitmm_to_digits``, ``bitmm_to_bits``, ``bitmm_to_int``,
 ``kernel_sweep.figure_cases``, a batch's ``a_words`` and ``tile_kidx`` /
-``tile_kcnt``, ``QGTCEngine(fmt="bits")``, ``fused_model_epoch`` and
-``run_epochs_mega``), so two checkouts can be
+``tile_kcnt``, ``QGTCEngine(fmt="bits")``, ``fused_model_epoch``,
+``run_epochs_mega``, ``BaselineEngine._stage_mega`` and
+``fused_baseline_epoch``), so two checkouts can be
 timed on one card in one command: copy it into the other checkout's
 ``benchmarks/`` folder and run it from each checkout's root in turns (A,
 B, B, A), each run on the kernels that its checkout builds. Operands come
@@ -28,12 +32,15 @@ engines' E1, E1z and E4 on the same 75 batches (``QGTCEngine.run_epochs``,
 resident: digits dense, digits with ``zerotile_jump=True``, and
 ``fmt="bits"``): one line each (``{"tag", "row", "ms"}``) with the
 host-clock ms/epoch of ``--epoch-runs`` runs of 5 epochs, taken in turns,
-then E3 and E3-8 (``run_epochs_mega``, 2-bit and 8-bit, 20 epochs a run).
-``--plans`` (``packmm_plan(..., bnt=)``, ``bitmm_plan(..., bnt=)`` and
-``fused_model_plan``, this checkout only) adds K2 at C1's rows and at
-4096² on each column tile it can take, K6 at C1's aggregations on each
-column tile and split, and K1 at C1 and C1-8 on each of its plans' rows
-per CTA, stage depths and ring depths, each line with its plan.
+then E3 and E3-8 (``run_epochs_mega``, 2-bit and 8-bit, 20 epochs a run)
+and B3 (``BaselineEngine.run_epochs_mega``, sage, 20 epochs a run).
+``--plans`` (``packmm_plan(..., bnt=)``, ``bitmm_plan(..., bnt=)``,
+``fused_model_plan``, ``digitmm_plan`` and ``fused_baseline_plan``, this
+checkout only) adds K2 at C1's rows and at 4096² on each column tile it
+can take, K6 at C1's aggregations on each column tile and split, K1 at C1
+and C1-8 on each of its plans' rows per CTA, stage depths and ring depths,
+K3 at C1's updates on each column tile and tile height, and K5 at
+C1-baseline on each count of batches in flight, each line with its plan.
 ``--scaling`` adds K1 at C1 dense over the first 1, 8, 16, 32 and 75
 batches, on one batch on clusters of 1 and 2 CTAs, and on all 75 on
 clusters of 2, 4, 5 and 8. Needs a CUDA device.
@@ -75,8 +82,9 @@ def c1_calls(seed: int, device) -> dict:
 
     qa, qh16, qh40 = levels(PN, PN, 1), levels(PN, HIDDEN, BITS), levels(PN, CLASSES, BITS)
     qx, qw, qw2 = levels(PN, FEAT, BITS), levels(FEAT, HIDDEN, BITS), levels(HIDDEN, HIDDEN, BITS)
+    qw3 = levels(HIDDEN, CLASSES, BITS)
     a = pack_rows(qa, 1)
-    h16, h40, x, w = (digit_pack(q, BITS) for q in (qh16, qh40, qx, qw))
+    h16, h40, x, w, w2, w3 = (digit_pack(q, BITS) for q in (qh16, qh40, qx, qw, qw2, qw3))
     ab = pack_bits(qa, 1)
     hb16, hb40, xb, wb, wb2 = (pack_bits(q, BITS) for q in (qh16, qh40, qx, qw, qw2))
     return {
@@ -86,6 +94,10 @@ def c1_calls(seed: int, device) -> dict:
             lambda: packmm.packmm_to_f32(a, h40),
         f"digitmm_to_digits X[{PN}x{FEAT}] x W[{FEAT}x{HIDDEN}] 2-bit":
             lambda: digitmm.digitmm_to_digits(x, w, BITS),
+        f"digitmm_to_digits H[{PN}x{HIDDEN}] x W[{HIDDEN}x{HIDDEN}] 2-bit":
+            lambda: digitmm.digitmm_to_digits(h16, w2, BITS),
+        f"digitmm_to_digits H[{PN}x{HIDDEN}] x W[{HIDDEN}x{CLASSES}] 2-bit":
+            lambda: digitmm.digitmm_to_digits(h16, w3, BITS),
         f"bitmm_to_bits A[{PN}x{PN}] 1-bit x H[{PN}x{HIDDEN}] 2-bit":
             lambda: bitgemm.bitmm_to_bits(ab, hb16, BITS),
         f"bitmm_to_int A[{PN}x{PN}] 1-bit x H[{PN}x{CLASSES}] 2-bit":
@@ -176,6 +188,104 @@ def plan_calls(seed: int, device) -> dict:
                 rows[f"plan bitmm {form} A[{PN}x{PN}] 1-bit x H[{PN}x{n}]: {dataclasses.astuple(plan)}{mark}"] = (
                     lambda hb=hb, ob=ob, p=plan: bitgemm._bitmm(ab, hb, ob, None, _plan=p))
     return rows
+
+
+def k3_plan_calls(seed: int, device) -> dict:
+    """K3 at C1's three updates on each column tile and tile height
+    ``digitmm_plan`` can take; the default plan is marked."""
+    import dataclasses
+
+    rng = np.random.default_rng(seed)
+
+    def dt(rows, cols):
+        return digit_pack(torch.from_numpy(rng.integers(0, 1 << BITS, (rows, cols)).astype(np.int32)).to(device), BITS)
+
+    rows = {}
+    h16 = dt(PN, HIDDEN)
+    for a, b in ((dt(PN, FEAT), dt(FEAT, HIDDEN)), (h16, dt(HIDDEN, HIDDEN)), (h16, dt(HIDDEN, CLASSES))):
+        args = (a.ndigits, b.ndigits, a.padded_rows, a.padded_cols, b.digits.shape[2], a.shape[1], b.shape[1])
+        chosen = digitmm.digitmm_plan(*args)
+        for bnt in digitmm.K3_BNTS:
+            for r in digitmm.K3_ROWS:
+                plan = digitmm.digitmm_plan(*args, bnt=bnt, rows=r)
+                mark = ", chosen" if plan == chosen else ""
+                rows[f"plan K3 X[{a.shape[0]}x{a.shape[1]}] x W[{b.shape[0]}x{b.shape[1]}]: "
+                     f"{dataclasses.astuple(plan)}{mark}"] = (
+                    lambda a=a, b=b, p=plan: digitmm._digitmm(a, b, BITS, 0, False, None, _plan=p))
+    return rows
+
+
+def k5_operands(ds, batcher, device):
+    """K5's operands over C1's 75 batches as the baseline mega engine stages
+    them: the stacked int8 adjacency and f32 features, the sage weights
+    (C1-baseline), a first layer alone [128 x 40] and the gin weights
+    (hidden 64), each with its packed weights."""
+    from qgtc_ppopp22_tpu_torch.ops import fused_model
+    from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine
+
+    kw = dict(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, seed=3, device=device)
+    sage = BaselineEngine(model="sage", **kw)
+    staged = sage._stage_mega(batcher, ds)
+    if len(staged) != 1:
+        raise RuntimeError(f"expected one bucket, got {len(staged)}")
+    a, x, ws = staged[0][1].args
+    one = [torch.from_numpy(np.random.default_rng(3).standard_normal((batcher.feat_dim, ds.num_classes))
+                            .astype(np.float32) * 0.1).to(device)]
+    gin = BaselineEngine(model="gin", **kw).weights
+    return a, x, {name: (w, fused_model.pack_baseline_weights(w))
+                  for name, w in (("C1-baseline", ws), ("first layer [128 -> 40]", one), ("gin widths", gin))}
+
+
+def k5_calls(a, x, weights: dict) -> dict:
+    """K5 over C1's 75 batches through ``fused_baseline_epoch``."""
+    from qgtc_ppopp22_tpu_torch.ops import fused_model
+
+    return {f"K5 fused_baseline_epoch {name}": (lambda w=w, pk=pk: fused_model.fused_baseline_epoch(a, x, w, packed=pk))
+            for name, (w, pk) in weights.items()}
+
+
+def k5_plan_calls(a, x, weights: dict) -> dict:
+    """K5 at C1-baseline on each count of batches in flight
+    ``fused_baseline_plan`` can take on this card; the default plan is
+    marked."""
+    from qgtc_ppopp22_tpu_torch.ops import fused_model
+
+    w, pk = weights["C1-baseline"]
+    shapes = [tuple(t.shape) for t in w]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    chosen = fused_model.fused_baseline_plan(a.shape, x.shape, shapes, sms=sms)
+    rows = {}
+    for g in range(1, chosen.groups + 1):
+        plan = fused_model.fused_baseline_plan(a.shape, x.shape, shapes, g=g, sms=sms)
+        mark = ", chosen" if plan == chosen else ""
+        rows[f"plan K5 C1-baseline: groups {plan.groups} ctas {plan.ctas} (layers {plan.kd}) smem {plan.smem}{mark}"] = (
+            lambda pl=plan: fused_model.fused_baseline_epoch(a, x, w, packed=pk, _plan=pl))
+    return rows
+
+
+def step_epoch_calls(ds, batcher, device) -> dict:
+    """One resident digit step epoch over C1's batches, every kernel and
+    torch op of it (the device time E1's host clock hides: K2, K3 and the
+    digit conversion)."""
+    from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
+
+    eng = QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gcn", bit_width=BITS, seed=3,
+                     device=device)
+    staged = [eng.put_batch(b) for b in batcher.batches]
+    return {"digits step epoch (E1's device work), all its kernels": lambda: [eng._step(*t) for t in staged]}
+
+
+def baseline_rows(ds, batcher, device, runs: int) -> dict:
+    """B3: the baseline mega engine's host-clock ms/epoch over C1's batches
+    (sage, one ``fused_baseline`` launch an epoch), ``runs`` runs of 20
+    epochs."""
+    from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine
+
+    eng = BaselineEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="sage", seed=3,
+                         device=device)
+    eng.run_epochs_mega(batcher, ds, n_epochs=2)  # warm: staging, the first launch
+    return {"B3 baseline mega engine ms/epoch": [eng.run_epochs_mega(batcher, ds, n_epochs=20).avg_ms
+                                                 for _ in range(runs)]}
 
 
 def _x_stack(batcher, bits: int, device) -> torch.Tensor:
@@ -334,9 +444,9 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--seed", type=int, default=3)
     p.add_argument("--epoch-runs", type=int, default=3, help="runs of 5 epochs for E1, E1z and E4 (0: none)")
-    p.add_argument("--mega-runs", type=int, default=3, help="runs of 20 epochs for E3 and E3-8 (0: none)")
+    p.add_argument("--mega-runs", type=int, default=3, help="runs of 20 epochs for E3, E3-8 and B3 (0: none)")
     p.add_argument("--plans", action="store_true",
-                   help="K2 and K6 on each column tile they can take, K1 on each of its plans")
+                   help="K2 and K6 on each column tile they can take, K1, K3 and K5 on each of their plans")
     p.add_argument("--scaling", action="store_true",
                    help="K1 at C1 dense over 1 to 75 batches and cluster sizes")
     args = p.parse_args(argv)
@@ -357,13 +467,20 @@ def main(argv=None) -> int:
     batcher8 = ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=8, seed=3, cache_dir="./datasets")
     k1_ops = k1_operands(ds, batcher, batcher8, dev)
     rows.update(k1_calls(k1_ops))
+    k5_a, k5_x, k5_w = k5_operands(ds, batcher, dev)
+    rows.update(k5_calls(k5_a, k5_x, k5_w))
+    rows.update(step_epoch_calls(ds, batcher, dev))
     if args.plans:
         rows.update(plan_calls(args.seed, dev))
         rows.update(k1_plan_calls(k1_ops))
+        rows.update(k3_plan_calls(args.seed, dev))
+        rows.update(k5_plan_calls(k5_a, k5_x, k5_w))
     if args.scaling:
         rows.update(k1_scaling_calls(k1_ops))
     fns = {(name, rep): fn for rep in (0, 1) for name, fn in rows.items()}
-    dt = device_times_ms(fns, iters=args.iters)
+    # a step epoch runs thousands of small ops: few calls keep the
+    # profiler's session within what it records
+    dt = device_times_ms(fns, iters={k: 2 if k[0].startswith("digits step epoch") else args.iters for k in fns})
     print(f"card: {card_line()}")
     for name in rows:
         us = min(dt[(name, 0)], dt[(name, 1)]) * 1e3
@@ -373,6 +490,8 @@ def main(argv=None) -> int:
             print(json.dumps({"tag": args.tag, "row": name, "ms": [round(v, 3) for v in ms]}), flush=True)
     if args.mega_runs:
         for name, ms in mega_rows(ds, batcher, batcher8, dev, args.mega_runs).items():
+            print(json.dumps({"tag": args.tag, "row": name, "ms": [round(v, 3) for v in ms]}), flush=True)
+        for name, ms in baseline_rows(ds, batcher, dev, args.mega_runs).items():
             print(json.dumps({"tag": args.tag, "row": name, "ms": [round(v, 3) for v in ms]}), flush=True)
     return 0
 

@@ -91,14 +91,16 @@ def library() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(str(LIB_PATH))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # digitmm's 17 arguments: (out, a, b, a_arg, nd_b, mp, kp, np,
-        # out_kind, out_bits, shift, ocp, kidx, kcnt, tile_m, tile_k,
-        # stream), a_arg being nd_a for digitmm and the field width for
-        # packmm, ocp the stored columns of the f32, i32 and packed
+        # packmm's 17 arguments: (out, a, b, field width, nd_b, mp, kp,
+        # np, out_kind, out_bits, shift, ocp, kidx, kcnt, tile_m, tile_k,
+        # stream), ocp the stored columns of the f32, i32 and packed
         # outputs, kidx / kcnt the TileMap (null: dense); see
         # csrc/gemm_core.cuh.
         mapped = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, i, i, p]
-        lib.qgtc_digitmm.argtypes = mapped
+        # digitmm takes (out, a, b, kidx, kcnt, meta, stream): meta is a
+        # host int array of the sizes, the real extents and
+        # ops/digitmm.py digitmm_plan's launch, laid out in csrc/digitmm.cu.
+        lib.qgtc_digitmm.argtypes = [p] * 7
         lib.qgtc_digitmm.restype = i
         # packmm adds (n, bnt, grid x/y/z, cluster x/y/z) before the
         # stream: B's real columns and the 1/2/4-bit route's plan
@@ -113,9 +115,9 @@ def library() -> ctypes.CDLL:
         # is a host int array, laid out in csrc/fused_model.cu.
         lib.qgtc_fused_model.argtypes = [p, p, p, p, p, p, p, p, i, p]
         lib.qgtc_fused_model.restype = i
-        # (out, a, x, w, scratch, meta, n_meta, stream); meta laid out in
-        # csrc/fused_baseline.cu.
-        lib.qgtc_fused_baseline.argtypes = [p, p, p, p, p, p, i, p]
+        # (out, a, x, w, scratch, bar, meta, n_meta, stream); meta laid
+        # out in csrc/fused_baseline.cu, bar the groups' zeroed counters.
+        lib.qgtc_fused_baseline.argtypes = [p, p, p, p, p, p, p, i, p]
         lib.qgtc_fused_baseline.restype = i
         # (out, a, b, kidx, kcnt, meta, stream); meta is a host int array
         # of the sizes, B's real columns and ops/bitgemm.py bitmm_plan's

@@ -51,7 +51,9 @@ ring's depth and its stages' depth). Not ported:
 K5 (``csrc/fused_baseline.cu``): the dense bf16 chain of
 ``models/baselines.sage_forward`` over ``int8[B, pn, pn]`` 0/1 adjacency
 stacks and float features, one launch per bucket, dispatched the same
-way to :func:`fused_baseline_epoch_plain` on the CPU.
+way to :func:`fused_baseline_epoch_plain` on the CPU, on the launch that
+:func:`fused_baseline_plan` chooses (batches in flight, CTAs per
+batch).
 """
 
 from __future__ import annotations
@@ -540,12 +542,14 @@ def _check_forced(kp: K1Plan, p: MegaPlan, model: str) -> K1Plan:
 
 # -- K5: the full-precision baseline in one launch --------------------------
 
-BASELINE_MAX_LAYERS = 8  # csrc/fused_baseline.cu MAX_LAYERS
+BASELINE_MAX_LAYERS = 8  # csrc/fused_baseline_k5.cuh MAX_LAYERS
 _BF16_WIDTH = 16  # the bf16 MMA's column granule: widths round up to it
 _BASELINE_MAX_COLS = 128  # widest padded layer output the kernel takes
-# csrc/fused_baseline.cu: the A and h rings, then W^T of the widest layer
-_BASELINE_SMEM_RINGS = 2 * 64 * 80 + 2 * 64 * 136 * 2
 _SMEM_LIMIT = 227 * 1024
+K5_ROWS = 128  # rows per CTA: two consumer warpgroups of 64
+K5_STAGES = 3  # TMA ring slots (4 read 778.8 against 777 us at C1-baseline: PERF.md §6)
+_K5_NC = 128  # aggregation columns of a layer in one pass
+_K5_KW = 64  # columns of a pass in a layer wider than _K5_NC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -556,9 +560,83 @@ class BaselinePlan:
     pn: int
     xp: int
     cp: int  # stored logit columns: the last weight's width
-    hw: int  # scratch row width: the widest layer input
+    hw: int  # hidden planes' width: the widest layer output but the last
     kp: List[int]  # per layer: padded input width
     np: List[int]  # per layer: padded output width
+
+
+@dataclasses.dataclass(frozen=True)
+class K5Plan:
+    """One launch of K5: ``grid`` = ``groups`` x ``ctas`` co-resident CTAs
+    of ``K5_ROWS`` rows; group g takes batches g, g + groups, ... and CTA r
+    of a group its row tiles r, r + ctas, ... ``K5_STAGES`` ring slots of
+    ``slot`` bytes; ``kd``: each layer's stage depth; ``smem``: dynamic
+    shared memory in bytes (:func:`_k5_layout`)."""
+
+    groups: int
+    ctas: int
+    kd: tuple
+    slot: int
+    smem: int
+    grid: int
+
+
+_K5_ALIGN = 1024  # the 128-byte swizzle's atom: slots and the base align to it
+
+
+def _k5_stage(kd: int, kn: int) -> int:
+    return kd * kn * 2 + K5_ROWS * kd
+
+
+def _k5_layout(kp: Sequence[int], np_: Sequence[int]) -> tuple:
+    """(slot, kd, smem) of K5 (csrc/fused_baseline_k5.cuh ``layout``, the
+    same sums): a layer's passes take all its input columns up to 128, else
+    64 at a time; its stage is 256 columns deep for a pass of <= 32
+    columns and 128 for a wider one; ``K5_STAGES`` slots of the largest
+    stage, in 1024-byte multiples; then W^T of the widest layer's pass (a
+    multi-pass layer stages each pass's columns), the slots' mbarriers and
+    1024 bytes to align the base. At most 183,344 bytes at any width the
+    kernel takes."""
+    kn = [k if k <= _K5_NC else _K5_KW for k in kp]
+    kd = tuple(256 if c <= 32 else 128 for c in kn)
+    slot = round_up(max(_k5_stage(d, c) for d, c in zip(kd, kn)), _K5_ALIGN)
+    wmax = max(n * (c + 8) * 2 for c, n in zip(kn, np_))
+    return slot, kd, round_up(K5_STAGES * slot + wmax, 8) + 2 * K5_STAGES * 8 + _K5_ALIGN
+
+
+def fused_baseline_plan(a_shape, x_shape, w_shapes, *, g: Optional[int] = None, sms: int = _gemm.SMS) -> K5Plan:
+    """K5's launch for these operand shapes (after :func:`baseline_plan`'s
+    checks) on a card of ``sms`` SMs, cached per shape and card. ``g``
+    given forces the batches in flight; raises ``ValueError`` on a plan the
+    card cannot hold at once (the C entry refuses the same).
+
+    Default: a batch's row tiles on as many CTAs (one tile each), and as
+    many batches in flight as the card holds such groups (one CTA an SM:
+    the kernel's 384 threads take 168 registers each; C1: 6 groups of 20
+    CTAs). Whether A then stays in L2 across a batch's layers is not shown
+    (PERF.md §7)."""
+    p = baseline_plan(a_shape, x_shape, w_shapes)
+    return _cached_k5_plan(p.B, p.pn, tuple(p.kp), tuple(p.np), g, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_k5_plan(B, pn, kp, np_, g, sms) -> K5Plan:
+    ctas = min(pn // K5_ROWS, sms)
+    if g is None:
+        g = max(1, min(B, sms // ctas))
+    if not 1 <= g <= B or g * ctas > sms:
+        raise ValueError(f"{g} groups of {ctas} CTAs: the card holds {sms} of these CTAs at once "
+                         f"and the launch has {B} batches")
+    slot, kd, smem = _k5_layout(kp, np_)
+    return K5Plan(g, ctas, kd, slot, smem, g * ctas)
+
+
+def _check_forced_k5(kp: K5Plan, a_shape, x_shape, w_shapes, sms: int) -> None:
+    """A forced launch must be the plan its own choices give at this shape
+    (the C entry checks the same sums)."""
+    want = fused_baseline_plan(a_shape, x_shape, w_shapes, g=kp.groups, sms=sms)
+    if want != kp:
+        raise ValueError(f"forced plan {kp} is not the kernel's at this shape: {want}")
 
 
 def baseline_plan(a_shape, x_shape, w_shapes) -> BaselinePlan:
@@ -574,12 +652,13 @@ def baseline_plan(a_shape, x_shape, w_shapes) -> BaselinePlan:
     if w_shapes and w_shapes[0][0] != xp:
         raise ValueError(f"x width {xp} != first weight's rows {w_shapes[0][0]}")
     kp, np_ = _baseline_widths(w_shapes)
-    return BaselinePlan(B, pn, xp, int(w_shapes[-1][1]), max(kp), kp, np_)
+    return BaselinePlan(B, pn, xp, int(w_shapes[-1][1]), max(np_[:-1], default=0), kp, np_)
 
 
 def _baseline_widths(w_shapes) -> tuple:
     """Padded (input, output) widths of each layer -> (kp, np); raises
-    ``ValueError`` on weights the kernel refuses."""
+    ``ValueError`` on weights the kernel refuses. Every width fits K5's
+    shared memory: it stages W^T 128 input columns at a time."""
     n = len(w_shapes)
     if not 1 <= n <= BASELINE_MAX_LAYERS:
         raise ValueError(f"{n} layers; the kernel takes 1..{BASELINE_MAX_LAYERS}")
@@ -591,10 +670,6 @@ def _baseline_widths(w_shapes) -> tuple:
     if max(np_) > _BASELINE_MAX_COLS:
         raise ValueError(f"padded layer widths {np_}: the kernel takes at most "
                          f"{_BASELINE_MAX_COLS} output columns per layer")
-    smem = _BASELINE_SMEM_RINGS + max(c * (k + 8) * 2 for k, c in zip(kp, np_))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"weights of widths {list(zip(kp, np_))} need {smem} bytes "
-                         f"of shared memory; a block has {_SMEM_LIMIT}")
     return kp, np_
 
 
@@ -641,6 +716,7 @@ def fused_baseline_epoch(
     ws: Sequence[torch.Tensor],  # float weights [K, N], chained
     resident_a: Optional[bool] = None,
     packed: Optional[BaselineWeights] = None,
+    _plan: Optional[K5Plan] = None,
 ) -> torch.Tensor:
     """The full-precision model over every stacked batch in one kernel
     launch: per layer ``h = relu((A @ h) @ W)`` with bf16 operands and
@@ -650,12 +726,19 @@ def fused_baseline_epoch(
     ``packed``: ``pack_baseline_weights(ws)``, built here when absent.
     ``resident_a`` is kept for the JAX package's signature: ``None``,
     ``True`` and ``False`` (the TPU's streamed form) are all the
-    kernel's one form, A read from device memory once per layer."""
+    kernel's one form. ``_plan`` replaces :func:`fused_baseline_plan`'s
+    choice on the card (the CUDA tests and ``chip_smoke.py`` force each
+    plan with it); the kernel refuses a plan it cannot run."""
     global BASELINE_LAUNCHES
+    w_shapes = [tuple(w.shape) for w in ws]
+    dev = a_stack.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if a_stack.is_cuda else _gemm.SMS
+    if _plan is not None:
+        _check_forced_k5(_plan, a_stack.shape, x_stack.shape, w_shapes, sms)
     if not a_stack.is_cuda:
         return fused_baseline_epoch_plain(a_stack, x_stack, ws)
-    p = baseline_plan(a_stack.shape, x_stack.shape, [tuple(w.shape) for w in ws])
-    dev = a_stack.device
+    p = baseline_plan(a_stack.shape, x_stack.shape, w_shapes)
+    kp5 = _plan or fused_baseline_plan(a_stack.shape, x_stack.shape, w_shapes, sms=sms)
     for t, name in ((x_stack, "x_stack"), *((w, "weight") for w in ws)):
         if t.device != dev:
             raise ValueError(f"operands on {dev} and {t.device} ({name})")
@@ -667,9 +750,10 @@ def fused_baseline_epoch(
         raise ValueError(f"packed weights of widths {list(zip(packed.kp, packed.np))} on "
                          f"{packed.buf.device}; this launch needs {list(zip(p.kp, p.np))} on {dev}")
     x = x_stack.float()  # as the JAX kernel's input; exact for bf16
-    scratch = torch.empty((p.B, 2, p.pn, p.hw), dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty((p.B * p.pn * (p.kp[0] + 2 * p.hw),), dtype=torch.bfloat16, device=dev)
+    bar = torch.zeros((kp5.groups,), dtype=torch.int32, device=dev)
     out = torch.empty((p.B, p.pn, p.cp), dtype=torch.float32, device=dev)
-    meta = [p.B, p.pn, p.xp, p.cp, p.hw, len(ws)]
+    meta = [p.B, p.pn, p.xp, p.cp, p.kp[0], p.hw, len(ws), kp5.groups, kp5.ctas, kp5.smem]
     for kp, np_, off in zip(p.kp, p.np, packed.offs):
         meta += [kp, np_, off]
     meta_c = (ctypes.c_int * len(meta))(*meta)
@@ -678,8 +762,8 @@ def fused_baseline_epoch(
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.qgtc_fused_baseline(out.data_ptr(), a, xptr, packed.buf.data_ptr(),
-                                      scratch.data_ptr(), meta_c, len(meta), stream)
+        err = lib.qgtc_fused_baseline(out.data_ptr(), a, xptr, packed.buf.data_ptr(), scratch.data_ptr(),
+                                      bar.data_ptr(), meta_c, len(meta), stream)
     check(err, "qgtc_fused_baseline")
     BASELINE_LAUNCHES += 1
     return out

@@ -37,6 +37,10 @@ from torch_cases import (  # tests/ is on sys.path
     k2_chain,
     k2_group,
     k2_groups,
+    k3_group,
+    k3_groups,
+    k5_group,
+    k5_groups,
     k6_group,
     k6_groups,
     levels_plane,
@@ -473,6 +477,47 @@ def test_fused_baseline_kernel_ragged_widths_and_repeatable(cuda):
            fused_model.fused_baseline_epoch(a, x.to(torch.bfloat16).float(), ws))
 
 
+# K5 redesigned (csrc/fused_baseline_k5.cuh): every group of
+# torch_cases.k5_groups under every forced plan, bit for bit on the
+# "integer" and "rounding" cases, within BF16_REL_TOL per row on "random",
+# each output twice (no race checker runs on the card: equal repeats are
+# the evidence)
+@pytest.mark.parametrize("group", [kw for _, kw in k5_groups()], ids=[gid for gid, _ in k5_groups()])
+def test_k5_kernel_equals_plain(cuda, group):
+    for tag, kind, kernel, plain in k5_group(cuda, **group):
+        before = fused_model.BASELINE_LAUNCHES
+        got = kernel()
+        assert fused_model.BASELINE_LAUNCHES == before + 1, tag
+        if kind == "random":
+            _check_close(got, plain())
+        else:
+            _check(got, plain())
+        _check(kernel(), got)
+
+
+def test_k5_refuses_a_plan_it_cannot_run(cuda, monkeypatch):
+    """The C entry checks the plan against its own sums: past the Python
+    check (patched out here), a plan of another shared-memory size, more
+    CTAs per group than row tiles, no CTAs, more groups than batches, or
+    more CTAs than the card holds at once is refused at the launch."""
+    a, x, ws = _baseline_args(cuda, "sage", 512, 3, "random")
+    shapes = [tuple(w.shape) for w in ws]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    kp = fused_model.fused_baseline_plan(a.shape, x.shape, shapes, sms=sms)
+    monkeypatch.setattr(fused_model, "_check_forced_k5", lambda *args: None)
+    for bad in (dict(smem=kp.smem + 16), dict(ctas=kp.ctas + 1), dict(ctas=0), dict(groups=3),
+                dict(smem=300 * 1024)):
+        with pytest.raises(RuntimeError, match="qgtc_fused_baseline"):
+            fused_model.fused_baseline_epoch(a, x, ws, _plan=dataclasses.replace(kp, **bad))
+    big = fused_model.fused_baseline_plan((75, 2560, 2560), (75, 2560, 128), shapes, sms=sms)
+    over = sms // big.ctas + 1  # one group past the card's one CTA an SM
+    a2, x2, _ = baseline_case(3, 75, 2560, [128, 16, 16, 40], kind="integer")
+    with pytest.raises(RuntimeError, match="qgtc_fused_baseline"):
+        fused_model.fused_baseline_epoch(torch.from_numpy(a2).to(cuda), torch.from_numpy(x2).to(cuda), ws,
+                                         _plan=dataclasses.replace(big, groups=over, grid=over * big.ctas))
+    _check_close(fused_model.fused_baseline_epoch(a, x, ws, _plan=kp), fused_model.fused_baseline_epoch_plain(a, x, ws))
+
+
 @pytest.mark.parametrize("model", ["sage", "gin"])
 def test_baseline_mega_on_card_matches_cpu(cuda, model):
     ds = synthesize("Proteins", scale=0.05, seed=5)
@@ -716,6 +761,32 @@ def test_k6_refuses_a_plan_it_cannot_run(cuda):
     for bad in bad_plans:
         with pytest.raises(RuntimeError, match="qgtc_bitmm"):
             bitgemm._bitmm(a, b, 2, None, _plan=dataclasses.replace(plan, **bad))
+
+
+# K3 redesigned (csrc/digitmm_k3.cuh): every group of torch_cases.k3_groups
+# (C1's updates, N 16-200, K 16-700, 1 and 2 digit planes, maps) in every
+# out form under every forced plan, bit for bit over the whole padded
+# output, twice
+@pytest.mark.parametrize("group", [kw for _, kw in k3_groups()], ids=[gid for gid, _ in k3_groups()])
+def test_k3_kernel_equals_plain(cuda, group):
+    for tag, kernel, plain in k3_group(cuda, **group):
+        before = digitmm.LAUNCHES
+        got = kernel()
+        assert digitmm.LAUNCHES == before + 1, tag
+        _check(got, plain())
+        _check(kernel(), got)
+
+
+def test_k3_refuses_a_plan_it_cannot_run(cuda, monkeypatch):
+    qa, qb = operands(2, 2560, 128, 16, 8, 8, 8, 1)
+    a, b = _dt(qa, 8, cuda), _dt(qb, 8, cuda)
+    plan = digitmm.digitmm_plan(a.ndigits, b.ndigits, 2560, 128, 128, 128, 16)
+    monkeypatch.setattr(digitmm, "_check_forced", lambda *args: None)
+    for bad in (dict(bnt=48), dict(bnt=64), dict(grid=(2, 160)), dict(grid=(1, 80)), dict(rows=8), dict(kr=160),
+                dict(nr=12), dict(ks=48), dict(smem=plan.smem + 128)):
+        with pytest.raises(RuntimeError, match="qgtc_digitmm"):
+            digitmm._digitmm(a, b, 8, 1, False, None, _plan=dataclasses.replace(plan, **bad))
+    _check(digitmm._digitmm(a, b, 8, 1, False, None, _plan=plan), digitmm.digitmm_plain(a, b, 8, 1))
 
 
 @pytest.mark.parametrize("model", ["gcn", "gin"])

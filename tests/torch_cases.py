@@ -537,3 +537,151 @@ def k1_group(device, shape, model, hidden, form, feat, seed):
             calls.append((tag, lambda z=zkw, pl=kp: fused_model.fused_model_epoch(a, x, ws, bits, **kw, **z,
                                                                                   _plan=pl), plain))
     return calls
+
+
+# K5's baseline kernel (csrc/fused_baseline_k5.cuh): the cases the CUDA
+# tests and chip_smoke.py hold against plain under every forced plan.
+# Case kinds (``baseline_case``): "integer" and "rounding" bit for bit,
+# "random" within BF16_REL_TOL; at 8 layers the "rounding" case's values
+# can pass 2^17, where an f32 sum of multiples of 2^-7 need not be exact,
+# so those groups hold "integer" and "random".
+
+def k5_groups():
+    """Every group of K5 cases: (id, kwargs of :func:`k5_group`). pn 512
+    and 2560 (C1's), sage at hidden 16 and gin at hidden 64, 1, 3 and 8
+    layers, odd batch counts (3, 5), pn 768 (6 row tiles of 128) and X
+    200 wide at ragged widths (two aggregation passes of 128 and 80
+    columns)."""
+    rows = [("p512-sage-3l", "sage", 3, 512, [128, 16, 16, 40]),
+            ("p512-gin-3l", "gin", 2, 512, [128, 64, 64, 40]),
+            ("p512-1l", "sage", 3, 512, [128, 40]),
+            ("p512-sage-8l", "sage", 3, 512, [128] + [16] * 7 + [40]),
+            ("p512-gin-8l", "gin", 2, 512, [128] + [64] * 7 + [40]),
+            ("p768-gin-3l", "gin", 5, 768, [128, 64, 64, 40]),
+            ("p512-x200-ragged", "sage", 3, 512, [200, 24, 10]),
+            ("p2560-sage-3l", "sage", 3, 2560, [128, 16, 16, 40]),
+            ("p2560-gin-3l", "gin", 2, 2560, [128, 64, 64, 40]),
+            ("p2560-1l", "sage", 2, 2560, [128, 40])]
+    return [(gid, dict(model=model, B=B, pn=pn, dims=dims, seed=300 + 7 * i))
+            for i, (gid, model, B, pn, dims) in enumerate(rows)]
+
+
+def k5_plans(B, pn, dims, sms=None):
+    """Every launch the tests force at this shape on a card of ``sms`` SMs
+    (None: the H100's 132): the chosen plan and one and two batches in
+    flight; duplicates left out."""
+    from qgtc_ppopp22_tpu_torch.ops import _gemm, fused_model
+
+    a_shape, x_shape = (B, pn, pn), (B, pn, dims[0])
+    ws = list(zip(dims, dims[1:]))
+    sms = sms or _gemm.SMS
+    tries = [{}] + [dict(g=g) for g in (1, 2) if g <= B]
+    plans = []
+    for kw in tries:
+        p = fused_model.fused_baseline_plan(a_shape, x_shape, ws, sms=sms, **kw)
+        if p not in plans:
+            plans.append(p)
+    return plans
+
+
+def k5_group(device, model, B, pn, dims, seed):
+    """The (tag, kind, kernel, plain) calls of one :func:`k5_groups` entry:
+    each case kind under every plan of :func:`k5_plans` through
+    ``fused_baseline_epoch(..., _plan=)`` on the card of ``device``; plain
+    computed once per kind."""
+    import functools
+
+    import torch
+
+    from qgtc_ppopp22_tpu_torch.ops import fused_model
+
+    kinds = ("integer", "random") if len(dims) > 4 else ("integer", "rounding", "random")
+    dev = torch.device(device)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else None
+    calls = []
+    for kind in kinds:
+        a, x, ws = baseline_case(seed, B, pn, dims, kind=kind)
+        a, x = torch.from_numpy(a).to(device), torch.from_numpy(x).to(device)
+        ws = [torch.from_numpy(w).to(device) for w in ws]
+        packed = fused_model.pack_baseline_weights(ws)
+        plain = functools.cache(lambda a=a, x=x, ws=ws: fused_model.fused_baseline_epoch_plain(a, x, ws))
+        for p in k5_plans(B, pn, dims, sms):
+            tag = f"K5 {model} B={B} pn={pn} dims={dims} {kind} groups {p.groups} ctas {p.ctas} layers {p.kd}"
+            calls.append((tag, kind, lambda a=a, x=x, ws=ws, pk=packed, p=p:
+                          fused_model.fused_baseline_epoch(a, x, ws, packed=pk, _plan=p), plain))
+    return calls
+
+
+# K3's digit-plane kernel (csrc/digitmm_k3.cuh): the cases the CUDA tests
+# and chip_smoke.py hold against plain, bit for bit over the whole padded
+# output, under every forced plan.
+K3_FORMS = (("digits", 1), ("f32", 0), ("i32", 0))  # (out form, shift)
+
+
+def k3_groups():
+    """Every group of K3 cases: (id, kwargs of :func:`k3_group`). C1's three
+    updates (X[2560x128] x W[128x16], H[2560x16] x W[16x16] and x
+    W[16x40]), N 16 / 40 / 64 / 128 / 200, K 16 / 128 / 256 / 700, 1 and 2
+    digit planes on either side, and the K skip: a blocky 1-bit A[2560²]
+    with ``build_tile_map_digits``'s map and ``hand_map``'s (tiles left out, kcnt 0, -1
+    and past the grid, entries outside it), and a ragged 2300 x 520 one."""
+    rows = [("c1-update0", 2560, 128, 16, 2, 2, None), ("c1-update1", 2560, 16, 16, 2, 2, None),
+            ("c1-update2", 2560, 16, 40, 2, 2, None), ("gin-n64-8x8", 2560, 64, 64, 8, 8, None),
+            ("n128-k256-4x8", 1000, 256, 128, 4, 8, None), ("k16-n128-8x4", 300, 16, 128, 8, 4, None),
+            ("k256-n40-1x1", 512, 256, 40, 1, 1, None), ("ragged-n200-k700", 1000, 700, 200, 4, 4, None),
+            ("skip-c1-real", 2560, 2560, 16, 1, 2, "real"), ("skip-c1-hand", 2560, 2560, 16, 1, 2, "hand"),
+            ("skip-ragged-real", 2300, 520, 40, 3, 2, "real"), ("skip-ragged-hand", 2300, 520, 40, 3, 2, "hand")]
+    return [(gid, dict(m=m, k=k, n=n, a_bits=ab, b_bits=bb, tile_map=tm, seed=400 + 11 * i))
+            for i, (gid, m, k, n, ab, bb, tm) in enumerate(rows)]
+
+
+def k3_plans(a, b, tile_map=None):
+    """Every launch the tests force for these DigitTensors: the chosen
+    plan, each column tile and each tile height on the chosen rest;
+    duplicates left out."""
+    from qgtc_ppopp22_tpu_torch.ops import digitmm
+
+    args = (a.ndigits, b.ndigits, a.padded_rows, a.padded_cols, b.digits.shape[2], a.shape[1], b.shape[1],
+            None if tile_map is None else tile_map.tile_k)
+    chosen = digitmm.digitmm_plan(*args)
+    tries = [{}] + [dict(bnt=t, rows=chosen.rows) for t in digitmm.K3_BNTS]
+    tries += [dict(rows=r) for r in digitmm.K3_ROWS]
+    plans = []
+    for kw in tries:
+        p = digitmm.digitmm_plan(*args, **kw)
+        if p not in plans:
+            plans.append(p)
+    return plans
+
+
+def k3_group(device, m, k, n, a_bits, b_bits, tile_map, seed):
+    """The (tag, kernel, plain) calls of one :func:`k3_groups` entry: every
+    out form of :data:`K3_FORMS` (digits at ``b_bits``, shift 1) under
+    every plan of :func:`k3_plans` through ``digitmm._digitmm(...,
+    _plan=)``; plain computed once per form."""
+    import functools
+
+    import torch
+
+    from qgtc_ppopp22_tpu_torch.ops import digitmm
+    from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack
+
+    if tile_map is None:
+        qa, qb = operands(seed, m, k, n, a_bits, b_bits, b_bits, 1)
+    else:
+        qa, qb = blocky_levels(seed, m, k, a_bits, 0.05), operands(seed, m, k, n, a_bits, b_bits, 2, 0)[1]
+    a, b = (digit_pack(torch.from_numpy(q).to(device), bits) for q, bits in ((qa, a_bits), (qb, b_bits)))
+    tm = None
+    if tile_map is not None:
+        tm = digitmm.build_tile_map_digits(a)
+        tm = hand_map(tm) if tile_map == "hand" else tm
+    calls = []
+    for form, shift in K3_FORMS:
+        ob = b_bits if form == "digits" else None
+        raw = form == "i32"
+        plain = functools.cache(lambda ob=ob, sh=shift, raw=raw: digitmm.digitmm_plain(a, b, ob, sh, raw, tm))
+        for p in k3_plans(a, b, tm):
+            tag = f"K3 {a_bits}x{b_bits} M={m} K={k} N={n} {form} map={tile_map} {p}"
+            calls.append((tag, lambda ob=ob, sh=shift, raw=raw, p=p: digitmm._digitmm(a, b, ob, sh, raw, tm, _plan=p),
+                          plain))
+    return calls
