@@ -8,7 +8,9 @@ Runs, and stops with a non-zero exit at the first failure:
 0. Requires a CUDA device; prints the card's name and power limit;
    builds the kernels of ``qgtc_ppopp22_tpu_torch/csrc`` with nvcc and
    prints ``ptxas -v``'s report; every one of the 72 instantiations of
-   K2's 1/2/4-bit kernel (``csrc/packmm_k2.cuh``), of the 48 of K6's
+   K2's 1/2/4-bit kernel (``csrc/packmm_k2.cuh``), of the 30 of K4's
+   (``csrc/packmm_k4.cuh``: the PreparedRHS product and K2's 8-bit plane),
+   of the 48 of K6's
    (``csrc/bitmm_k6.cuh``), of the 34 of K1's (``csrc/fused_model_k1.cuh``),
    of the 16 of K3's (``csrc/digitmm_k3.cuh``) and of the 2 of K5's
    (``csrc/fused_baseline_k5.cuh``) must spill 0 bytes, and ptxas must
@@ -88,7 +90,15 @@ Runs, and stops with a non-zero exit at the first failure:
    split, past the grid and -1, entries outside it) at every split;
    packed words at out_cols 8, 40, 64 and 200; packed words chained
    through three products; each output computed twice, both equal to
-   plain. Then zero-tile jumping, the ``TileMap`` K skip of ``packmm`` (A at 1/2/4/8
+   plain. Then K4's kernel under every forced plan (``torch_cases.k4_groups``:
+   each column tile 16, 32 and 64 with each split 1-4, 1-2 for packed
+   words): the PreparedRHS product at N 16, 60, 64 and 120 (5- and 8-bit
+   A, depth 448: odd remainders over every split; 1024²), out_cols 8, 40,
+   64 and 200, A at 0, everything at 255 and K 32640; K2's 8-bit plane
+   against one and two digit planes, with hand-made maps (kcnt 0, below
+   the split, past the grid, -1, entries outside it) and packed words at
+   out_cols 8, 64 and 200; every output form, each output computed twice,
+   both equal to plain. Then zero-tile jumping, the ``TileMap`` K skip of ``packmm`` (A at 1/2/4/8
    bits, every output form, tiles (256 | 512) x (256 | 128), C1's shape
    and two multi-row-tile ragged ones) and of ``digitmm`` (1 and 2 digit
    planes each side, tiles (256 | 128)^2) against plain, with the
@@ -182,12 +192,16 @@ Runs, and stops with a non-zero exit at the first failure:
    its criteria (the aggregation at or below K2's C1 aggregation, each row
    below ``torch._int_mm``) printed as met or not; K4
    and K2's packed out at Fig. 8a's (4096, 4096, 64) beside plain,
-   bound and ``torch._int_mm``; K1 at C1 (compact and dense), at C1-8
+   bound and ``torch._int_mm``, each with its plan; K2's 8-bit plane
+   (8-bit A[4096²] x 8-bit B[4096x64], two digit planes) to the signed
+   plane and to f32 at out_cols 64, dense and over a blocky A with its
+   map, each equal to plain first, beside plain, bound, plan and
+   ``torch._int_mm`` on int8 operands of the same shapes; K1 at C1 (compact and dense), at C1-8
    (the levels form dense and with C1's schedule, beside the 2-digit
    route on the same batches) and C1 with X as 2-bit levels (the 1-4-bit
    form), each with its plan (``fused_model_plan``), bound and plain time;
    and every sweep
-   row's us and TFLOP/s
+   row's us and TFLOP/s, and its bound,
    beside ``BASELINE.md``'s sm_86 figure for it, in the same profiler
    session; and the K skip at C1 (batch 0's adjacency and its map:
    ``packmm_to_digits``, ``packmm_to_f32`` and ``digitmm_to_digits`` over
@@ -211,6 +225,7 @@ and power limit, the second ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import os
 import re
@@ -272,7 +287,8 @@ def main() -> int:
 
     from torch_cases import (BF16_REL_TOL, baseline_case, bf16_rel_err, blocky_levels, chain_shifts, edge_operands,
                              hand_map, k1_group, k1_groups, k2_chain, k2_group, k2_groups, k3_group, k3_groups,
-                             k5_group, k5_groups, k6_group, k6_groups, levels_plane, mega_case, operands)
+                             k4_group, k4_groups, k5_group, k5_groups, k6_group, k6_groups, levels_plane, mega_case,
+                             operands)
     from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe, exp_packmm, grid_overhead_study, kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward
@@ -297,10 +313,9 @@ def main() -> int:
     _build.library()
     print(f"phase 0: built {_build.LIB_PATH.name} in {secs:.1f} s")
     entry = ""
-    corr = {"0": "", "1": ", signed A", "2": ", PreparedRHS"}
-    # K2's 1/2/4-bit kernel and K6's: one line each for all their instantiations
+    # K1-K6: one line each for all their instantiations
     k2_regs, k2_spill, k6_regs, k6_spill, k1_regs, k1_spill, k3_regs, k3_spill = {}, {}, {}, {}, {}, {}, {}, {}
-    k5_regs, k5_spill, serialized = {}, {}, []
+    k5_regs, k5_spill, k4_regs, k4_spill, serialized = {}, {}, {}, {}, []
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -309,6 +324,12 @@ def main() -> int:
                 entry = (f"k2_kernel<{k[1]}-bit A, {k[2]} B plane(s), {k[3]} columns"
                          f"{', mapped' if k[4] == '1' else ''}{', packed words' if k[5] == '1' else ''}>")
                 k2_spill[entry] = 0
+                continue
+            k = re.search(r"k4_kernelILi(\d)ELi(\d)ELi(\d+)ELb(\d)ELb(\d)E", entry)
+            if k:
+                entry = (f"k4_kernel<{k[1]} B plane(s), {('', 'colsum', 'PreparedRHS')[int(k[2])]}, {k[3]} "
+                         f"columns{', mapped' if k[4] == '1' else ''}{', packed words' if k[5] == '1' else ''}>")
+                k4_spill[entry] = 0
                 continue
             k = re.search(r"k6_kernelILi(\d)ELi(\d)ELi(\d+)ELb(\d)E", entry)
             if k:
@@ -331,22 +352,16 @@ def main() -> int:
                          f"H x{k[4]}, {k[5]} rows>")
                 k1_spill[entry] = 0
                 continue
-            t = re.search(r"gemm_kernelILi(\d)ELi(\d)ELi(\d)ELb(\d)ELb(\d)ENS_\d+([A-Za-z0-9]+?)"
-                          r"(?:ILi(\d)E)?E", entry)
-            if t:  # the digitmm, packmm and packmm_signed instances
-                entry = (f"gemm_kernel<{t[1]}x{t[2]} planes{corr[t[3]]}, "
-                         f"{'256-row packed out' if t[4] == '1' else '64-row'}"
-                         f"{', mapped' if t[5] == '1' else ''}> {t[6]}"
-                         + (f"<{t[7]}>" if t[7] else ""))
-            else:
-                entry = next((entry[entry.find(k):][:60] for k in ("exp_packmm_kernel",
-                                                                      "bitcast", "fragment_probe",
-                                                                      "zero_body_kernel", "kdot_kernel")
-                              if k in entry), entry[-60:])
+            entry = next((entry[entry.find(k):][:60] for k in ("exp_packmm_kernel",
+                                                                  "bitcast", "fragment_probe",
+                                                                  "zero_body_kernel", "kdot_kernel")
+                          if k in entry), entry[-60:])
         elif "wgmma" in line and "serialized" in line:  # ptxas C7512 / C7520
-            serialized.append(line.strip())
-        elif entry in k2_spill or entry in k6_spill or entry in k1_spill or entry in k3_spill or entry in k5_spill:
+            serialized.append((entry, line.strip()))
+        elif entry in k2_spill or entry in k6_spill or entry in k1_spill or entry in k3_spill or entry in k5_spill \
+                or entry in k4_spill:
             regs, spill = ((k2_regs, k2_spill) if entry in k2_spill else
+                           (k4_regs, k4_spill) if entry in k4_spill else
                            (k6_regs, k6_spill) if entry in k6_spill else
                            (k3_regs, k3_spill) if entry in k3_spill else
                            (k5_regs, k5_spill) if entry in k5_spill else (k1_regs, k1_spill))
@@ -364,6 +379,12 @@ def main() -> int:
     print(f"  ptxas: k2_kernel, {len(k2_regs)} instantiations (field 1/2/4 x B planes 1/2 x columns "
           f"16/32/64 x dense/mapped x per-tile/packed words): {min(k2_regs.values())}-"
           f"{max(k2_regs.values())} registers, 0 bytes of spill")
+    if len(k4_regs) != 30 or any(k4_spill.values()) or any(e in k4_spill for e, _ in serialized):
+        raise AssertionError(f"k4_kernel: {len(k4_regs)} instantiations (want 30), spills "
+                             f"{ {k: v for k, v in k4_spill.items() if v} }, serialized: {serialized}")
+    print(f"  ptxas: k4_kernel, {len(k4_regs)} instantiations (PreparedRHS x columns 16/32/64 x per-tile/packed "
+          f"words; colsum x B planes 1/2 x columns x dense/mapped x per-tile/packed words): "
+          f"{min(k4_regs.values())}-{max(k4_regs.values())} registers, 0 bytes of spill, no serialized wgmma")
     if len(k6_regs) != 48 or any(k6_spill.values()):
         raise AssertionError(f"k6_kernel: {len(k6_regs)} instantiations (want 48), spills "
                              f"{ {k: v for k, v in k6_spill.items() if v} }")
@@ -743,6 +764,20 @@ def main() -> int:
         compare("packmm", kernel(), got, f"K2 {tag}, again")
     print(f"phase 1: K2 {len(k2_groups())} case groups and 3 chains, {packmm.LAUNCHES - k2_before} launches, "
           f"each output twice, == plain ({time.perf_counter() - t_k2:.1f} s)")
+    # K4's kernel (csrc/packmm_k4.cuh): the PreparedRHS product and K2's
+    # 8-bit plane, every form under each column tile and split, each twice
+    k4_before, t_k4, k4_calls = (packmm.LAUNCHES, packmm.SIGNED_LAUNCHES), time.perf_counter(), 0
+    for _, group in k4_groups():
+        for tag, kernel, plain in k4_group(dev, **group):
+            got = kernel()
+            compare("packmm_signed", got, plain(), tag)
+            compare("packmm_signed", kernel(), got, f"{tag}, again")
+            k4_calls += 2
+    if packmm.LAUNCHES - k4_before[0] + packmm.SIGNED_LAUNCHES - k4_before[1] != k4_calls:
+        raise AssertionError("K4: a case did not launch the kernel once")
+    print(f"phase 1: K4 {len(k4_groups())} case groups under every forced plan, "
+          f"{packmm.SIGNED_LAUNCHES - k4_before[1]} PreparedRHS and {packmm.LAUNCHES - k4_before[0]} 8-bit "
+          f"plane launches, each output twice, == plain ({time.perf_counter() - t_k4:.1f} s)")
 
     # zero-tile jumping: K2's and K3's TileMap K skip against plain, with
     # maps from the builders and hand-made ones (occupied tiles left out,
@@ -1328,10 +1363,18 @@ def main() -> int:
     w2, wb2 = on_card(qw2, 2), on_bits(qw2, 2)
     w40 = on_card(operands(SEED, 16, 16, 40, 2, 2, 2, 0)[1], 2)
     def plan_of(a_, b_, out_bits, out_form="digits", raw=False, out_cols=None, tile_map=None):
-        """packmm_plan's choice for a K2 call, as printed beside its time."""
-        ocp = packmm._stored_cols(out_form, out_cols, b_.padded_cols)
-        p = packmm.packmm_plan(a_.padded_rows, a_.padded_cols, b_.padded_cols, b_.shape[1],
-                               packmm._plan_form(out_bits, out_form, raw), ocp, tile_map)
+        """The launch a packmm call takes, as printed beside its time:
+        packmm_plan's for a 1/2/4-bit A (K2), packmm_signed_plan's for a
+        5-8-bit one (K4's kernel: the PreparedRHS product or K2's 8-bit
+        plane)."""
+        form = packmm._plan_form(out_bits, out_form, raw)
+        if isinstance(b_, packmm.PreparedRHS):
+            ocp, n = packmm._signed_stores(a_, b_, out_bits, out_form, out_cols)
+            p = packmm.packmm_signed_plan(a_.padded_rows, a_.padded_cols, b_.plane.shape[1], n, form, ocp)
+        else:
+            ocp = packmm._stored_cols(out_form, out_cols, b_.padded_cols)
+            choose = packmm.packmm_signed_plan if a_.bits > 4 else packmm.packmm_plan
+            p = choose(a_.padded_rows, a_.padded_cols, b_.padded_cols, b_.shape[1], form, ocp, tile_map)
         return f"BNT {p.bnt}, S {p.splits}, cluster {p.cluster}, grid {p.grid}"
 
     k2_plans = {"packmm_to_digits A[2560x2560] x H[2560x16]": plan_of(a, h16, 2),
@@ -1499,6 +1542,32 @@ def main() -> int:
     timed.append(("packmm packed", "packmm_to_packed 1-bit A[4096x4096] x B[4096x64] to 1-bit words",
                   k2c.run, k2c.plain))
     k2_plans["packmm_to_packed 1-bit A[4096x4096] x B[4096x64] to 1-bit words"] = plan_of(k2c.a, k2c.b, 1, "packed")
+    k2_plans["packmm_to_packed 8-bit A[4096x4096] x PreparedRHS[4096x64] to the signed plane, out_cols=64"] = \
+        plan_of(k4c.a, k4c.b, 8, "packed", out_cols=64)
+    # K2's 8-bit plane at the same shape (K4's kernel, colsum correction):
+    # 8-bit A[4096²] x an 8-bit DigitTensor B[4096x64] (two digit planes)
+    # to the signed plane and to f32 (out_cols 64), dense and over a blocky
+    # A (every third 256 x 256 tile occupied) with its map; each equal to
+    # plain first
+    k28_rng = np.random.default_rng(SEED)
+    b8 = digit_pack(torch.from_numpy(k28_rng.integers(0, 256, (4096, 64))).to(dev), 8)
+    a8 = pack_rows(torch.from_numpy(k28_rng.integers(0, 256, (4096, 4096))).to(dev), 8)
+    a8m = pack_rows(torch.from_numpy(blocky_levels(SEED, 4096, 4096, 8, 0.3)).to(dev), 8)
+    tm8 = packmm.build_tile_map_packed(a8m)
+    k28_shape = "8-bit A[4096x4096] x B[4096x64] 8-bit (2 digit planes)"
+    k28_rows = {"packmm 8-bit": (f"packmm_to_packed {k28_shape} to the signed plane, out_cols=64", a8, None, 8),
+                "packmm 8-bit f32": (f"packmm_to_f32 {k28_shape}, out_cols=64", a8, None, None),
+                "packmm 8-bit map": (f"packmm_to_packed blocky {k28_shape} with its map to the signed plane, "
+                                     f"out_cols=64", a8m, tm8, 8),
+                "packmm 8-bit map f32": (f"packmm_to_f32 blocky {k28_shape} with its map, out_cols=64", a8m, tm8,
+                                         None)}
+    for kind, (what, a_, tm_, ob) in k28_rows.items():
+        form = "packed" if ob else "f32"
+        run = functools.partial(packmm._packmm, a_, b8, ob, form, 0, False, 64, tm_)
+        plain = functools.partial(packmm.packmm_plain, a_, b8, ob, 0, False, form, 64, tm_)
+        compare("packmm", run(), plain(), what)
+        timed.append((kind, what, run, plain))
+        k2_plans[what] = plan_of(a_, b8, ob, form, out_cols=64, tile_map=tm_)
     # the kernel-study probes at their studies' shapes: P1's concat at C1's
     # aggregation and its packed out at JAX's first run_packedout row, P2
     # at its probe's shapes, P3 at pn 2048 x 50 batches (zero body G 1, two
@@ -1557,6 +1626,9 @@ def main() -> int:
                # the padding are the TPU layout's, not the product's)
                "packmm_signed": (k4c.a.words[0], k4c.b.plane[:, :k4c.N].contiguous()),
                "packmm packed": (unpack_rows(k2c.a).to(torch.int8), digit_unpack(k2c.b).to(torch.int8)),
+               # K2's 8-bit plane: the signed A plane and B's levels - 128
+               # (int8 operands of the same shapes; dense, also for the map rows)
+               **{kind: (a8.words[0], (digit_unpack(b8) - 128).to(torch.int8)) for kind in k28_rows},
                # the K skip's shapes: batch 0's adjacency, dense in int8
                "packmm_skip": (unpack_rows(a0).to(torch.int8), digit_unpack(hs16).to(torch.int8)),
                "packmm_skip f32": (unpack_rows(a0).to(torch.int8), digit_unpack(hs40).to(torch.int8))}
@@ -1624,12 +1696,27 @@ def main() -> int:
           + ", ".join(f"{k} shape {lib_ms[k] * 1e3:.1f} us" for k in lib_ops) + f" [{card}]")
     print(f"phase 3: one PyTorch expression for the same function (library yardstick): "
           + ", ".join(f"{k} {lib_ms[k] * 1e3:.1f} us" for k in lib_calls) + f" [{card}]")
+    # each row beside its bound: A's bytes, of B its N real columns (and of
+    # a PreparedRHS's corr its N entries), the output; 2 M N K operations
+    def sweep_bound(c):
+        size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+        out = c.run()
+        if c.int8:
+            moved = size(c.a, c.b, out)
+        elif isinstance(c.b, packmm.PreparedRHS):
+            moved = size(c.a.words, c.b.plane[:, :c.N], c.b.corr[0, :c.N], out.words)
+        else:
+            moved = size(c.a.words, c.b.digits[:, :, :c.N], out.words)
+        b_ms, by = bound(moved, 2 * c.M * c.N * c.K, "int8")
+        return f"bound {b_ms * 1e3:.2f} us ({by})"
+
     for fig, cases in sweep.items():
         for i, c in enumerate(cases):
             r = c.row(dt[("sweep", fig, i)])
-            k2 = "" if c.int8 or c.bits > 4 else f" (plan: {plan_of(c.a, c.b, c.bits, 'packed', out_cols=c.out_cols)})"
+            k2 = "" if c.int8 else f" (plan: {plan_of(c.a, c.b, c.bits, 'packed', out_cols=c.out_cols)})"
             print(f"phase 3: sweep {fig} bits={r['bits']} M=K={r['M']} N={r['N']}: {r['us']} us, "
-                  f"{r['tflops']} TFLOP/s [{card}]; sm_86 {SM86[(fig, c.bits, c.M, c.N)]} TFLOP/s{k2}")
+                  f"{r['tflops']} TFLOP/s, {sweep_bound(c)} [{card}]; sm_86 {SM86[(fig, c.bits, c.M, c.N)]} "
+                  f"TFLOP/s{k2}")
 
     # K2 against its yardsticks, all from the one profiler session above
     k2_reads = [
@@ -1741,12 +1828,12 @@ def main() -> int:
     # the K skip: only the listed tiles' bytes of A (and of B the n real
     # columns of the K tiles some row tile lists) and 2 * tile_m * tile_k * n
     # operations per listed tile, n the logical columns
-    def skip_bound(tm, a_tile_bytes, b, out, n):
+    def skip_bound(tm, a_tile_bytes, b, out, n, pairs=1):
         kcnt = tm.kcnt.clamp(0, tm.kidx.shape[1])
         visit = torch.arange(tm.kidx.shape[1], device=dev)[None, :] < kcnt[:, None]
         listed, k_tiles = int(kcnt.sum()), int(tm.kidx[visit].unique().numel())
         b_bytes = k_tiles * tm.tile_k * b.digits.shape[0] * n
-        ops = 2 * tm.tile_m * tm.tile_k * n * listed
+        ops = 2 * tm.tile_m * tm.tile_k * n * listed * pairs
         return bound(listed * a_tile_bytes + b_bytes + nbytes(out), ops, "int8"), listed
 
     (bounds["packmm_skip"], listed0) = skip_bound(tm0, 256 * 256 // 8, hs16,
@@ -1754,6 +1841,18 @@ def main() -> int:
     bounds["packmm_skip f32"] = skip_bound(tm0, 256 * 256 // 8, hs40, packmm.packmm_to_f32(a0, hs40, tm0), 40)[0]
     bounds["digitmm_skip"] = skip_bound(tmd0, 256 * 256, hs16,
                                         digitmm.digitmm_to_digits(da0, hs16, 2, tmd0).digits, 16)[0]
+    # K2's 8-bit plane: A's bytes (or its listed tiles'), B's two digit
+    # planes' 64 real columns, the output; 2 M N K int8 operations per
+    # digit pair (one of A's plane, two of B's)
+    for kind, (what, a_, tm_, ob) in k28_rows.items():
+        out_ = packmm._packmm(a_, b8, ob, "packed" if ob else "f32", 0, False, 64, tm_)
+        out_ = out_.words if ob else out_
+        if tm_ is None:
+            bounds[kind] = bound(nbytes(a_.words, b8.digits[:, :, :64], out_), 2 * 4096 * 64 * 4096 * 2, "int8")
+        else:
+            bounds[kind], listed8 = skip_bound(tm_, tm_.tile_m * tm_.tile_k, b8, out_, 64, pairs=2)
+    print(f"phase 3: K2's 8-bit plane over the blocky A: {listed8} of {tm8.kidx.numel()} tiles listed; "
+          + "; ".join(f"{k} {kernel_ms[k] * 1e3:.1f} us" for k in k28_rows) + f" [{card}]")
     print(f"phase 3: K skip at C1, batch 0: {listed0} of {tm0.kidx.numel()} tiles listed; "
           + "; ".join(f"{k} {kernel_ms[k] * 1e3:.1f} us with its map, {kernel_ms[k + ' dense'] * 1e3:.1f} "
                       f"without" for k in ("packmm_skip", "packmm_skip f32", "digitmm_skip")) + f" [{card}]")
@@ -1782,7 +1881,7 @@ def main() -> int:
                "fused_baseline": ("fused_baseline_k5.cuh", "qgtc_ppopp22_tpu/ops/fused_model.py:1299",
                                   base_launches),
                "bitmm": ("bitmm_k6.cuh", "qgtc_ppopp22_tpu/ops/bitgemm.py:266", bits_launches),
-               "packmm_signed": ("packmm_signed.cu", "qgtc_ppopp22_tpu/ops/packmm.py:473",
+               "packmm_signed": ("packmm_k4.cuh", "qgtc_ppopp22_tpu/ops/packmm.py:473",
                                  sweep_launches),
                # the TileMap K skip: the zero-tile path's mapped launches
                "packmm_skip": ("packmm_k2.cuh", "qgtc_ppopp22_tpu/ops/packmm.py:664",

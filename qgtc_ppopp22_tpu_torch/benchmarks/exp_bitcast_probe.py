@@ -14,7 +14,7 @@ held to its plain PyTorch version:
 * :func:`fragment_registers`: the registers of ``gemm_core.cuh``'s first
   ``mma.sync.m16n8k32`` s8 of warp 0, staged and loaded by its K loop's
   own code (``Int8Loader``, ``load_b``'s transpose, the 32-bit
-  shared-memory loads of ``frag_a`` and ``frag_b``, which ``gemm_kernel``
+  shared-memory loads of ``frag_a`` and ``frag_b``, which K2's and K4's
   and the probes' K loops call); :func:`fragment_table` decodes which
   (row, k) of the A tile and which (k, n) of B each byte holds and compares them with the
   PTX ISA's layout for that shape (:func:`fragment_registers_plain`).

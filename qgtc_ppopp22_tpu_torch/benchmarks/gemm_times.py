@@ -3,7 +3,10 @@
 2-bit GCN, hidden 16, 40 classes), K2 at C1 with a real adjacency's
 zero-tile map (batch 0 of the arxiv stand-in, psize 1500, batch 20, with
 its pack-time map), every row of the kernel sweep's Fig. 8a (K2
-packed out at 1, 2 and 4 bits, K4 ``packmm_signed`` at 8 bits), and the
+packed out at 1, 2 and 4 bits, K4 ``packmm_signed`` at 8 bits), K2's 8-bit
+plane (8-bit A[4096²] x 8-bit B[4096 x 64], two digit planes, to the
+signed plane and to f32 at ``out_cols`` 64, dense and over a blocky A
+with its map), and the
 whole-model kernel K1 ``fused_model_epoch`` over C1's 75 batches: 2-bit
 with the compacted block schedule and dense (C1), and 8-bit levels (C1-8,
 ``shifts=[6, 2, 11, 2, 11]``: the signed chain) dense and with C1's
@@ -37,7 +40,9 @@ and B3 (``BaselineEngine.run_epochs_mega``, sage, 20 epochs a run).
 ``--plans`` (``packmm_plan(..., bnt=)``, ``bitmm_plan(..., bnt=)``,
 ``fused_model_plan``, ``digitmm_plan`` and ``fused_baseline_plan``, this
 checkout only) adds K2 at C1's rows and at 4096² on each column tile it
-can take, K6 at C1's aggregations on each column tile and split, K1 at C1
+can take, K4 (``packmm_signed_plan``) at the sweep's nine 8-bit rows on
+each split (at 4096² x 64 on each column tile too) and K2's dense 8-bit
+plane to the signed plane on each column tile and split, K6 at C1's aggregations on each column tile and split, K1 at C1
 and C1-8 on each of its plans' rows per CTA, stage depths and ring depths,
 K3 at C1's updates on each column tile and tile height, and K5 at
 C1-baseline on each count of batches in flight, each line with its plan.
@@ -135,6 +140,64 @@ def c1_map_calls(seed: int, device, batcher) -> dict:
         f"packmm_to_digits A(batch 0)[{pn}x{pn}] x H[{pn}x{HIDDEN}], no map":
             lambda: packmm.packmm_to_digits(a, h16, BITS),
     }
+
+
+def plane8_operands(seed: int, device):
+    """K2's 8-bit plane at 4096²: an 8-bit A, dense and blocky (every third
+    256 x 256 tile occupied, 30% inside) with its pack-time map, and an
+    8-bit B[4096 x 64] (two digit planes)."""
+    rng = np.random.default_rng(seed)
+    m, n = 4096, 64
+    q = rng.integers(0, 256, (m, m))
+    blocky = q * (rng.random((m, m)) < 0.3)
+    i, j = np.meshgrid(np.arange(m) // 256, np.arange(m) // 256, indexing="ij")
+    blocky[(i + j) % 3 != 0] = 0
+    a = pack_rows(torch.from_numpy(q).to(device), 8)
+    am = pack_rows(torch.from_numpy(blocky).to(device), 8)
+    b = digit_pack(torch.from_numpy(rng.integers(0, 256, (m, n))).to(device), 8)
+    return a, am, packmm.build_tile_map_packed(am), b
+
+
+def plane8_calls(a, am, tm, b) -> dict:
+    """K2's 8-bit plane, dense and over the blocky A with its map, to the
+    signed plane and to f32 (``out_cols`` 64)."""
+    shape = f"A[{a.shape[0]}x{a.shape[1]}] 8-bit x B[{b.shape[0]}x{b.shape[1]}] 8-bit"
+    return {f"packmm 8-bit plane {shape} to the signed plane": lambda: packmm.packmm_to_packed(a, b, 8, out_cols=64),
+            f"packmm 8-bit plane {shape} to f32": lambda: packmm.packmm_to_f32(a, b, out_cols=64),
+            f"packmm 8-bit plane blocky {shape} with its map to the signed plane":
+                lambda: packmm.packmm_to_packed(am, b, 8, tm, out_cols=64),
+            f"packmm 8-bit plane blocky {shape} with its map to f32": lambda: packmm.packmm_to_f32(am, b, tm, out_cols=64)}
+
+
+def signed_plan_calls(a, b, sweep) -> dict:
+    """K4 (``packmm_signed_plan``) at each of the sweep's nine 8-bit rows on
+    each split on its chosen column tile, at 4096² x 64 also on each other
+    column tile, and K2's dense 8-bit plane (to the signed plane,
+    ``out_cols`` 64) on each column tile and split; the default plan is
+    marked."""
+    import dataclasses
+
+    def rows_of(name, a_, b_, np_, n, oc, tiles):
+        chosen = packmm.packmm_signed_plan(a_.padded_rows, a_.padded_cols, np_, n, "plane", oc)
+        out = {}
+        for bnt in tiles:
+            tile = packmm.packmm_signed_plan(a_.padded_rows, a_.padded_cols, np_, n, "plane", oc, bnt=bnt)
+            for s in range(1, packmm.MAX_SPLIT + 1):
+                plan = dataclasses.replace(tile, splits=s, cluster=(1, 1, s), grid=(*tile.grid[:2], s))
+                mark = ", chosen" if plan == chosen else ""
+                out[f"plan {name}: {dataclasses.astuple(plan)}{mark}"] = (
+                    lambda a_=a_, b_=b_, p=plan: packmm._packmm(a_, b_, 8, "packed", 0, False, oc, _plan=p))
+        return out
+
+    rows = {}
+    for c in sweep:
+        if c.bits != 8:
+            continue
+        np_ = c.b.plane.shape[1]
+        tiles = (16, 32, 64) if (c.M, c.N) == (4096, 64) else (None,)
+        rows.update(rows_of(f"K4 sweep {c.M}² x {c.N}", c.a, c.b, np_, np_, c.N, tiles))
+    rows.update(rows_of("K2 8-bit plane 4096² x 64", a, b, b.padded_cols, b.shape[1], 64, (16, 32, 64)))
+    return rows
 
 
 def plan_calls(seed: int, device) -> dict:
@@ -446,7 +509,7 @@ def main(argv=None) -> int:
     p.add_argument("--epoch-runs", type=int, default=3, help="runs of 5 epochs for E1, E1z and E4 (0: none)")
     p.add_argument("--mega-runs", type=int, default=3, help="runs of 20 epochs for E3, E3-8 and B3 (0: none)")
     p.add_argument("--plans", action="store_true",
-                   help="K2 and K6 on each column tile they can take, K1, K3 and K5 on each of their plans")
+                   help="K2, K4 and K6 on each column tile they can take, K1, K3 and K5 on each of their plans")
     p.add_argument("--scaling", action="store_true",
                    help="K1 at C1 dense over 1 to 75 batches and cluster sizes")
     args = p.parse_args(argv)
@@ -459,9 +522,12 @@ def main(argv=None) -> int:
     ds, batcher = c1_batches()
     rows = c1_calls(args.seed, dev)
     rows.update(c1_map_calls(args.seed, dev, batcher))
-    for c in kernel_sweep.figure_cases("8a", np.random.default_rng(0), dev):
+    sweep = kernel_sweep.figure_cases("8a", np.random.default_rng(0), dev)
+    for c in sweep:
         kind = "packmm_signed" if c.bits == 8 else "packmm packed"
         rows[f"sweep 8a {kind} bits={c.bits} M=K={c.M} N={c.N}"] = c.run
+    p8 = plane8_operands(args.seed, dev)
+    rows.update(plane8_calls(*p8))
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher
 
     batcher8 = ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=8, seed=3, cache_dir="./datasets")
@@ -472,6 +538,7 @@ def main(argv=None) -> int:
     rows.update(step_epoch_calls(ds, batcher, dev))
     if args.plans:
         rows.update(plan_calls(args.seed, dev))
+        rows.update(signed_plan_calls(p8[0], p8[3], sweep))
         rows.update(k1_plan_calls(k1_ops))
         rows.update(k3_plan_calls(args.seed, dev))
         rows.update(k5_plan_calls(k5_a, k5_x, k5_w))

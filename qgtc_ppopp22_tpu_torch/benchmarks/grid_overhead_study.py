@@ -8,13 +8,13 @@ profiler of the SMs:
 1. **zero-body** (:func:`zero_body`): K1's geometry, one cluster per ``G``
    batches, reading each batch's X into shared memory and writing zeros:
    the launch, cluster and traffic cost per batch, for G in {1, 5}.
-2. **K-dot** (:func:`kdot`): the same read, then K passes of
-   ``gemm_core.cuh``'s single-stage int8 K loop, ``out[b] = (sum over k < K
-   of S . roll(x[b], k))[:, :oc]``; the roll is ``jnp.roll``'s along the 128
-   columns (column j moves to j + k). S is an operand here (the TPU
-   kernel used uninitialised scratch, and its x was zero, so its output
-   was zero). Here S and x are random, so every pass does real products
-   and the roll's direction shows. K in {0, 1, 2} at oc 48, and oc in
+2. **K-dot** (:func:`kdot`): the same read, then K passes of a
+   single-stage int8 K loop built from ``gemm_core.cuh``'s pieces,
+   ``out[b] = (sum over k < K of S . roll(x[b], k))[:, :oc]``; the roll is
+   ``jnp.roll``'s along the 128 columns (column j moves to j + k). S is an
+   operand here (the TPU kernel used uninitialised scratch, and its x was
+   zero, so its output was zero). Here S and x are random, so every pass
+   does real products and the roll's direction shows. K in {0, 1, 2} at oc 48, and oc in
    {8, 48, 120} at K = 0: the cost per pass and of the output width.
 3. **layer scaling**: K1 itself (``ops.fused_model.fused_model_epoch``)
    at 1, 3 and 5 layers on JAX's ``mega`` inputs (2-bit GCN, hidden 16,

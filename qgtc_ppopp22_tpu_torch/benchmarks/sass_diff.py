@@ -32,11 +32,11 @@ def functions(lib: str) -> dict:
     funcs, name, body = {}, None, []
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
-        if m:
+        if m or line.startswith("Fatbin "):  # a function, or the next object file's header
             if name:
                 funcs[name] = "\n".join(body)
             # an anonymous namespace's name carries a hash of its file's path
-            name, body = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", m[1]), []
+            name, body = (re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", m[1]) if m else None), []
         elif name:
             line = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)  # instruction offsets
             body.append(line.strip())

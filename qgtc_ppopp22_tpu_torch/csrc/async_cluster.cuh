@@ -1,6 +1,6 @@
 // cp.async and thread-block-cluster helpers shared by the Hopper kernels
 // with a cp.async ring and split-K over a cluster (packmm_k2.cuh for K2,
-// bitmm_k6.cuh for K6).
+// packmm_k4.cuh for K4, bitmm_k6.cuh for K6).
 #pragma once
 
 #include <cstdint>
@@ -58,6 +58,15 @@ __device__ __forceinline__ int2 ld_peer2(uint32_t addr) {
   int2 v;
   asm volatile("ld.shared::cluster.v2.s32 {%0, %1}, [%2];\n"
                : "=r"(v.x), "=r"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int4 ld_peer4(uint32_t addr) {
+  int4 v;
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "r"(addr)
                : "memory");
   return v;

@@ -8,12 +8,13 @@
 //                 the card's memory: a word's bytes are adjacent there);
 //   bitcast8to32  the inverse, word (i, j) = bytes (4i .. 4i + 3, j),
 //                 little-endian;
-//   fragment_probe the registers of gemm_core.cuh's first int8
-//                 mma.sync.m16n8k32 of warp 0, through gemm_kernel's own
-//                 code (the A tile staged by Int8Loader, B transposed to
-//                 [n][k] by load_b, the fragments loaded by frag_a and
-//                 frag_b), so the caller can hold them to the PTX ISA's
-//                 layout: a K loop that changes those loads changes this.
+//   fragment_probe the registers of the first int8 mma.sync.m16n8k32 of
+//                 warp 0, through gemm_core.cuh's own code (the A tile
+//                 staged by Int8Loader, B transposed to [n][k] by load_b,
+//                 the fragments loaded by frag_a and frag_b, which K2's
+//                 and K4's K loops call), so the caller can hold them to
+//                 the PTX ISA's layout: a change to those loads changes
+//                 this.
 // Both bitcasts read or write a word as a char4, the access the packed
 // loaders' byte order rests on.
 // What bounds it on an H100: nothing measurable; a few KB, one launch.
@@ -50,7 +51,7 @@ __global__ void bitcast8to32_kernel(const int8_t* __restrict__ x, int32_t* __res
 
 // a: int8 [BM][BK] (rows x k), b: int8 [BK][BN] (k x n); a_regs
 // [32][4], b_regs [32][2]: warp 0's fragments of m-tile 0, n-tile 0 and
-// the first 32-deep slice, as gemm_kernel loads them.
+// the first 32-deep slice, as frag_a and frag_b load them.
 __global__ void __launch_bounds__(THREADS)
     fragment_probe_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                           uint32_t* __restrict__ a_regs, uint32_t* __restrict__ b_regs) {

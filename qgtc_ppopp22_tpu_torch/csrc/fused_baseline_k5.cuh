@@ -53,6 +53,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "wgmma.cuh"
+
 // K5_TRACE 1 (benchmarks/k5_trace.py builds it so, apart from the library)
 // has each CTA add clock64 spans to k5_trace: the consumers' waits and
 // steps, the producer's waits, the group barriers, the first batch's X.
@@ -180,25 +182,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// The wgmma descriptor of a K-major tile with the 128-byte swizzle at
-// shared address `addr` (inside a 1024-byte-aligned atom of 8 rows of 128
-// bytes): the stride between 8-row groups 1024 bytes (PTX ISA, "Matrix
-// Descriptor Format"; the leading offset is unused for this layout).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // Keeps the compiler from moving an accumulator's uses across a wgmma

@@ -1,14 +1,15 @@
-// Integer tile-GEMM core shared by the digitmm kernel, packmm's 8-bit
-// signed-plane route and the packmm_signed kernel (packmm's 1/2/4-bit
-// route is packmm_k2.cuh, which takes its fragment loads, mma and
-// epilogue stores from here).
+// Integer tile-GEMM pieces shared by the kernels that run int8
+// mma.sync.m16n8k32: K2 (packmm_k2.cuh, an M-packed 1/2/4-bit A), K3
+// (digitmm_k3.cuh), K4 (packmm_k4.cuh, the offset-signed 8-bit A plane:
+// packmm_signed and packmm's 8-bit route) and the kernel-study probes:
+// the tile constants, the output kinds and their epilogue stores, the
+// offset corrections, the TileMap K skip, the fragment loads and the mma,
+// and the probes' A-tile loaders.
 //
 // C = sum_{d<ND_A, e<ND_B} dot(A_d, B_e) << 4*(d+e), exact in int32, plus
 // an optional offset correction (CORR), followed by one fused epilogue:
 // requantize to base-16 digit planes, to M-packed words or to the
-// offset-signed byte plane, or store the raw sum as float32 / int32. The
-// kernels differ only in how an A tile reaches shared memory (the ALoader
-// template argument) and in the correction.
+// offset-signed byte plane, or store the raw sum as float32 / int32.
 //
 // Shape contract (checked by the C entry points and the Python wrappers):
 //   A: rows mp, contraction kp; B: int8[ND_B][kp][np] digit planes;
@@ -29,21 +30,11 @@
 // whole contraction; the epilogue runs either way, so every output
 // element is written, rows whose kcnt is 0 included.
 //
-// Design: a CTA owns ROWS x BN outputs, ROWS = 64 (4 warps) or, for packed
-// words, one whole 256-row group (16 warps), and loops over the whole
-// contraction (or its listed K tiles) itself (nothing carries across
-// CTAs). Per BK step it stages
-// the A and B tiles in shared memory, B transposed to [n][k] so that both
-// mma.sync fragments are plain 32-bit loads, and runs int8
-// mma.sync.m16n8k32 with one int32 accumulator set per digit shift
-// 4*(d+e); each warp owns a 32 x 32 tile. This is the simple, single-stage
-// form; cp.async/TMA rings and wgmma are later work.
-//
 // Packed words: within each 256-row group, row q*4*gw + 4*i + k of the
 // output sits in bits [8k + f*q, 8k + f*(q+1)) of word row i, gw = 8 * f
-// word rows per group. One word gathers rows from the whole group, so a
-// CTA owns the group: it requantizes its accumulators into a byte tile in
-// shared memory and then builds whole words from it.
+// word rows per group. One word gathers rows from the whole group, so the
+// four 64-row CTAs of a group form a thread-block cluster and build its
+// words from each other's requantized levels (K2, K4).
 #pragma once
 
 #include <cstdint>
@@ -51,8 +42,7 @@
 
 namespace qgtc {
 
-constexpr int BM = 64;        // output rows per CTA (digits, f32, i32,
-                              // signed byte plane)
+constexpr int BM = 64;        // output rows per CTA
 constexpr int BN = 64;        // output columns per CTA
 constexpr int BK = 64;        // contraction depth per shared-memory stage
 constexpr int LDS = BK + 16;  // smem row stride in bytes (20 words: the
@@ -226,9 +216,9 @@ __device__ __forceinline__ void load_b(int8_t (*Bs)[BN][LDS],
 // p points at the lane's first byte: (row g, k 4 t4) of the 16-row m-tile
 // of an A tile with rows LDS bytes apart, or (column g, k 4 t4) of the
 // 8-column n-tile of B transposed to [n][k] (any column stride).
-// gemm_kernel's K loop and the kernel-study probes load their fragments
-// here; exp_bitcast_probe.cu's fragment_probe pins on the card what these
-// loads put in each register.
+// K2, K4 and the kernel-study probes load their fragments here;
+// exp_bitcast_probe.cu's fragment_probe pins on the card what these loads
+// put in each register.
 __device__ __forceinline__ void frag_a(uint32_t (&f)[4], const int8_t* p) {
   f[0] = *reinterpret_cast<const uint32_t*>(p);
   f[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
@@ -317,187 +307,6 @@ __device__ __forceinline__ void store_pair(const Epilogue& ep, int row,
     c.y = (char)(requant(v1, ep.out_bits, ep.shift) - 128);
     *reinterpret_cast<char2*>(static_cast<int8_t*>(ep.out) + idx) = c;
   }
-}
-
-// PACK: the CTA owns one 256-row group and writes packed words; otherwise
-// a 64-row tile stored pair by pair.
-template <int ND_A, int ND_B, int CORR, bool PACK, bool MAPPED, class ALoader>
-__global__ void __launch_bounds__(PACK ? 2 * GROUP : THREADS)
-    gemm_kernel(ALoader la, const int8_t* __restrict__ b, int kp,
-                Epilogue ep, KMap km) {
-  constexpr int ROWS = PACK ? GROUP : BM;
-  constexpr int NT = 2 * ROWS;  // 4 warps per 64 rows
-  __shared__ __align__(16) int8_t As[ND_A][ROWS][LDS];
-  __shared__ __align__(16) int8_t Bs[ND_B][BN][LDS];  // [n][k]
-  __shared__ int colsum[CORR == CORR_COLSUM ? BN : 1];
-  __shared__ int rowsum[CORR == CORR_PREPARED ? ROWS : 1];
-
-  constexpr int NS = ND_A + ND_B - 1;  // distinct digit shifts
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;  // mma groupID / thread-in-group
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * ROWS, n0 = blockIdx.x * BN;
-
-  int acc[NS][2][4][4];
-#pragma unroll
-  for (int s = 0; s < NS; ++s)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[s][mt][nt][i] = 0;
-  // CORR_COLSUM: column tid's B sum over the visited K tiles only (a
-  // skipped tile drops its dot and its correction together, as on the
-  // TPU); CORR_PREPARED: row tid's A sum
-  int cs = 0;
-
-  // The K ranges this CTA visits. Dense (MAPPED false): the whole
-  // contraction as one range, so the loop is the plain k0 loop. MAPPED:
-  // the K tiles its row tile's map row lists (KTiles), BK steps each.
-  const KTiles kt(km, m0, kp);
-  const int nr = MAPPED ? kt.n : 1;
-  for (int t = 0; t < nr; ++t) {
-    const int kb = MAPPED ? kt.start(t) : 0;
-    if (kb < 0) continue;  // outside the grid: nothing to read
-    const int ke = MAPPED ? kb + kt.depth : kp;
-    for (int k0 = kb; k0 < ke; k0 += BK) {
-      la.template load<ND_A, ROWS>(As, m0, k0, tid);
-      load_b<ND_B, NT>(Bs, b, kp, ep.np, k0, n0, tid);
-      __syncthreads();
-      if (CORR == CORR_COLSUM && tid < BN) {
-#pragma unroll
-        for (int e = 0; e < ND_B; ++e)
-          for (int k = 0; k < BK; ++k) cs += (int)Bs[e][tid][k] << (4 * e);
-      }
-      if (CORR == CORR_PREPARED && tid < ROWS) {
-        const int* row = reinterpret_cast<const int*>(&As[0][tid][0]);
-#pragma unroll
-        for (int w = 0; w < BK / 4; ++w) cs = __dp4a(row[w], 0x01010101, cs);
-      }
-#pragma unroll
-      for (int ks = 0; ks < BK; ks += 32) {
-        uint32_t af[ND_A][2][4];
-        uint32_t bf[ND_B][4][2];
-#pragma unroll
-        for (int d = 0; d < ND_A; ++d)
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            frag_a(af[d][mt], &As[d][wm + mt * 16 + g][ks + t4 * 4]);
-#pragma unroll
-        for (int e = 0; e < ND_B; ++e)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            frag_b(bf[e][nt], &Bs[e][wn + nt * 8 + g][ks + t4 * 4]);
-#pragma unroll
-        for (int d = 0; d < ND_A; ++d)
-#pragma unroll
-          for (int e = 0; e < ND_B; ++e)
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt)
-                mma_s8(acc[d + e][mt][nt], af[d][mt], bf[e][nt]);
-      }
-      __syncthreads();
-    }
-  }
-  if (CORR == CORR_COLSUM) {
-    if (tid < BN) colsum[tid] = cs;
-    __syncthreads();
-  }
-  if (CORR == CORR_PREPARED) {
-    if (tid < ROWS) rowsum[tid] = cs;
-    __syncthreads();
-  }
-
-  // PACK: requantized levels [ROWS][BN], in the A tile's shared memory
-  // (free after the last __syncthreads of the K loop)
-  uint8_t* stage = reinterpret_cast<uint8_t*>(&As[0][0][0]);
-  static_assert(!PACK || sizeof(As) >= GROUP * BN, "stage fits in As");
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows g and g + 8
-        const int row = wm + mt * 16 + g + 8 * h;
-        const int col = wn + nt * 8 + t4 * 2;
-        int v[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          uint32_t s = 0;  // unsigned: the shifted sum wraps like int32
-#pragma unroll
-          for (int si = 0; si < NS; ++si)
-            s += (uint32_t)acc[si][mt][nt][2 * h + j] << (4 * si);
-          if (CORR == CORR_COLSUM) s += (uint32_t)colsum[col + j] << 7;
-          if (CORR == CORR_PREPARED)
-            s += ((uint32_t)rowsum[row] << 7) + (uint32_t)ep.corr[n0 + col + j];
-          v[j] = n0 + col + j < ep.mask_n ? (int)s : 0;
-        }
-        if (PACK) {
-          stage[row * BN + col] = (uint8_t)requant(v[0], ep.out_bits, ep.shift);
-          stage[row * BN + col + 1] =
-              (uint8_t)requant(v[1], ep.out_bits, ep.shift);
-        } else {
-          store_pair(ep, m0 + row, n0 + col, v[0], v[1]);
-        }
-      }
-  if (PACK) {
-    __syncthreads();
-    // f-bit fields: whole words of the group, padding rows included
-    const int f = ep.out_bits <= 2 ? ep.out_bits : 4;
-    const int gw = 8 * f, P = 8 / f;
-    int32_t* out = static_cast<int32_t*>(ep.out);
-    for (int w = tid; w < gw * BN; w += NT) {
-      const int i = w / BN, n = w % BN;
-      if (n0 + n >= ep.ocp) continue;
-      uint32_t word = 0;
-      for (int q = 0; q < P; ++q)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          word |= (uint32_t)stage[(q * 4 * gw + 4 * i + k) * BN + n]
-                  << (8 * k + f * q);
-      out[(size_t)(blockIdx.y * gw + i) * ep.ocp + n0 + n] = (int32_t)word;
-    }
-  }
-}
-
-// One kernel instantiation: PACK chooses the 256-row CTA. Digit planes
-// keep their padding, so they take every column tile; the terminal kinds
-// take only the tiles that hold stored columns (< ocp): a tile past them
-// would stream all of A through the K loop for sums nobody stores. A map
-// (km) whose row tiles split a CTA's rows is refused; null pointers launch
-// the dense instantiation (MAPPED false), whose K loop carries no map.
-template <int ND_A, int ND_B, int CORR, bool PACK, class ALoader>
-int launch_tiles(const ALoader& la, const void* b, int mp, int kp, int np,
-                 const Epilogue& ep, const KMap& km, cudaStream_t stream) {
-  constexpr int ROWS = PACK ? GROUP : BM;
-  if (!map_ok(km, mp, kp, ROWS, BK)) return (int)cudaErrorInvalidValue;
-  const int col_tiles = ep.kind == OUT_DIGITS ? np / BN : (ep.ocp + BN - 1) / BN;
-  const dim3 grid(col_tiles, mp / ROWS);
-  const int8_t* bp = static_cast<const int8_t*>(b);
-  if constexpr (CORR == CORR_PREPARED) {
-    // a PreparedRHS takes no map (the TPU kernel refuses one)
-    if (km.kcnt != nullptr) return (int)cudaErrorInvalidValue;
-  } else if (km.kcnt != nullptr) {
-    gemm_kernel<ND_A, ND_B, CORR, PACK, true, ALoader>
-        <<<grid, 2 * ROWS, 0, stream>>>(la, bp, kp, ep, km);
-    return (int)cudaGetLastError();
-  }
-  gemm_kernel<ND_A, ND_B, CORR, PACK, false, ALoader>
-      <<<grid, 2 * ROWS, 0, stream>>>(la, bp, kp, ep, km);
-  return (int)cudaGetLastError();
-}
-
-// Every output kind, packed words included.
-template <int ND_A, int ND_B, int CORR, class ALoader>
-int launch(const ALoader& la, const void* b, int mp, int kp, int np,
-           const Epilogue& ep, const KMap& km, cudaStream_t stream) {
-  if (group_out(ep.kind, ep.out_bits))
-    return launch_tiles<ND_A, ND_B, CORR, true>(la, b, mp, kp, np, ep, km, stream);
-  return launch_tiles<ND_A, ND_B, CORR, false>(la, b, mp, kp, np, ep, km, stream);
 }
 
 inline bool shapes_ok(int mp, int kp, int np, int kind, int out_bits,

@@ -12,10 +12,11 @@
 //   kdot       the same read of X, then out[b] = (sum over k < K of
 //              S . roll(x[b], k))[:, :oc] as float, with S int8 [pn][pn]
 //              and roll along the 128 columns as jnp.roll (column j of
-//              x[b] moves to column (j + k) mod 128): per k, a pass of
-//              gemm_core.cuh's single-stage int8 mma.sync loop over the
-//              whole contraction, both 64-column tiles, as fused_model's
-//              aggregations run (the TPU study's K dummy MXU dots).
+//              x[b] moves to column (j + k) mod 128): per k, a pass of a
+//              single-stage int8 mma.sync loop (gemm_core.cuh's loader and
+//              fragment loads) over the whole contraction, both 64-column
+//              tiles, as fused_model's aggregations ran (the TPU study's K
+//              dummy MXU dots).
 // What bounds it on an H100: zero_body moves B pn (xp + 4 oc) bytes
 // (35.7 MB at pn 2048, 50 batches, oc 48: 11 us at the memory rate);
 // kdot at K passes does 2 B K pn^2 oc operations (K = 2: 2.6 T at

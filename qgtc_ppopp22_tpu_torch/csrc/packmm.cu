@@ -45,11 +45,11 @@
 //     each 256-row group's words over distributed shared memory: 64 CTAs
 //     at M = 4096 where one CTA per group made 16.
 // A skipped tile costs neither its loads nor its K steps. The 8-bit
-// (signed plane) route stays on gemm_core.cuh's single-stage gemm_kernel.
-#include <algorithm>
-
-#include "gemm_core.cuh"
+// (signed plane) route runs K4's kernel (packmm_k4.cuh) with the colsum
+// correction: the same ring, split-K and packed-words clusters, A's
+// fragments loaded straight from the ring (its int8 rows need no unpack).
 #include "packmm_k2.cuh"
+#include "packmm_k4.cuh"
 
 using namespace qgtc;
 
@@ -59,12 +59,13 @@ using namespace qgtc;
 // outputs (np for digits); kidx / kcnt: the TileMap, or null for the dense
 // contraction (tile_m a multiple of 256, tile_k of 64); see gemm_core.cuh.
 // n: B's real columns (those >= n hold level 0); bnt, grid (gx, gy, gz)
-// and cluster (cx, cy, cz): the launch of the 1/2/4-bit route as
-// ops/packmm.py packmm_plan chose it, which this entry only checks: the
-// column tile (16, 32 or 64), gx = ceil(min(round_up(n, 8), np or ocp) /
-// bnt) column tiles, gy = mp / 64 row tiles, gz = cz = the CTAs per output
-// tile (1-4; 1-2 for packed words), cx = 1 and cy = 4 for packed words (a
-// 256-row group), else 1. The 8-bit route ignores n, bnt, grid and cluster.
+// and cluster (cx, cy, cz): the launch as ops/packmm.py packmm_plan (1/2/4
+// bits) or packmm_signed_plan (8) chose it, which this entry only checks
+// (k4::plan_ok: the column tile 16, 32 or 64, gx = ceil(min(round_up(n,
+// 8), np or ocp) / bnt) column tiles, gy = mp / rows row tiles (64 rows a
+// CTA for 1/2/4 bits, 128 for 8), gz = cz = the CTAs per output tile (1-4;
+// 1-2 for packed words), cx = 1 and cy = 256 / rows for packed words (a
+// 256-row group), else 1).
 extern "C" int qgtc_packmm(void* out, const void* a, const void* b,
                            int field_bits, int nd_b, int mp, int kp, int np,
                            int out_kind, int out_bits, int shift, int ocp,
@@ -78,18 +79,12 @@ extern "C" int qgtc_packmm(void* out, const void* a, const void* b,
     return (int)cudaErrorInvalidValue;
   const Epilogue ep{out, mp, np, out_kind, out_bits, shift, ocp, np, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (field_bits == 8) {
-    const Int8Loader la{static_cast<const int8_t*>(a), mp, kp};
-    if (nd_b == 1) return launch<1, 1, CORR_COLSUM>(la, b, mp, kp, np, ep, km, s);
-    if (nd_b == 2) return launch<1, 2, CORR_COLSUM>(la, b, mp, kp, np, ep, km, s);
+  if (!k4::plan_ok(field_bits == 8 ? k4::ROWS : BM, n, bnt, gx, gy, gz, cx, cy, cz, mp, np, out_kind,
+                   out_bits, ocp))
     return (int)cudaErrorInvalidValue;
-  }
-  const bool pack = group_out(out_kind, out_bits);
-  if (n <= 0 || (bnt != 16 && bnt != 32 && bnt != 64)) return (int)cudaErrorInvalidValue;
-  const int ncomp = std::min((n + 7) / 8 * 8, out_kind == OUT_DIGITS ? np : ocp);
-  if (gx != (ncomp + bnt - 1) / bnt || gy != mp / BM || gz < 1 ||
-      gz > (pack ? 2 : k2::MAX_SPLIT) || cx != 1 || cy != (pack ? k2::PACK_ROWS : 1) || cz != gz)
-    return (int)cudaErrorInvalidValue;
+  if (field_bits == 8)
+    return k4::launch_colsum(static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), nd_b,
+                             kp, ep, km, bnt, gx, gz, s);
   const int32_t* w = static_cast<const int32_t*>(a);
   const int8_t* bp = static_cast<const int8_t*>(b);
   switch (field_bits) {

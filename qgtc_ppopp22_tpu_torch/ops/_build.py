@@ -103,13 +103,15 @@ def library() -> ctypes.CDLL:
         lib.qgtc_digitmm.argtypes = [p] * 7
         lib.qgtc_digitmm.restype = i
         # packmm adds (n, bnt, grid x/y/z, cluster x/y/z) before the
-        # stream: B's real columns and the 1/2/4-bit route's plan
-        # (ops/packmm.py packmm_plan), which the C entry checks.
+        # stream: B's real columns and the plan (ops/packmm.py
+        # packmm_plan, or packmm_signed_plan for an 8-bit A), which the C
+        # entry checks.
         lib.qgtc_packmm.argtypes = mapped[:-1] + [i] * 8 + [p]
         lib.qgtc_packmm.restype = i
-        # (out, a, plane, corr, mp, kp, np, out_kind, out_bits, shift, ocp,
-        # mask_n, stream); see csrc/packmm_signed.cu.
-        lib.qgtc_packmm_signed.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+        # (out, a, plane_t, corr, mp, kp, np, out_kind, out_bits, shift,
+        # ocp, mask_n, bnt, grid x/y/z, cluster x/y/z, stream); see
+        # csrc/packmm_signed.cu.
+        lib.qgtc_packmm_signed.argtypes = [p, p, p, p] + [i] * 15 + [p]
         lib.qgtc_packmm_signed.restype = i
         # (out, a, x, w, corr, sched, scratch, meta, n_meta, stream); meta
         # is a host int array, laid out in csrc/fused_model.cu.

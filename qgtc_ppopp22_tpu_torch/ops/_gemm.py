@@ -28,10 +28,10 @@ SMS = 132  # streaming multiprocessors of an H100 SXM
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """The launch of a split-K cluster kernel (K2's 1/2/4-bit route,
+    """The launch of a split-K cluster kernel (K2's 1/2/4-bit route, K4,
     K6): the column tile ``bnt``, the ``splits`` CTAs that share each
     output tile (split-K), the thread-block ``cluster`` (x, y, z) and the
-    ``grid`` (column tiles, 64-row tiles, splits)."""
+    ``grid`` (column tiles, row tiles of the kernel's CTA, splits)."""
 
     bnt: int
     splits: int
@@ -200,20 +200,22 @@ def launch(
     ocp: Optional[int] = None,
     head: tuple = (),
     tail: tuple = (),
+    b_dims: Optional[Tuple[int, int]] = None,
 ):
     """Run the CUDA entry point ``entry`` of the kernel library, whose C
     arguments are ``(out, A, B, *head, mp, kp, np, out_kind, out_bits,
     shift, ocp, *tail, stream)`` (a mapped entry's ``tail`` is
     :func:`map_args`).
 
-    ``b`` is int8[nd_b, kp, np]; ``ocp`` the stored columns of an f32, i32
-    or packed output (np if None). The output is allocated here
+    ``b`` is int8[nd_b, kp, np], or laid out otherwise with ``b_dims`` =
+    (kp, np) given; ``ocp`` the stored columns of an f32, i32 or packed
+    output (np if None). The output is allocated here
     (:func:`output`) and the kernel writes it whole, padding included.
     Returns a ``DigitTensor``, the f32 / i32 ``[:M, :N]``, or the packed
     payload as it is."""
     if b.device != a.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
-    _, kp, np_ = b.shape
+    kp, np_ = b_dims or b.shape[1:]
     if mp % TILE or kp % TILE or np_ % TILE:
         raise ValueError(f"padded extents {(mp, kp, np_)} are not multiples of {TILE}")
     ocp = np_ if ocp is None else ocp

@@ -29,8 +29,9 @@ Dispatch: operands on the CPU run :func:`packmm_plain` (which takes a
 device launch the kernel of ``csrc/packmm.cu`` (``LAUNCHES``), or of
 ``csrc/packmm_signed.cu`` for a ``PreparedRHS`` (``SIGNED_LAUNCHES``),
 or raise. A 1-, 2- or 4-bit A runs ``csrc/packmm_k2.cuh`` on the launch
-geometry that :func:`packmm_plan` chooses; a 5-8-bit A runs
-``csrc/gemm_core.cuh``'s single-stage kernel.
+geometry that :func:`packmm_plan` chooses; a 5-8-bit A (against digit
+planes or a ``PreparedRHS``) runs ``csrc/packmm_k4.cuh`` on the one that
+:func:`packmm_signed_plan` chooses.
 """
 
 from __future__ import annotations
@@ -60,8 +61,11 @@ PACK_GROUP = 256  # rows per permutation group (layout contract)
 _OFFSET = 128  # signed-plane offset: stored byte = level - 128
 
 RESIDENT = 4 * SMS  # K2's CTAs the card holds at once: what the split fills
-MAX_SPLIT = 4  # CTAs that share one output tile (csrc/packmm_k2.cuh)
+MAX_SPLIT = 4  # CTAs that share one output tile (csrc/packmm_k2.cuh, packmm_k4.cuh)
 PACK_SPLIT = 2  # for packed words, beside the 4 CTAs of a group: a cluster <= 8
+SIGNED_RESIDENT = 3 * SMS // 4  # K4's CTAs the split fills: clusters of up to 4 place in one wave
+SIGNED_STEP = 128  # K4's contraction depth a step (csrc/packmm_k4.cuh KS)
+SIGNED_ROWS = 128  # K4's rows a CTA (csrc/packmm_k4.cuh ROWS)
 
 LAUNCHES = 0  # csrc/packmm.cu launches since the count was last reset to 0
 MAPPED_LAUNCHES = 0  # those of them given a TileMap, likewise
@@ -276,15 +280,19 @@ class PreparedRHS:
     ``rowsum(A - 128)`` in that lane. ``corr``: int32[8, Np], row 0 =
     ``128 * colsum(plane) + 128^2 * Kp`` (rows 1-7 zero): with the rowsum,
     the remaining terms of ``A@B = (A-128)(B-128) + 128 rowsum(A-128) +
-    128 colsum(B-128) + 128^2 K``."""
+    128 colsum(B-128) + 128^2 K``. ``plane_t``: the plane transposed,
+    int8[Np, Kp], the form the card's kernel streams (made once by
+    :func:`prepare_rhs`; the plain version does not read it)."""
 
     plane: torch.Tensor
     corr: torch.Tensor
     shape: Tuple[int, int]
     bits: int
+    plane_t: Optional[torch.Tensor] = None
 
     def to(self, device) -> "PreparedRHS":
-        return dataclasses.replace(self, plane=self.plane.to(device), corr=self.corr.to(device))
+        return dataclasses.replace(self, plane=self.plane.to(device), corr=self.corr.to(device),
+                                   plane_t=None if self.plane_t is None else self.plane_t.to(device))
 
 
 def prepare_rhs(b: DigitTensor) -> PreparedRHS:
@@ -298,7 +306,9 @@ def prepare_rhs(b: DigitTensor) -> PreparedRHS:
     sb[:, np_ - 1] = 1
     corr = torch.zeros((8, np_), dtype=torch.int64, device=sb.device)
     corr[0] = (sb.sum(dim=0) << 7) + _OFFSET * _OFFSET * kp
-    return PreparedRHS(plane=sb.to(torch.int8), corr=corr.to(torch.int32), shape=(K, N), bits=b.bits)
+    plane = sb.to(torch.int8)
+    return PreparedRHS(plane=plane, corr=corr.to(torch.int32), shape=(K, N), bits=b.bits,
+                       plane_t=plane.t().contiguous())
 
 
 Rhs = Union[DigitTensor, PreparedRHS]
@@ -377,6 +387,50 @@ def _cached_plan(mp: int, kp: int, np_: int, n: int, out_form: str, ocp: int,
                 grid=(*tiles, splits))
 
 
+def packmm_signed_plan(mp: int, kp: int, np_: int, n: int, out_form: str, ocp: int,
+                       tile_map: Optional[TileMap] = None, bnt: Optional[int] = None) -> Plan:
+    """The launch geometry of ``csrc/packmm_k4.cuh`` for a 5-8-bit A (the
+    offset-signed byte plane) of ``mp`` padded rows and ``kp`` padded
+    columns: K4 against a ``PreparedRHS``, or K2's 8-bit route against
+    digit planes. ``n``: the columns not stored as level 0 (the
+    ``PreparedRHS`` product's ``mask_n``, or B's real columns); ``np_``,
+    ``out_form``, ``ocp``, ``tile_map`` and ``bnt`` as in
+    :func:`packmm_plan`.
+
+    The computed columns are ``round_up(n, 8)`` (at most the stored ones);
+    the column tile is the narrowest of 16, 32 and 64 that holds them, so
+    A is read once wherever they fit one tile (the sweep's 8-bit rows).
+    A CTA owns 128 rows. The split fills three quarters of the SMs, one
+    CTA each: ``SIGNED_RESIDENT // (column tiles x row tiles)``, at most 4
+    (2 for words, whose 2 CTAs of a 256-row group share the cluster too),
+    with at least 2 of the kernel's 128-deep K steps a CTA dense or one
+    listed K tile a CTA with ``tile_map``. At 4096² that is 3 CTAs of 32
+    row tiles: 96 CTAs, whose clusters place in one wave, where 4 made 128
+    and some SMs ran two (measured, ``benchmarks/gemm_times.py --plans``,
+    one H100 at 700 W: K4 at 4096² x 64 10.2 us at S 3, 11.5 at S 4; K2's
+    8-bit plane 26.0 and 38.4).
+
+    The plan depends only on these integers (and the map's ``tile_k``), so
+    it is computed once per shape."""
+    return _cached_signed_plan(mp, kp, np_, n, out_form, ocp, None if tile_map is None else tile_map.tile_k, bnt)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_signed_plan(mp: int, kp: int, np_: int, n: int, out_form: str, ocp: int,
+                        tile_k: Optional[int], bnt: Optional[int]) -> Plan:
+    if out_form not in ("digits", "f32", "i32", "plane", "words"):
+        raise ValueError(f"unknown out_form {out_form!r}")
+    ncomp = min(round_up(max(n, 1), 8), np_ if out_form == "digits" else ocp)
+    if bnt is None:
+        bnt = next((t for t in (16, 32) if ncomp <= t), 64)
+    tiles = (-(-ncomp // bnt), mp // SIGNED_ROWS)
+    steps = -(-kp // SIGNED_STEP) // 2 if tile_k is None else kp // tile_k
+    words = out_form == "words"
+    splits = max(1, min(PACK_SPLIT if words else MAX_SPLIT, SIGNED_RESIDENT // (tiles[0] * tiles[1]), steps))
+    return Plan(bnt=bnt, splits=splits, cluster=(1, PACK_GROUP // SIGNED_ROWS if words else 1, splits),
+                grid=(*tiles, splits))
+
+
 def _plan_form(out_bits: Optional[int], out_form: str, raw_i32: bool) -> str:
     """The wrapper's output arguments as :func:`packmm_plan`'s form."""
     if out_bits is None:
@@ -433,6 +487,16 @@ def _check_signed(a: PackedTensor, bp: PreparedRHS, out_form: str,
     ocp = _stored_cols(out_form, out_cols, np_)
     need_mask = ocp > round_up(max(N, 1), 8) or N % 8 != 0 or (out_cols is None and np_ > N)
     return ocp, need_mask
+
+
+def _signed_stores(a: PackedTensor, bp: PreparedRHS, out_bits: Optional[int], out_form: str,
+                   out_cols: Optional[int]) -> Tuple[int, int]:
+    """The stored columns and ``mask_n`` of a PreparedRHS product on the
+    card: lanes >= ``mask_n`` are stored as level 0 (the TPU kernel's
+    mask, always for digits out; ``np`` where nothing is masked)."""
+    ocp, need_mask = _check_signed(a, bp, out_form, out_cols)
+    digits_out = out_bits is not None and out_form == "digits"
+    return ocp, bp.shape[1] if need_mask or digits_out else bp.plane.shape[1]
 
 
 def packmm_signed_plain(
@@ -499,25 +563,31 @@ def packmm_plain(
 
 def _packmm(a: PackedTensor, b: Rhs, out_bits, out_form, shift, raw_i32, out_cols=None,
             tile_map=None, _plan: Optional[Plan] = None):
-    """Every ``packmm_*`` wrapper. ``_plan`` replaces :func:`packmm_plan`'s
-    choice for a 1/2/4-bit A on the card (the CUDA tests force each split
-    with it); the kernel refuses a plan it cannot run."""
+    """Every ``packmm_*`` wrapper. ``_plan`` replaces the launch that
+    :func:`packmm_plan` (a 1/2/4-bit A) or :func:`packmm_signed_plan` (a
+    5-8-bit A) chooses on the card (the CUDA tests force each split and
+    column tile with it); the kernel refuses a plan it cannot run."""
     global LAUNCHES, MAPPED_LAUNCHES, SIGNED_LAUNCHES
     shape = (a.shape[0], b.shape[1])
+    form = _plan_form(out_bits, out_form, raw_i32)
     if isinstance(b, PreparedRHS):
-        ocp, need_mask = _check_signed(a, b, out_form, out_cols)
+        ocp, mask_n = _signed_stores(a, b, out_bits, out_form, out_cols)
         _no_map_with_prepared(tile_map)
         if not a.words.is_cuda:
             return packmm_signed_plain(a, b, out_bits, out_form, shift, raw_i32, out_cols)
-        np_ = b.plane.shape[1]
+        kp, np_ = b.plane.shape
         if b.corr.device != a.words.device or b.corr.shape != (8, np_):
             raise ValueError(f"corr {tuple(b.corr.shape)} on {b.corr.device} does not fit")
-        digits_out = out_bits is not None and out_form == "digits"
-        mask_n = b.shape[1] if need_mask or digits_out else np_
+        plane_t = b.plane_t
+        if plane_t is None or plane_t.shape != (np_, kp) or plane_t.device != a.words.device:
+            raise ValueError(f"the kernel takes the plane transposed, [{np_}, {kp}] on {a.words.device} "
+                             "(prepare_rhs makes it)")
+        plan = _plan or packmm_signed_plan(a.padded_rows, a.padded_cols, np_, mask_n, form, ocp)
         out = _gemm.launch(
-            "qgtc_packmm_signed", a.words, torch.int8, b.plane[None], a.padded_rows, shape,
+            "qgtc_packmm_signed", a.words, torch.int8, plane_t, a.padded_rows, shape,
             out_bits, out_form, shift, raw_i32, ocp,
-            head=(_gemm._operand(b.corr, torch.int32, "corr"),), tail=(mask_n,),
+            head=(_gemm._operand(b.corr, torch.int32, "corr"),),
+            tail=(mask_n, plan.bnt, *plan.grid, *plan.cluster), b_dims=(kp, np_),
         )
         SIGNED_LAUNCHES += 1
     else:
@@ -525,15 +595,13 @@ def _packmm(a: PackedTensor, b: Rhs, out_bits, out_form, shift, raw_i32, out_col
         if not a.words.is_cuda:
             return packmm_plain(a, b, out_bits, shift, raw_i32, out_form, out_cols, tile_map)
         signed = packed_signed(a.bits)
-        plan = None if signed else _plan or packmm_plan(
-            a.padded_rows, a.padded_cols, b.padded_cols, b.shape[1],
-            _plan_form(out_bits, out_form, raw_i32), ocp, tile_map)
+        plan = _plan or (packmm_signed_plan if signed else packmm_plan)(
+            a.padded_rows, a.padded_cols, b.padded_cols, b.shape[1], form, ocp, tile_map)
         out = _gemm.launch(
             "qgtc_packmm", a.words, torch.int8 if signed else torch.int32,
             b.digits, a.padded_rows, shape, out_bits, out_form, shift, raw_i32, ocp,
             head=(field_width(a.bits), b.ndigits),
-            tail=(*_gemm.map_args(tile_map), b.shape[1],
-                  *((plan.bnt, *plan.grid, *plan.cluster) if plan else (0,) * 7)),
+            tail=(*_gemm.map_args(tile_map), b.shape[1], plan.bnt, *plan.grid, *plan.cluster),
         )
         LAUNCHES += 1
         MAPPED_LAUNCHES += tile_map is not None

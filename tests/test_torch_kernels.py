@@ -39,6 +39,9 @@ from torch_cases import (  # tests/ is on sys.path
     k2_groups,
     k3_group,
     k3_groups,
+    k4_group,
+    k4_groups,
+    k4_operands,
     k5_group,
     k5_groups,
     k6_group,
@@ -677,6 +680,35 @@ def test_k2_refuses_a_plan_it_cannot_run(cuda):
     for bad in (dict(splits=3, cluster=(1, 4, 3)), dict(bnt=48), wrong_tiles, wrong_cluster):
         with pytest.raises(RuntimeError, match="qgtc_packmm"):
             packmm._packmm(a, b, 1, "packed", 0, False, _plan=dataclasses.replace(plan, **bad))
+
+
+# K4's kernel (csrc/packmm_k4.cuh): the PreparedRHS product and K2's 8-bit
+# plane, every form of each group under every forced column tile and
+# split, the whole output against plain, twice
+@pytest.mark.parametrize("group", [kw for _, kw in k4_groups()], ids=[gid for gid, _ in k4_groups()])
+def test_k4_kernel_equals_plain(cuda, group):
+    prepared = group.get("prepared", True)
+    for tag, kernel, plain in k4_group(cuda, **group):
+        before = (packmm.LAUNCHES, packmm.SIGNED_LAUNCHES)
+        got = kernel()
+        assert (packmm.LAUNCHES - before[0], packmm.SIGNED_LAUNCHES - before[1]) == \
+            ((0, 1) if prepared else (1, 0)), tag
+        _check(got, plain())
+        _check(kernel(), got)
+
+
+@pytest.mark.parametrize("prepared", [True, False])
+def test_k4_refuses_a_plan_it_cannot_run(cuda, prepared):
+    a, b = k4_operands(1, 512, 256, 16, 8, 8, cuda, prepared=prepared)
+    np_ = b.plane.shape[1] if prepared else b.padded_cols
+    plan = packmm.packmm_signed_plan(a.padded_rows, a.padded_cols, np_, np_ if prepared else 16, "words", 16)
+    wrong_tiles = dict(grid=(plan.grid[0] + 1, *plan.grid[1:]))  # the C entry checks the geometry
+    wrong_cluster = dict(cluster=(1, 1, plan.splits))  # words take a 256-row group a cluster
+    entry = "qgtc_packmm_signed" if prepared else "qgtc_packmm"
+    for bad in (dict(splits=3, cluster=(1, 4, 3), grid=(*plan.grid[:2], 3)), dict(bnt=48), wrong_tiles,
+                wrong_cluster):
+        with pytest.raises(RuntimeError, match=entry):
+            packmm._packmm(a, b, 1, "packed", 0, False, 16, _plan=dataclasses.replace(plan, **bad))
 
 
 def test_tile_map_kernel_refuses_a_map_on_another_device(cuda):

@@ -363,6 +363,145 @@ def k2_chain(device, a_bits, seed=70):
             lambda: chain(lambda x, y, ob: packmm.packmm_plain(x, y, ob, out_form="packed")))
 
 
+# K4's kernel (csrc/packmm_k4.cuh) for a 5-8-bit A (the offset-signed byte
+# plane): the PreparedRHS product and K2's 8-bit plane against digit
+# planes, the cases the CUDA tests and chip_smoke.py hold against plain
+# under every forced plan. Forms as K2_FORMS; "n" stores N columns.
+K4_FORMS = ((None, "f32", 0, False, None), (None, "f32", 0, False, "n"), (None, "f32", 0, True, None),
+            (2, "digits", 1, False, None), (8, "digits", 0, False, None), (8, "packed", 0, False, None),
+            (5, "packed", 2, False, "n"), (1, "packed", 0, False, "n"), (2, "packed", 0, False, "n"),
+            (4, "packed", 1, False, "n"))
+K4_KP = K2_KP  # 7 steps of 64: odd remainders over every split
+
+
+def k4_levels(seed, m, k, n, a_bits, b_bits, data="random", blocky=False):
+    """Levels A (m x k) at ``a_bits`` and B (k x n) at ``b_bits``: random
+    (half the requantizer's range on each side of its clamp at 8 bits
+    out), ``blocky`` (``blocky_levels``' zero tiles), or the extremes of
+    ``test_packmm_signed_extremes``: "zero_a" (A at level 0, B at the
+    top) and "top" (both at the top level)."""
+    rng = np.random.default_rng(seed)
+    top_a, top_b = (1 << a_bits) - 1, (1 << b_bits) - 1
+    if data == "zero_a":
+        return np.zeros((m, k), np.int32), np.full((k, n), top_b, np.int32)
+    if data == "top":
+        return np.full((m, k), top_a, np.int32), np.full((k, n), top_b, np.int32)
+    qa = blocky_levels(seed, m, k, a_bits, 0.3) if blocky else rng.integers(0, top_a + 1, (m, k))
+    return qa.astype(np.int32), rng.integers(0, top_b + 1, (k, n)).astype(np.int32)
+
+
+def k4_operands(seed, m, k, n, a_bits, b_bits, device, kp=None, prepared=True, data="random", blocky=False):
+    """A at ``a_bits`` (the signed plane) and B at ``b_bits``: its
+    ``PreparedRHS`` (``prepared``) or its digit planes, on ``device``;
+    with ``kp`` (a multiple of 64 below the 128-padded depth) both cut to
+    that padded depth (the PreparedRHS prepared after the cut, so that its
+    correction counts ``kp``)."""
+    import torch
+
+    from qgtc_ppopp22_tpu_torch.ops.digits import DigitTensor, digit_pack
+    from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, pack_rows, prepare_rhs
+
+    qa, qb = k4_levels(seed, m, k, n, a_bits, b_bits, data, blocky)
+    a = pack_rows(torch.from_numpy(qa), a_bits)
+    b = digit_pack(torch.from_numpy(qb), b_bits)
+    if kp is not None:
+        a = PackedTensor(words=a.words[:, :, :kp].contiguous(), shape=a.shape, bits=a.bits)
+        b = DigitTensor(digits=b.digits[:, :kp].contiguous(), shape=b.shape, bits=b.bits)
+    a, b = a.to(device), b.to(device)
+    return a, prepare_rhs(b) if prepared else b
+
+
+def k4_plans(a, b, form, ocp, n, tile_map=None):
+    """Every launch the tests force for one output form: each column tile
+    (16, 32, 64) with each split (1-4; 1-2 for packed words), on
+    ``packmm_signed_plan``'s grid for ``n`` (the columns not stored as
+    level 0)."""
+    import dataclasses
+
+    from qgtc_ppopp22_tpu_torch.ops import packmm
+
+    np_ = b.plane.shape[1] if isinstance(b, packmm.PreparedRHS) else b.padded_cols
+    plans = []
+    for bnt in (16, 32, 64):
+        p = packmm.packmm_signed_plan(a.padded_rows, a.padded_cols, np_, n, form, ocp, tile_map, bnt=bnt)
+        for s in range(1, (packmm.PACK_SPLIT if form == "words" else packmm.MAX_SPLIT) + 1):
+            plans.append(dataclasses.replace(p, splits=s, cluster=(*p.cluster[:2], s), grid=(*p.grid[:2], s)))
+    return plans
+
+
+def k4_groups():
+    """Every group of K4 cases: (id, kwargs of :func:`k4_group`). The
+    PreparedRHS product at N 16, 60, 64 and 120 (120: the last free lane)
+    with 8-bit A, at N 60 with 5-bit A, at depth 448 (7 K steps: odd
+    remainders over every split) and at 1024²; the stored columns at
+    out_cols 8, 40, 64 and 200 (N 200, 256 padded lanes, the masked lanes
+    stored); the extremes (A at level 0, everything at 255, and K 32640,
+    the deepest the int32 guard takes). K2's 8-bit plane at N 16, 60 and
+    120 against one and two digit planes of B, 5- and 8-bit A; maps with
+    kcnt 0, below the split, past the grid and -1 and entries outside it
+    (``hand_map``); packed words at out_cols 8, 64 and 200."""
+    out = []
+    for n in (16, 60, 64, 120):
+        out.append((f"prepared-n{n}-a8", dict(seed=100 + n, m=700, k=K4_KP, n=n, a_bits=8, b_bits=8, kp=K4_KP)))
+    out.append(("prepared-n60-a5", dict(seed=170, m=700, k=K4_KP, n=60, a_bits=5, b_bits=6, kp=K4_KP)))
+    out.append(("prepared-1024-n64", dict(seed=171, m=1024, k=1024, n=64, a_bits=8, b_bits=8)))
+    for oc in (8, 40, 64, 200):
+        out.append((f"prepared-oc{oc}", dict(seed=180 + oc, m=512, k=K4_KP, n=200, a_bits=8, b_bits=8, kp=K4_KP,
+                                             out_cols=oc)))
+    out.append(("prepared-a0", dict(seed=0, m=700, k=300, n=60, a_bits=8, b_bits=8, data="zero_a")))
+    out.append(("prepared-top", dict(seed=0, m=700, k=300, n=60, a_bits=8, b_bits=8, data="top")))
+    out.append(("prepared-k32640", dict(seed=0, m=256, k=32640, n=16, a_bits=8, b_bits=8, data="top")))
+    for n in (16, 60):
+        for b_bits in (4, 8):
+            out.append((f"planes-n{n}-b{b_bits}", dict(seed=200 + n + b_bits, m=700, k=K4_KP, n=n, a_bits=8,
+                                                       b_bits=b_bits, kp=K4_KP, prepared=False)))
+    out.append(("planes-n120-a5", dict(seed=230, m=700, k=K4_KP, n=120, a_bits=5, b_bits=8, kp=K4_KP,
+                                       prepared=False)))
+    for b_bits in (4, 8):
+        out.append((f"planes-map-b{b_bits}", dict(seed=240 + b_bits, m=1280, k=512, n=40, a_bits=8, b_bits=b_bits,
+                                                  prepared=False, hand=True)))
+    for oc in (8, 64, 200):
+        out.append((f"planes-oc{oc}", dict(seed=250 + oc, m=512, k=K4_KP, n=200, a_bits=8, b_bits=4, kp=K4_KP,
+                                           prepared=False, out_cols=oc)))
+    return out
+
+
+def k4_group(device, seed, m, k, n, a_bits, b_bits, kp=None, prepared=True, data="random", hand=False,
+             out_cols=None):
+    """The (tag, kernel, plain) calls of one :func:`k4_groups` entry: each
+    form (:data:`K4_FORMS` for a PreparedRHS, :data:`K2_FORMS` against
+    digit planes; words and the signed plane at ``out_cols`` where it is
+    given, with f32 there for the PreparedRHS) under every plan of
+    :func:`k4_plans`, through ``packmm._packmm(..., _plan=)``; plain
+    computed once per form."""
+    import functools
+
+    from qgtc_ppopp22_tpu_torch.ops import packmm
+
+    a, b = k4_operands(seed, m, k, n, a_bits, b_bits, device, kp, prepared, data, blocky=hand)
+    tile_map = hand_map(packmm.build_tile_map_packed(a, 256, 128)) if hand else None
+    forms = K4_FORMS if prepared else K2_FORMS
+    if out_cols is not None:
+        forms = tuple((ob, "packed", 0, False, out_cols) for ob in (1, 2, 4, 8))
+        forms += ((None, "f32", 0, False, out_cols),) if prepared else ()
+    calls = []
+    for out_bits, form, shift, raw, oc in forms:
+        c = n if oc == "n" else oc
+        pform = packmm._plan_form(out_bits, form, raw)
+        if prepared:
+            ocp, cols = packmm._signed_stores(a, b, out_bits, form, c)
+        else:
+            ocp, cols = packmm._stored_cols(form, c, b.padded_cols), n
+        plain = functools.cache(lambda ob=out_bits, f=form, s=shift, r=raw, c=c:
+                                packmm.packmm_plain(a, b, ob, s, r, f, c, tile_map))
+        for p in k4_plans(a, b, pform, ocp, cols, tile_map):
+            tag = (f"K4 {'PreparedRHS' if prepared else f'{b.ndigits} B plane(s)'} {a_bits}-bit A M={m} K={k} "
+                   f"N={n} {data} map={hand} out_bits={out_bits} {form} shift={shift} i32={raw} out_cols={c} {p}")
+            calls.append((tag, lambda ob=out_bits, f=form, s=shift, r=raw, c=c, p=p:
+                          packmm._packmm(a, b, ob, f, s, r, c, tile_map, _plan=p), plain))
+    return calls
+
+
 # K6's kernel (csrc/bitmm_k6.cuh): the cases the CUDA tests and
 # chip_smoke.py hold against plain under every forced plan.
 
