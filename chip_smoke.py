@@ -156,7 +156,18 @@ Runs, and stops with a non-zero exit at the first failure:
    as a digit plane with its map (``digitmm``'s K skip); and
    ``fused_model_epoch(chunk_occ=)`` at C1, 1-D and 2-D, real and
    hand-made maps, and ``resident_a=False``, against the dense launch
-   and plain. Then the kernel sweep (``qgtc_ppopp22_tpu_torch.benchmarks.kernel_sweep``,
+   and plain. Then the captured engines on the 75 batches: the fused
+   epoch, dense and with the maps, and the quant-in-loop epoch, each
+   captured as one CUDA graph (the wrappers' counters: 6 packmm and 6
+   digitmm launches a batch at the side stream's warm-up and the capture,
+   none at a replay), each replay's logits equal to the step engine's bit
+   for bit, twice, the second after every output was filled with a
+   sentinel, and the profiler's count of a replay's kernels: 225 K2 and
+   225 K3; the mega engine with its plan refusing C1's bucket, run by the
+   captured fused epoch, equal to the step engine; the baseline's fused
+   loop captured against the same loop uncaptured, bit for bit or (if
+   cuBLAS picks another algorithm under capture, which is then printed)
+   within 2^-6 per row, again after a sentinel fill. Then the kernel sweep (``qgtc_ppopp22_tpu_torch.benchmarks.kernel_sweep``,
    figures 8a, 8c, int8 and profile, each from ``default_rng(0)``):
    counts reset before each figure; its 8-bit rows must launch
    ``packmm_signed`` once and nothing else, its other packed rows
@@ -180,6 +191,10 @@ Runs, and stops with a non-zero exit at the first failure:
    schedule (twice each); the mega engine at 2 bits (E3) beside 8 bits
    (E3-8, the levels form), twice; the baseline's ms/epoch in step (resident),
    fused and mega modes beside the quantized mega engine's (twice each);
+   E1, E1z, E5 (the captured fused epoch), E5z (with the maps), E6
+   (quant-in-loop), B2 (the baseline's captured fused loop) and B3 (its
+   mega mode), three runs of 20 epochs each in turns, each beside its
+   epoch's device time (a step epoch's kernels, a replay's, K5's launch);
    and the device time of each kernel beside its plain version at the
    slice's shapes (torch.profiler), with ``torch._int_mm`` on the same
    operands as the library yardstick of packmm, digitmm and bitmm, each
@@ -229,7 +244,6 @@ import functools
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -266,14 +280,6 @@ def bound(nbytes, ops, kind):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def main() -> int:
     import torch
 
@@ -289,6 +295,7 @@ def main() -> int:
                              hand_map, k1_group, k1_groups, k2_chain, k2_group, k2_groups, k3_group, k3_groups,
                              k4_group, k4_groups, k5_group, k5_groups, k6_group, k6_groups, levels_plane, mega_case,
                              operands)
+    from qgtc_ppopp22_tpu_torch.bench import card_line
     from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe, exp_packmm, grid_overhead_study, kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward
@@ -299,11 +306,11 @@ def main() -> int:
     from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, pack_rows, packed_levels, prepare_rhs, unpack_rows
     from qgtc_ppopp22_tpu_torch.runtime import (BaselineEngine, QGTCEngine, mega_block_occ, mega_block_sched,
                                                 mega_chunk_occ)
-    from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms
+    from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms, kernel_launches
 
     dev = torch.device("cuda")
     start = time.perf_counter()
-    card = card_line()
+    card = card_line(dev)
     name = torch.cuda.get_device_name(0)
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
@@ -1040,7 +1047,7 @@ def main() -> int:
                      "fused_model": fused_model.LAUNCHES}
     buckets = eng.mega_buckets
     if any(bk["fallback"] for bk in buckets):
-        raise AssertionError(f"mega: a bucket fell back to the step engine: {buckets}")
+        raise AssertionError(f"mega: a bucket fell back to the captured fused epoch: {buckets}")
     if mega_launches != {"packmm": 0, "digitmm": 0, "fused_model": len(buckets)}:
         raise AssertionError(f"mega launches {mega_launches}, want one fused_model per bucket")
     for b, got, step, want in zip(batcher.batches, mega, logits, ref):
@@ -1133,8 +1140,8 @@ def main() -> int:
         raise AssertionError(f"baseline mega launches {base_launches}, want one per bucket")
     bmega = [None] * nb
     for idx, out in bouts:
-        for i, logits in zip(idx, out):
-            bmega[i] = logits
+        for i, lg in zip(idx, out):
+            bmega[i] = lg
     base_rel = 0.0
     for (idx, fn), (_, out) in zip(bstaged, bouts):
         plain = fused_model.fused_baseline_epoch_plain(*fn.args)
@@ -1247,6 +1254,97 @@ def main() -> int:
           f"chain (batch 0); shifts {shg8}, shares below the rail "
           + ", ".join(f"{x:.3f}" for x in shareg8) + f"; {fused_model.LEVELS_LAUNCHES} levels launch(es)")
 
+    # the captured engines on C1's 75 batches: the fused and quant-in-loop
+    # epochs, each one CUDA graph replayed once an epoch, the mega engine's
+    # fallback, and the baseline's fused loop; the wrappers count their
+    # Python calls, which a replay makes none of, so the profiler counts a
+    # replay's kernels
+    t0 = time.perf_counter()
+    k2_name, k3_name = "k2_kernel", "k3_kernel"
+    captured, replay_counts = {}, {}
+    for what, e, want in (("fused (E5)", eng, logits), ("fused with the maps (E5z)", zeng, zlogits),
+                          ("quant-in-loop (E6)", eng, logits)):
+        packmm.LAUNCHES = packmm.MAPPED_LAUNCHES = digitmm.LAUNCHES = fused_model.LAUNCHES = 0
+        epoch = e._fused_epoch(batcher, quant_in_loop=what.startswith("quant"))
+        at_capture = (packmm.LAUNCHES, packmm.MAPPED_LAUNCHES, digitmm.LAUNCHES, fused_model.LAUNCHES)
+        maps = 6 * nb if e is zeng else 0
+        if at_capture != (6 * nb, maps, 6 * nb, 0):  # the side stream's warm-up and the capture
+            raise AssertionError(f"{what}: launches at capture {at_capture}")
+        outs = epoch()
+        for rep in range(2):
+            torch.cuda.synchronize()
+            if len(outs) != nb or any(not torch.equal(o, w) for o, w in zip(outs, want)):
+                raise AssertionError(f"{what}: replay {rep} logits != the step engine's")
+            for o in outs:  # a sentinel: the next replay must write every batch again
+                o.fill_(-1.0)
+            if epoch() is not outs:
+                raise AssertionError(f"{what}: a replay returned other outputs")
+        torch.cuda.synchronize()
+        if (packmm.LAUNCHES, digitmm.LAUNCHES) != (6 * nb, 6 * nb):
+            raise AssertionError(f"{what}: a replay moved the wrappers' counters")
+        counts = kernel_launches(epoch, iters=2)
+        replay_counts[what] = {"packmm": sum(n for k, n in counts.items() if k2_name in k),
+                               "digitmm": sum(n for k, n in counts.items() if k3_name in k),
+                               "kernels and copies": sum(counts.values())}
+        if (replay_counts[what]["packmm"], replay_counts[what]["digitmm"]) != (3 * nb, 3 * nb):
+            raise AssertionError(f"{what}: a replay ran {replay_counts[what]}, want {3 * nb} + {3 * nb}")
+        captured[what] = epoch
+    print(f"phase 2: captured GCN epochs of {nb} batches == the step engine's logits bit for bit, twice, "
+          f"each replay after a sentinel fill; per replay (profiler) "
+          + "; ".join(f"{w}: {c}" for w, c in replay_counts.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    # the mega engine with its plan refusing C1's bucket: the captured
+    # fused epoch runs it, loudly
+    t0 = time.perf_counter()
+    mega_plan = fused_model.plan
+
+    def refuse(*args, **kw):
+        raise ValueError("refused for the fallback check")
+
+    fused_model.plan = refuse
+    try:
+        fused_model.LAUNCHES = packmm.LAUNCHES = digitmm.LAUNCHES = 0
+        fb = eng._mega_logits(batcher)
+        torch.cuda.synchronize()
+    finally:
+        fused_model.plan = mega_plan
+    fb_launches = {"fused_model": fused_model.LAUNCHES, "packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES}
+    if not all(bk["fallback"] for bk in eng.mega_buckets) or fb_launches != {
+            "fused_model": 0, "packmm": 6 * nb, "digitmm": 6 * nb}:
+        raise AssertionError(f"forced mega fallback: buckets {eng.mega_buckets}, launches {fb_launches}")
+    if any(not torch.equal(g, w) for g, w in zip(fb, logits)):
+        raise AssertionError("forced mega fallback: logits != the step engine's")
+    print(f"phase 2: mega engine with its plan refusing every bucket: the captured fused epoch, "
+          f"{nb} batches == the step engine's logits; launches at capture {fb_launches} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # the baseline's fused loop captured against the same loop uncaptured
+    t0 = time.perf_counter()
+    bepoch = beng._fused_epoch(batcher, ds)
+    bouts = bepoch()
+    torch.cuda.synchronize()
+    bloop = [None] * nb
+    for idx, a_s, x_s in beng._stage(batcher, ds, torch.uint8):
+        for i, lg in zip(idx, beng._fused_bucket(a_s, x_s)):
+            bloop[i] = lg
+    torch.cuda.synchronize()
+    b_exact = all(torch.equal(g, w) for g, w in zip(bouts, bloop))
+    b_rel = max(bf16_rel_err(g, w) for g, w in zip(bouts, bloop))
+    if b_rel > BF16_REL_TOL:
+        raise AssertionError(f"captured baseline fused loop: relative error {b_rel} in a row")
+    for o in bouts:
+        o.fill_(-1.0)
+    torch.cuda.synchronize()
+    bepoch()
+    torch.cuda.synchronize()
+    if max(bf16_rel_err(g, w) for g, w in zip(bouts, bloop)) > BF16_REL_TOL:
+        raise AssertionError("captured baseline fused loop: a replay left a sentinel")
+    captured["baseline fused (B2)"] = bepoch
+    print(f"phase 2: captured baseline fused loop, {nb} batches: "
+          + ("== the uncaptured loop bit for bit" if b_exact else
+             f"within 2^-6 per row of the uncaptured loop (worst row {b_rel:.3e}; cuBLAS took another "
+             f"algorithm under capture)")
+          + f", again after a sentinel fill ({time.perf_counter() - t0:.1f} s)")
+
     # the kernel sweep: each figure's rows through the port's own
     # functions, counts reset before each figure
     t0 = time.perf_counter()
@@ -1346,6 +1444,22 @@ def main() -> int:
                 ("quantized mega (2-bit GCN)", lambda: eng.run_epochs_mega(batcher, n_epochs=20))]
         print("phase 3: " + "; ".join(f"{what} {run().avg_ms:.3f}" for what, run in runs)
               + f" ms/epoch over {nb} batches, arxiv [{card}]")
+    # the epochs side by side in turns, three runs of 20 epochs each (every
+    # staged engine staged and captured anew a run); their device times follow
+    epoch_runs = {"E1": lambda: eng.run_epochs(batcher, n_epochs=20, resident=True),
+                  "E1z": lambda: zeng.run_epochs(batcher, n_epochs=20, resident=True),
+                  "E5": lambda: eng.run_epochs_fused(batcher, n_epochs=20),
+                  "E5z": lambda: zeng.run_epochs_fused(batcher, n_epochs=20),
+                  "E6": lambda: eng.run_epochs_quant_in_loop(batcher, n_epochs=20),
+                  "B2": lambda: beng.run_epochs_fused(batcher, ds, n_epochs=20),
+                  "B3": lambda: beng.run_epochs_mega(batcher, ds, n_epochs=20)}
+    host_ms = {k: [] for k in epoch_runs}
+    for rep in range(3):
+        for k, run in epoch_runs.items():
+            host_ms[k].append(run().avg_ms)
+    print("phase 3: host ms/epoch, all epochs launched and one synchronize, 3 runs each in turns: "
+          + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in vs) for k, vs in host_ms.items())
+          + f" [{card}]")
 
     def on_card(q, bits, packed=False):
         t = torch.from_numpy(q).to(dev)
@@ -1528,12 +1642,18 @@ def main() -> int:
         ("digitmm_skip dense", f"digitmm_to_digits {shp} digit plane x H[{pn0}x16], no map",
          lambda: digitmm.digitmm_to_digits(da0, hs16, 2), None),
     ]
-    # the device work of one resident step epoch in each format (E1, E4)
-    for what, stepper in (("digits (E1)", eng), ("digits with zero-tile jumping (E1)", zeng),
+    # the device work of one resident step epoch in each format (E1, E1z,
+    # E4), and of one replay of each captured epoch (E5, E5z, E6, B2)
+    epoch_tag = {}
+    for what, stepper in (("digits (E1)", eng), ("digits with zero-tile jumping (E1z)", zeng),
                           ("bits (E4)", beng4)):
         staged_b = [stepper.put_batch(b) for b in batcher.batches]
+        epoch_tag[len(timed)] = what[what.index("(") + 1:-1]
         timed.append(("step epoch", f"one resident step epoch, {what}, all its kernels",
                       lambda st=stepper, sb=staged_b: [st._step(*t) for t in sb], None))
+    for what, epoch in captured.items():
+        epoch_tag[len(timed)] = what[what.index("(") + 1:-1]
+        timed.append(("captured epoch", f"one captured epoch's replay, {what}, all its kernels", epoch, None))
     # the kernel sweep's K4 and K2 packed-out rows at Fig. 8a's largest shape
     k4c = next(c for c in sweep["8a"] if (c.bits, c.M, c.N) == (8, 4096, 64))
     k2c = next(c for c in sweep["8a"] if (c.bits, c.M, c.N) == (1, 4096, 64))
@@ -1667,23 +1787,30 @@ def main() -> int:
             fns[("sweep", fig, i)] = c.run
     # plain versions and step epochs run thousands of small ops per call,
     # and a session that holds too many records can lose some: one call each
-    many = {i for i, t in enumerate(timed) if t[0] == "step epoch"}
-    # the probes in a session of their own, so that the main session holds
-    # no more records than it did without them (a session that holds too
-    # many loses its last markers)
+    many = {i for i, t in enumerate(timed) if t[0] in ("step epoch", "captured epoch")}
+    # the probes, and the captured epochs, in sessions of their own, so
+    # that the main session holds no more records than it did without them
+    # (a session that holds too many loses its last markers)
     probe_kinds = set(probe_launches)
     probe_idx = {i for i, t in enumerate(timed) if t[0] in probe_kinds}
+    captured_idx = {i for i, t in enumerate(timed) if t[0] == "captured epoch"}
+
+    def session(k):
+        return 1 if k[0] in probe_idx or k[0] in probe_kinds else 2 if k[0] in captured_idx else 0
+
     dt = {}
-    for probes in (False, True):
-        sess = {k: f for k, f in fns.items() if (k[0] in probe_idx or k[0] in probe_kinds) == probes}
+    for s_id in (0, 1, 2):
+        sess = {k: f for k, f in fns.items() if session(k) == s_id}
         dt.update(device_times_ms(sess, iters={k: 1 if k[1] == "plain" or k[0] in many else
                                                10 if k[0] == "sweep" else 5 for k in sess}, warmup=1))
-    times, kernel_ms = {}, {}
+    times, kernel_ms, epoch_dev_ms = {}, {}, {}
     for i, (kind, what, _, plain) in enumerate(timed):
         k_ms = min(dt[(i, "kernel", 0)], dt[(i, "kernel", 1)])
         kernel_ms.setdefault(kind, k_ms)
         if what in k2_plans:
             what = f"{what} (plan: {k2_plans[what]})"
+        if i in epoch_tag:
+            epoch_dev_ms[epoch_tag[i]] = k_ms
         if plain is None:
             print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us device time per call [{card}]")
             continue
@@ -1691,6 +1818,11 @@ def main() -> int:
         times.setdefault(kind, (k_ms, p_ms))
         print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
               f"device time per call [{card}]")
+    # B3's epoch is one fused_baseline launch
+    epoch_dev_ms["B3"] = kernel_ms["fused_baseline"]
+    print("phase 3: epochs of one call, host ms/epoch (3 runs) and device ms/epoch: "
+          + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in host_ms[k]) + f" (device {epoch_dev_ms[k]:.3f})"
+                      for k in host_ms) + f" [{card}]")
     lib_ms = {kind: min(dt[(kind, "library", 0)], dt[(kind, "library", 1)]) for kind in (*lib_ops, *lib_calls)}
     print(f"phase 3: torch._int_mm on the unpacked int8 operands (library yardstick): "
           + ", ".join(f"{k} shape {lib_ms[k] * 1e3:.1f} us" for k in lib_ops) + f" [{card}]")

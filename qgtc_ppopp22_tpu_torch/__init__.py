@@ -7,10 +7,12 @@ can be held against the JAX package by exact integer equality.
 
 Layers, from the entry point down:
 
-* ``cli.py`` -> ``runtime.QGTCEngine`` (step engine: one forward chain per
-  cluster batch, epochs timed the reference's way; mega engine: one
-  whole-model launch per shape bucket) and ``runtime.BaselineEngine``
-  (the full-precision bf16 baseline, ``--regular``).
+* ``cli.py`` and ``bench.py`` -> ``runtime.QGTCEngine`` (step engine: one
+  forward chain per cluster batch, epochs timed the reference's way;
+  fused and quant-in-loop engines: the buckets staged once, one captured
+  CUDA graph replayed an epoch; mega engine: one whole-model launch per
+  shape bucket) and ``runtime.BaselineEngine`` (the full-precision bf16
+  baseline, ``--regular``).
 * ``graph/``: the NumPy host layer (synthetic datasets, partitioning,
   cluster batching and packing).
 * ``models/qmodels.py``: the GCN / GIN GEMM chains;

@@ -4,31 +4,44 @@ Usage mirrors the reference (``main_qgtc.py:21-41``)::
 
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --bit_width 2 \
         --use_QGTC [--run_GIN] [--resident] [--fmt digits|bits] \
-        [--mode step|mega] [--zerotile_jump]
+        [--mode step|fused|mega] [--quant-in-loop] [--zerotile_jump] \
+        [--timing-split] [--sync-every-epoch]
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --regular \
         [--run_GIN] [--resident] [--mode step|fused|mega] [--eval-accuracy]
 
 ``--use_QGTC`` (the default engine) runs the quantized engine:
-``--mode step`` (default) one GEMM chain per batch, ``--mode mega`` one
-whole-model kernel launch per shape bucket
-(``QGTCEngine.run_epochs_mega``). ``--zerotile_jump`` forces zero-tile
-skipping: in the digit step engine each aggregation visits only the
+``--mode step`` (default) one GEMM chain per batch, ``--mode fused``
+every bucket staged on the device once and the whole epoch's chains
+replayed as one captured CUDA graph (``QGTCEngine.run_epochs_fused``),
+``--mode mega`` one whole-model kernel launch per shape bucket
+(``QGTCEngine.run_epochs_mega``). ``--quant-in-loop`` runs the fused
+engine with the features quantized and packed on the device inside the
+epoch (``run_epochs_quant_in_loop``; it takes the place of ``--mode``).
+``--zerotile_jump`` forces zero-tile
+skipping: in the digit step and fused engines each aggregation visits only the
 adjacency's occupied 256 x 256 tiles, in mega mode the kernel takes the
-compacted block schedule (absent: off in step mode, the auto gate in
+compacted block schedule (absent: off in step and fused modes, the auto gate in
 mega mode); the record then carries the batches' ``tiles_total`` and
 ``tiles_processed``, as the JAX CLI's does. ``--fmt bits`` runs the
 step engine over bit planes throughout (the one-bit tensor-core GEMM)
-instead of digit planes; the mega mode requires ``--fmt digits``. ``--regular`` runs the
+instead of digit planes; the fused and mega modes require ``--fmt digits``.
+``--timing-split`` adds the transfer / compute split of the engine that
+``--mode`` chose (step: transfer-inclusive minus resident epochs; the
+staged modes: their epoch, and one epoch's host -> device copies timed
+alone). ``--regular`` runs the
 full-precision baseline (``BaselineEngine``, the DGL-driver role;
-``--run_GIN`` picks its GIN model): ``--mode step``, ``fused`` (a loop
-over the buckets staged on the device) or ``mega`` (one
+``--run_GIN`` picks its GIN model): ``--mode step``, ``fused`` (the loop
+over the buckets staged on the device, captured as one CUDA graph) or ``mega`` (one
 ``fused_baseline`` launch per bucket; a bucket or width the kernel
 refuses runs the fused loop instead, and says so). ``--resident`` applies to the
-step modes of both engines. ``--eval-accuracy`` adds the accuracy, and
-micro / macro F1 where the dataset has multilabels.
+step modes of both engines. ``--sync-every-epoch`` times each epoch with
+its own synchronize instead of one after all epochs. ``--eval-accuracy``
+adds the accuracy, and micro / macro F1 where the dataset has multilabels.
 
 Prints ``Avg. Epoch: <ms> ms`` as the reference does
-(``main_qgtc.py:157-159``), then one JSON record. Flags of the JAX
+(``main_qgtc.py:157-159``), then one JSON record, with
+``launch_sync_ms`` (all epochs launched, one synchronize, divided; 0
+under ``--sync-every-epoch``). Flags of the JAX
 package's CLI that this engine does not have yet stop with a "not yet
 ported" error instead of being ignored.
 """
@@ -50,8 +63,7 @@ from qgtc_ppopp22_tpu_torch.graph.datasets import DEFAULT_PSIZE
 from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine
 
 NOT_PORTED = (
-    "--sparse", "--use-pp", "--mesh", "--sync-every-epoch",
-    "--bucket-rows", "--cache-dir", "--timing-split", "--quant-in-loop",
+    "--sparse", "--use-pp", "--mesh", "--bucket-rows", "--cache-dir",
     "--json-out", "--weights", "--profile-dir",
 )
 
@@ -90,15 +102,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resident", action="store_true",
                    help="step mode: move batches to the device once; time compute only")
     p.add_argument("--mode", choices=("step", "fused", "mega"), default="step",
-                   help="epoch execution: one chain per batch, a loop over "
-                        "buckets staged on the device (--regular only), or "
-                        "one whole-model kernel launch per shape bucket")
+                   help="epoch execution: one chain per batch, the buckets "
+                        "staged on the device and the epoch replayed as one "
+                        "captured CUDA graph, or one whole-model kernel "
+                        "launch per shape bucket")
+    p.add_argument("--quant-in-loop", action="store_true",
+                   help="quantize and bit-pack the features on the device "
+                        "inside the timed epochs (the reference's in-loop "
+                        "val2bit variant, cluster_gcn.py:181-206), in the "
+                        "captured fused epoch; takes the place of --mode")
+    p.add_argument("--timing-split", action="store_true",
+                   help="report the transfer / compute split of the engine "
+                        "--mode selects")
+    p.add_argument("--sync-every-epoch", action="store_true",
+                   help="per-epoch wall times instead of the reference's "
+                        "one synchronize after all epochs")
     p.add_argument("--eval-accuracy", action="store_true",
                    help="report accuracy (and micro/macro F1 on multilabel data)")
     p.add_argument("--zerotile_jump", action="store_true", default=None,
-                   help="force zero-tile skipping: the step engine's TileMap K "
-                        "skip (digits), the mega kernel's compacted schedule "
-                        "(absent: off in step mode; in mega mode auto, on at "
+                   help="force zero-tile skipping: the step and fused engines' "
+                        "TileMap K skip (digits), the mega kernel's compacted schedule "
+                        "(absent: off in step and fused modes; in mega mode auto, on at "
                         ">=45%% skippable blocks, pn >= 2048, <= 4 bits)")
     p.add_argument("--partition-method", type=str, default="auto")
     p.add_argument("--rnd_seed", type=int, default=3)
@@ -117,13 +141,15 @@ def main(argv=None) -> int:
         parser.error("--zerotile_jump is the quantized engine's option")
     if args.regular and args.fmt != "digits":
         parser.error("--fmt is the quantized engine's option")
-    if args.fmt != "digits" and args.mode != "step":
-        parser.error(f"{args.mode} mode requires fmt='digits'")
-    if args.mode == "fused" and not args.regular:
-        parser.error("--mode fused is not yet ported to the quantized engine")
-    if args.mode != "step" and args.resident:
-        parser.error("--resident is the step modes' option; the fused and mega "
-                     "modes always stage their buckets on the device")
+    for flag, name in ((args.quant_in_loop, "--quant-in-loop"), (args.timing_split, "--timing-split")):
+        if args.regular and flag:
+            parser.error(f"{name} is the quantized engine's option")
+    mode = "quant-in-loop" if args.quant_in_loop else args.mode
+    if args.fmt != "digits" and mode != "step":
+        parser.error(f"{mode} mode requires fmt='digits'")
+    if mode != "step" and args.resident:
+        parser.error("--resident is the step modes' option; the fused, quant-in-loop "
+                     "and mega modes always stage their buckets on the device")
     random.seed(args.rnd_seed)
     np.random.seed(args.rnd_seed)
 
@@ -152,12 +178,13 @@ def main(argv=None) -> int:
             hidden=args.hidden, num_layers=args.num_layers, seed=args.rnd_seed,
             device=args.device,
         )
+        timed = dict(n_epochs=args.n_epochs, sync_every_epoch=args.sync_every_epoch)
         if args.mode == "mega":
-            stats = eng.run_epochs_mega(batcher, ds, n_epochs=args.n_epochs)
+            stats = eng.run_epochs_mega(batcher, ds, **timed)
         elif args.mode == "fused":
-            stats = eng.run_epochs_fused(batcher, ds, n_epochs=args.n_epochs)
+            stats = eng.run_epochs_fused(batcher, ds, **timed)
         else:
-            stats = eng.run_epochs(batcher, ds, n_epochs=args.n_epochs, resident=args.resident)
+            stats = eng.run_epochs(batcher, ds, resident=args.resident, **timed)
         evaluate = functools.partial(eng.evaluate, batcher, ds)
         evaluate_f1 = functools.partial(eng.evaluate_f1, batcher, ds)
     else:
@@ -168,24 +195,30 @@ def main(argv=None) -> int:
             zerotile_jump=args.zerotile_jump, fmt=args.fmt, seed=args.rnd_seed,
             device=args.device,
         )
-        if args.mode == "mega":
-            stats = eng.run_epochs_mega(batcher, n_epochs=args.n_epochs)
+        timed = dict(n_epochs=args.n_epochs, sync_every_epoch=args.sync_every_epoch)
+        if mode == "quant-in-loop":
+            stats = eng.run_epochs_quant_in_loop(batcher, **timed)
+        elif mode == "mega":
+            stats = eng.run_epochs_mega(batcher, **timed)
+        elif mode == "fused":
+            stats = eng.run_epochs_fused(batcher, **timed)
         else:
-            stats = eng.run_epochs(batcher, n_epochs=args.n_epochs, resident=args.resident)
+            stats = eng.run_epochs(batcher, resident=args.resident, **timed)
         evaluate = functools.partial(eng.evaluate, batcher)
         evaluate_f1 = functools.partial(eng.evaluate_f1, batcher)
     device = torch.device(args.device)
     record = dict(
         dataset=ds.name, bit_width=args.bit_width, model=model,
-        engine=f"{'regular' if args.regular else 'qgtc'}-{args.mode}", fmt=args.fmt,
+        engine=f"{'regular' if args.regular else 'qgtc'}-{mode}", fmt=args.fmt,
         psize=psize, batch_size=args.batch_size, n_epochs=args.n_epochs,
-        resident=args.resident, device=str(device),
+        resident=args.resident, sync_every_epoch=args.sync_every_epoch, device=str(device),
         device_name=(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
     )
     print(f"Avg. Epoch: {stats.avg_ms:.3f} ms")
     record["avg_epoch_ms"] = stats.avg_ms
     record["epoch_ms"] = stats.epoch_ms
-    if args.mode == "mega":
+    record["launch_sync_ms"] = stats.launch_sync_ms
+    if mode == "mega":
         record["buckets"] = eng.mega_buckets
     if args.zerotile_jump:
         # the reference's tile counters (print_counter, kernel.h:17-28), a
@@ -193,6 +226,17 @@ def main(argv=None) -> int:
         processed, total = batcher.tile_counts()
         record["tiles_total"], record["tiles_processed"] = total, processed
         print(f"zero-tile: processed {processed}/{total} (jumped {1 - processed / max(total, 1):.1%})")
+    if args.timing_split:
+        # the split of the engine --mode chose (JAX cli.py:413-440)
+        if mode == "step":
+            half = max(args.n_epochs // 2, 2)
+            both = eng.run_epochs(batcher, n_epochs=half, resident=False).avg_ms
+            compute = eng.run_epochs(batcher, n_epochs=half, resident=True).avg_ms
+            transfer = max(both - compute, 0.0)
+        else:  # staged on the device: the epoch is compute, the copies are timed alone
+            compute, transfer = stats.avg_ms, eng.measure_transfer_ms(batcher)
+        record["transfer_ms"], record["compute_ms"] = transfer, compute
+        print(f"timing split ({mode}): transfer {transfer:.2f} ms, compute {compute:.2f} ms per epoch")
     if args.eval_accuracy:
         record["accuracy"] = evaluate(ds.labels)
         print(f"accuracy: {record['accuracy']:.4f}")

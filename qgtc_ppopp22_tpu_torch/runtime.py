@@ -18,9 +18,12 @@ adjacency's all-zero 256 x 256 tiles through the batch's pack-time
 one-bit tensor cores); the mega engine (``run_epochs_mega``, digits
 only: one whole-model kernel launch per shape bucket,
 ``ops/fused_model.py``, 5-8-bit features staged as one plane of byte
-levels); and the full-precision ``BaselineEngine`` (step,
-fused and mega modes, the last through the ``fused_baseline`` kernel).
-The quantized engine's fused (scan) and quant-in-loop modes are not.
+levels); the fused and quant-in-loop engines (``run_epochs_fused``,
+``run_epochs_quant_in_loop``: every bucket staged on the device once, the
+whole epoch's chains captured into one CUDA graph, one replay an epoch,
+JAX's ``lax.scan`` in one dispatch); and the full-precision
+``BaselineEngine`` (step, fused and mega modes, the fused loop captured
+likewise, the mega mode through the ``fused_baseline`` kernel).
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ from qgtc_ppopp22_tpu_torch.models.qmodels import (
 )
 from qgtc_ppopp22_tpu_torch.ops import fused_model
 from qgtc_ppopp22_tpu_torch.ops.bitgemm import TileMap
-from qgtc_ppopp22_tpu_torch.ops.bitpack import LANE, BitTensor, num_digits, round_up
+from qgtc_ppopp22_tpu_torch.ops.bitpack import LANE, BitTensor, num_digits, pack_bits, round_up
 from qgtc_ppopp22_tpu_torch.ops.digits import planes_stack_to_digits, to_digit_tensor
 from qgtc_ppopp22_tpu_torch.ops.packmm import PACK_GROUP, PackedTensor
+from qgtc_ppopp22_tpu_torch.ops.quantize import quantize
 from qgtc_ppopp22_tpu_torch.utils.metrics import multilabel_f1
 
 
@@ -81,6 +85,45 @@ class _Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _capture(self, fn: Callable[[], list]) -> Callable[[], list]:
+        """``fn``, an epoch that returns every batch's output, made
+        replayable. On a CUDA device ``fn`` runs once on a side stream (the
+        kernel library is built and loaded at first use, the launch plans
+        are cached per shape), is then captured once into a
+        ``torch.cuda.CUDAGraph``, and the result replays the graph and
+        returns the graph's static outputs, which each replay overwrites in
+        place. Every output ``fn`` returned is one the graph writes, so no
+        batch's work can be left out of an epoch (the JAX engine's guard,
+        ``runtime.py:334-339``). A capture or replay that fails raises. On
+        the CPU there is nothing to capture: ``fn`` itself runs, on the
+        plain versions."""
+        if self.device.type != "cuda":
+            return fn
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                outs = fn()
+        return _Replay(fn, graph, outs)
+
+    def _capture_epoch(self, staged: List[tuple], n_batches: int) -> Callable[[], list]:
+        """The captured epoch (:meth:`_capture`) of every bucket of
+        ``staged`` ([(indices, fn)], ``fn()`` a bucket's per-batch
+        outputs): its replay returns each batch's output in batch order."""
+
+        def epoch():
+            out: List[Optional[torch.Tensor]] = [None] * n_batches
+            for idx, fn in staged:
+                for i, logits in zip(idx, fn()):
+                    out[i] = logits
+            return out
+
+        return self._capture(epoch)
+
     def _timed_epochs(
         self, one_epoch: Callable[[], object], n_epochs: int, n_batches: int,
         sync_every_epoch: bool,
@@ -100,14 +143,36 @@ class _Engine:
         per_epoch = (time.perf_counter() - t0) * 1e3 / max(n_epochs, 1)
         return EpochStats(epoch_ms=[per_epoch], n_batches=n_batches, launch_sync_ms=per_epoch)
 
+    def _run_staged(self, one_epoch: Callable[[], object], n_epochs: int, n_batches: int,
+                    sync_every_epoch: bool) -> EpochStats:
+        """:meth:`_timed_epochs` of an epoch whose inputs are already on the
+        device, after one untimed epoch (on CUDA: the kernel library's
+        build and load, a graph's first replay)."""
+        one_epoch()
+        self._sync()
+        return self._timed_epochs(one_epoch, n_epochs, n_batches, sync_every_epoch)
+
+
+class _Replay:
+    """A captured epoch: calling it replays the graph and returns its
+    static outputs. It holds the captured function, whose staged inputs
+    the graph reads, for as long as the graph lives."""
+
+    def __init__(self, fn: Callable[[], list], graph, outs: list):
+        self.fn, self.graph, self.outs = fn, graph, outs
+
+    def __call__(self) -> list:
+        self.graph.replay()
+        return self.outs
+
 
 class QGTCEngine(_Engine):
     """Quantized GNN inference engine (reference ``main_qgtc.py`` role).
 
     ``model``: ``'gcn'`` (update then aggregate, hidden 16 by default) or
     ``'gin'`` (aggregate then update, hidden 64), ``main_qgtc.py:127-154``.
-    ``fmt``: ``'digits'`` (packed adjacency x digit planes, the step and
-    mega engines) or ``'bits'`` (bit planes throughout, the reference's
+    ``fmt``: ``'digits'`` (packed adjacency x digit planes, the step,
+    fused and mega engines) or ``'bits'`` (bit planes throughout, the reference's
     bit-serial form; step engine only). Weights are drawn from ``torch.Generator().manual_seed(seed)``;
     assign ``self.weights`` (e.g. from ``models.qmodels.weights_from_jax``)
     to run other weights.
@@ -253,28 +318,136 @@ class QGTCEngine(_Engine):
 
         return self._timed_epochs(one_epoch, n_epochs, len(batcher), sync_every_epoch)
 
-    # -- mega engine: one whole-model kernel launch per bucket ----------
+    def measure_transfer_ms(self, batcher: ClusterBatcher, n_rounds: int = 3) -> float:
+        """Wall milliseconds to move one epoch's packed batches to the
+        device (:meth:`put_batch` for every batch, then one synchronize):
+        the reference's per-step ``cluster.cuda()`` boundary
+        (``main_qgtc.py:115``) alone. The minimum over ``n_rounds`` (JAX
+        ``runtime.py:426-444``)."""
+        times = []
+        for _ in range(n_rounds):
+            t0 = time.perf_counter()
+            for b in batcher.batches:
+                self.put_batch(b)
+            self._sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    # -- fused engine: every bucket staged once, one captured epoch ------
 
     def _fused_groups(self, batcher: ClusterBatcher):
         """Stack the batches by shape bucket -> [(key, indices, a_stack,
-        x_stack)]: ``a_stack`` int32[B, 1, pn/32, pn] packed adjacency
-        words, ``x_stack`` int32[B, bits, Mw, Kp] feature planes, both on
-        the CPU; ``indices`` into ``batcher.batches``."""
+        x_stack, kidx_stack, kcnt_stack)]: ``a_stack`` int32[B, 1, pn/32,
+        pn] packed adjacency words, ``x_stack`` int32[B, bits, Mw, Kp]
+        feature planes, and with ``zerotile_jump`` set each batch's
+        zero-tile map (``tile_kidx`` int32[B, nm, nk], ``tile_kcnt``
+        int32[B, nm]; else None), all on the CPU (JAX ``runtime.py:239-257``);
+        ``indices`` into ``batcher.batches``."""
         groups: dict = {}
         for i, b in enumerate(batcher.batches):
             groups.setdefault((b.padded_nodes, b.bit_X.shape[1]), []).append(i)
         out = []
         for key, idx in groups.items():
             bs = [batcher.batches[i] for i in idx]
+            kidx = kcnt = None
+            if self.zerotile_jump:
+                kidx = torch.stack([b.tile_kidx for b in bs])
+                kcnt = torch.stack([b.tile_kcnt for b in bs])
             out.append((key, idx, torch.stack([b.a_words for b in bs]),
-                        torch.stack([b.bit_X.planes for b in bs])))
+                        torch.stack([b.bit_X.planes for b in bs]), kidx, kcnt))
         return out
+
+    def _fused_bucket(self, bs: Sequence[ClusterBatch], a_stack: torch.Tensor, x_stack: torch.Tensor,
+                      kidx: Optional[torch.Tensor], kcnt: Optional[torch.Tensor],
+                      features: Optional[np.ndarray] = None) -> Callable[[], List[torch.Tensor]]:
+        """Stage one bucket on the device -> ``fn()``, which runs each of its
+        batches' chains (``to_digit_tensor``, then the forward with the
+        batch's ``TileMap`` when maps are given) and returns their logits.
+        With ``features`` (the batcher's float features) the batches' float
+        features [pn, feat] are staged instead of their planes, and each
+        chain first quantizes and packs them on the device (JAX
+        ``runtime.py:349-424``). Nothing in ``fn`` copies from the host or
+        waits for the device, so it can be captured."""
+        dev, bw, pn = self.device, self.bit_width, bs[0].padded_nodes
+        xshape = bs[0].bit_X.shape
+        if features is None:
+            xs = [BitTensor(planes=p, shape=xshape, bits=bw) for p in _aligned_rows(x_stack, dev)]
+        else:
+            xf = np.zeros((len(bs),) + tuple(xshape), np.float32)
+            for i, b in enumerate(bs):
+                xf[i, :b.num_nodes] = features[b.nodes]
+            xs = _aligned_rows(torch.from_numpy(xf), dev)
+        tms = [None] * len(bs)
+        if kidx is not None:
+            tms = [TileMap(kidx=k, kcnt=c, tile_m=PACK_GROUP, tile_k=256)
+                   for k, c in zip(_aligned_rows(kidx, dev), _aligned_rows(kcnt, dev))]
+        staged = [(PackedTensor(words=a, shape=(pn, pn), bits=1), x, tm)
+                  for a, x, tm in zip(_aligned_rows(a_stack, dev), xs, tms)]
+
+        def run() -> List[torch.Tensor]:
+            if features is None:
+                return [self._step(a, x, tm) for a, x, tm in staged]
+            return [self._step(a, pack_bits(quantize(x, bw), bw), tm) for a, x, tm in staged]
+
+        return run
+
+    def _stage_fused(self, batcher: ClusterBatcher, quant_in_loop: bool = False) -> List[tuple]:
+        """Every bucket on the device once -> [(indices, fn)], ``fn`` as
+        :meth:`_fused_bucket` gives it (with the batcher's float features
+        under ``quant_in_loop``)."""
+        if self.fmt != "digits":
+            raise ValueError(f"{'quant-in-loop' if quant_in_loop else 'fused'} mode requires fmt='digits'")
+        feats = batcher.features if quant_in_loop else None
+        return [(idx, self._fused_bucket([batcher.batches[i] for i in idx], a, x, kidx, kcnt, feats))
+                for _, idx, a, x, kidx, kcnt in self._fused_groups(batcher)]
+
+    def _fused_epoch(self, batcher: ClusterBatcher, quant_in_loop: bool = False) -> Callable[[], list]:
+        """The fused (or quant-in-loop) epoch, captured (:meth:`_capture`):
+        each call is one epoch and returns every batch's logits [pn,
+        classes] in ``batcher.batches`` order."""
+        return self._capture_epoch(self._stage_fused(batcher, quant_in_loop), len(batcher.batches))
+
+    def _fused_logits(self, batcher: ClusterBatcher, quant_in_loop: bool = False) -> List[torch.Tensor]:
+        """Each batch's logits from one fused (or quant-in-loop) epoch, in
+        ``batcher.batches`` order (on a CUDA device, the graph's outputs)."""
+        return self._fused_epoch(batcher, quant_in_loop)()
+
+    def run_epochs_fused(
+        self,
+        batcher: ClusterBatcher,
+        n_epochs: int = 20,
+        sync_every_epoch: bool = False,
+    ) -> EpochStats:
+        """Timed epochs of the fused engine (JAX ``runtime.py:303-347``):
+        the buckets are staged on the device once, outside the timed
+        region, and each epoch is one replay of the captured chains of
+        every batch. Timing as in ``run_epochs``."""
+        return self._run_staged(self._fused_epoch(batcher), n_epochs, len(batcher), sync_every_epoch)
+
+    def run_epochs_quant_in_loop(
+        self,
+        batcher: ClusterBatcher,
+        n_epochs: int = 20,
+        sync_every_epoch: bool = False,
+    ) -> EpochStats:
+        """Timed epochs that quantize and pack the features on the device
+        inside the epoch, as the reference's in-loop ``val2bit`` variant
+        does (``cluster_gcn.py:181-182,205-206``; JAX ``runtime.py:349-424``):
+        the float features are staged per bucket, and the captured chain of
+        each batch runs ``quantize``, ``pack_bits`` and ``to_digit_tensor``
+        before its forward. Against :meth:`run_epochs_fused` the difference
+        is the in-loop quantization alone."""
+        return self._run_staged(self._fused_epoch(batcher, quant_in_loop=True), n_epochs,
+                                len(batcher), sync_every_epoch)
+
+    # -- mega engine: one whole-model kernel launch per bucket ----------
 
     def _stage_mega(self, batcher: ClusterBatcher, resident_a: Optional[bool] = None) -> List[tuple]:
         """Move every bucket to the device once -> [(indices, fn)]: ``fn()``
         runs the bucket's epoch and returns its logits, float32[B, pn, oc]
         from one fused_model kernel launch, or, for a bucket the kernel
-        refuses, a list of the step engine's per-batch logits. Records
+        refuses, a list of per-batch logits from the bucket's captured
+        fused epoch (:meth:`_fused_bucket`, :meth:`_capture`). Records
         each bucket's choices in ``self.mega_buckets``: ``form`` is the
         kernel's (``MegaPlan.form``), ``"signed"`` or ``"split"`` for 5-8-bit
         features, which cross as one plane of byte levels (JAX
@@ -293,7 +466,7 @@ class QGTCEngine(_Engine):
         ws, dev, bw = self.weights, self.device, self.bit_width
         levels = num_digits(bw) == 2
         staged, self.mega_buckets = [], []
-        for (pn, feat), idx, a_np, x_np in self._fused_groups(batcher):
+        for (pn, feat), idx, a_np, x_np, kidx, kcnt in self._fused_groups(batcher):
             bs = [batcher.batches[i] for i in idx]
             B, xshape = len(idx), bs[0].bit_X.shape
             x_shape = (B, 1 if levels else num_digits(bw), round_up(xshape[0], LANE),
@@ -309,12 +482,11 @@ class QGTCEngine(_Engine):
                     fused_model.fused_model_plan(geo, self.model)
             except ValueError as e:
                 # Loudly: a silent fallback would turn a "mega" measurement
-                # into a step-engine one.
-                print(f"[mega] bucket pn={pn}: falling back to the step engine "
+                # into a fused-engine one.
+                print(f"[mega] bucket pn={pn}: falling back to the captured fused epoch "
                       f"({type(e).__name__}: {e})")
                 info["fallback"] = True
-                batches = [self.put_batch(b) for b in bs]
-                staged.append((idx, lambda batches=batches: [self._step(*t) for t in batches]))
+                staged.append((idx, self._capture(self._fused_bucket(bs, a_np, x_np, kidx, kcnt))))
                 continue
             info["form"] = geo.form
             a_stack = a_np[:, 0].to(dev).contiguous()
@@ -384,9 +556,7 @@ class QGTCEngine(_Engine):
         def one_epoch():
             return [fn() for fn in fns]
 
-        one_epoch()  # builds and loads the kernel library on CUDA
-        self._sync()
-        return self._timed_epochs(one_epoch, n_epochs, len(batcher), sync_every_epoch)
+        return self._run_staged(one_epoch, n_epochs, len(batcher), sync_every_epoch)
 
     # -- accuracy -------------------------------------------------------
 
@@ -527,6 +697,15 @@ class BaselineEngine(_Engine):
         return [self._fwd(a_stack[i].to(torch.bfloat16), x_stack[i], self.weights)
                 for i in range(a_stack.shape[0])]
 
+    def _fused_epoch(self, batcher: ClusterBatcher, dataset) -> Callable[[], list]:
+        """The fused epoch over the buckets staged on the device once, uint8
+        adjacency, captured (:meth:`_capture`): each call is one epoch and
+        returns every batch's logits in ``batcher.batches`` order (the JAX
+        scan-fused baseline, ``runtime.py:1022-1078``, in one dispatch)."""
+        staged = [(idx, functools.partial(self._fused_bucket, a, x))
+                  for idx, a, x in self._stage(batcher, dataset, torch.uint8)]
+        return self._capture_epoch(staged, len(batcher.batches))
+
     def run_epochs_fused(
         self,
         batcher: ClusterBatcher,
@@ -534,17 +713,10 @@ class BaselineEngine(_Engine):
         n_epochs: int = 20,
         sync_every_epoch: bool = False,
     ) -> EpochStats:
-        """Timed epochs over the buckets staged on the device once, uint8
-        adjacency (the JAX scan-fused baseline; its one dispatch per
-        epoch becomes a loop here, CUDA-graph capture being later work)."""
-        staged = self._stage(batcher, dataset, torch.uint8)
-
-        def one_epoch():
-            return [self._fused_bucket(a, x) for _, a, x in staged]
-
-        one_epoch()
-        self._sync()
-        return self._timed_epochs(one_epoch, n_epochs, len(batcher), sync_every_epoch)
+        """Timed epochs of the captured fused loop (:meth:`_fused_epoch`),
+        staged outside the timed region; one replay an epoch."""
+        return self._run_staged(self._fused_epoch(batcher, dataset), n_epochs, len(batcher),
+                                sync_every_epoch)
 
     def _stage_mega(self, batcher: ClusterBatcher, dataset) -> List[tuple]:
         """Stage every bucket as int8 stacks -> [(indices, fn)]: ``fn()``
@@ -552,7 +724,8 @@ class BaselineEngine(_Engine):
         float32[B, pn, classes]. A bucket that ``fused_model.baseline_plan``
         refuses (or every bucket, when the kernel refuses the weights) runs
         through the fused loop instead (:meth:`_fused_bucket`, per-batch
-        logits), and says so: JAX runs such a bucket through its scan epoch
+        logits, captured as :meth:`_capture` says), and says so: JAX runs
+        such a bucket through its scan epoch
         (``runtime.py:954-971``). Records each bucket in
         ``self.mega_buckets`` (``fallback``). Only the plan's refusal is
         caught: a launch that fails raises."""
@@ -574,7 +747,7 @@ class BaselineEngine(_Engine):
                 print(f"[mega] baseline bucket pn={info['pn']}: falling back to the fused loop "
                       f"({type(e).__name__}: {e})")
                 info["fallback"] = True
-                staged.append((idx, functools.partial(self._fused_bucket, a_stack, x_stack)))
+                staged.append((idx, self._capture(functools.partial(self._fused_bucket, a_stack, x_stack))))
                 continue
             staged.append((idx, functools.partial(
                 fused_model.fused_baseline_epoch, a_stack, x_stack, self.weights, packed=packed)))
@@ -604,9 +777,7 @@ class BaselineEngine(_Engine):
         def one_epoch():
             return [fn() for fn in fns]
 
-        one_epoch()  # builds and loads the kernel library on CUDA
-        self._sync()
-        return self._timed_epochs(one_epoch, n_epochs, len(batcher), sync_every_epoch)
+        return self._run_staged(one_epoch, n_epochs, len(batcher), sync_every_epoch)
 
     # -- accuracy -------------------------------------------------------
 
@@ -644,6 +815,17 @@ def _threshold_f1(logits: np.ndarray, labels: np.ndarray) -> dict:
         "f1_micro": multilabel_f1(centered, labels, "micro"),
         "f1_macro": multilabel_f1(centered, labels, "macro"),
     }
+
+
+def _aligned_rows(stack: torch.Tensor, device: torch.device) -> List[torch.Tensor]:
+    """A CPU stack [B, ...] on ``device`` as B views of its rows, each
+    starting on a 16-byte boundary (every kernel operand's alignment,
+    ``ops/_gemm._operand``: the rows of a stack of small maps would not
+    all be)."""
+    B, n = stack.shape[0], stack[0].numel()
+    buf = torch.zeros((B, round_up(n, 16 // stack.element_size())), dtype=stack.dtype, device=device)
+    buf[:, :n] = stack.reshape(B, n).to(device)
+    return [buf[i, :n].view(stack.shape[1:]) for i in range(B)]
 
 
 def _batch_key(batch: ClusterBatch):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import time
 import warnings
+from collections import Counter
 from typing import Callable, Dict, Hashable, Union
 
 import torch
@@ -22,16 +23,10 @@ _PAD_KERNELS = 256  # padding launched before a session's first marker and after
 _PAD_SECONDS = 0.1  # and the wait after each padding
 
 
-def device_times_ms(
-    fns: Dict[Hashable, Callable[[], object]],
-    iters: Union[int, Dict[Hashable, int]] = 20,
-    warmup: int = 3,
-) -> Dict[Hashable, float]:
-    """Mean device milliseconds per call of each function in ``fns``:
-    every kernel and copy its ``iters`` calls ran, summed. ``iters`` may
-    be a count per function: the profiler can drop records when a
-    session holds too many, so a function of thousands of small ops
-    (a plain version) takes fewer calls.
+def _device_events(fns: Dict[Hashable, Callable[[], object]], counts: Dict[Hashable, int],
+                   warmup: int) -> Dict[Hashable, list]:
+    """Each function's device events (kernels and copies) over its
+    ``counts[name]`` calls, from one profiler session.
 
     One profiler session covers all functions (a second session in the
     same process can come back empty). Each function's calls follow a
@@ -45,14 +40,14 @@ def device_times_ms(
     such a loss takes the padding. A session whose markers, the end
     marker included, are not all there is run again, up to ``_SESSIONS``
     in all. Requires a CUDA device; every function must run on the
-    current stream."""
+    current stream (a CUDA graph's replay included: its kernels are
+    recorded one by one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
-        raise RuntimeError("device_times_ms needs a CUDA device")
+        raise RuntimeError("device timing needs a CUDA device")
     names = list(fns)
-    counts = {name: iters[name] if isinstance(iters, dict) else iters for name in names}
     for fn in fns.values():
         for _ in range(warmup):
             fn()
@@ -79,21 +74,48 @@ def device_times_ms(
             (e for e in prof.events() if e.device_type == DeviceType.CUDA),
             key=lambda e: e.time_range.start,
         )
-        total_us = [0.0] * len(names)
+        events: list = [[] for _ in names]
         i = -1
         for e in device:
             if _MARKER in e.name:
                 i += 1
             elif 0 <= i < len(names):
-                total_us[i] += e.time_range.elapsed_us()
+                events[i].append(e)
         if i == len(names):  # every function's marker and the end marker
-            break
-        warnings.warn(f"device_times_ms: the profiler recorded {i + 1} of {len(names) + 1} markers; "
+            return dict(zip(names, events))
+        warnings.warn(f"the profiler recorded {i + 1} of {len(names) + 1} markers; "
                       "running the session again")
-    else:
-        raise RuntimeError(f"the profiler recorded {i + 1} markers for {len(names)} functions "
-                           "and the end marker")
-    empty = [names[i] for i, t in enumerate(total_us) if t <= 0]
+    raise RuntimeError(f"the profiler recorded {i + 1} markers for {len(names)} functions "
+                       "and the end marker")
+
+
+def device_times_ms(
+    fns: Dict[Hashable, Callable[[], object]],
+    iters: Union[int, Dict[Hashable, int]] = 20,
+    warmup: int = 3,
+) -> Dict[Hashable, float]:
+    """Mean device milliseconds per call of each function in ``fns``:
+    every kernel and copy its ``iters`` calls ran, summed, from one
+    profiler session (:func:`_device_events`). ``iters`` may be a count
+    per function: the profiler can drop records when a session holds too
+    many, so a function of thousands of small ops (a plain version) takes
+    fewer calls."""
+    counts = {name: iters[name] if isinstance(iters, dict) else iters for name in fns}
+    events = _device_events(fns, counts, warmup)
+    total_us = {name: sum(e.time_range.elapsed_us() for e in events[name]) for name in fns}
+    empty = [name for name, t in total_us.items() if t <= 0]
     if empty:
         raise RuntimeError(f"the profiler recorded no device time for {empty}")
-    return {name: total_us[i] / 1e3 / counts[name] for i, name in enumerate(names)}
+    return {name: total_us[name] / 1e3 / counts[name] for name in fns}
+
+
+def kernel_launches(fn: Callable[[], object], iters: int = 1, warmup: int = 1) -> Counter:
+    """How many times each kernel and copy ran, by name, per call of
+    ``fn`` (over ``iters`` calls, from one profiler session): what ran on
+    the device, where a wrapper's counter counts its Python calls (a CUDA
+    graph's replay makes none)."""
+    events = _device_events({"fn": fn}, {"fn": iters}, warmup)["fn"]
+    counts = Counter(e.name for e in events)
+    if any(n % iters for n in counts.values()):
+        raise RuntimeError(f"kernel counts {dict(counts)} over {iters} calls are not a whole number per call")
+    return Counter({name: n // iters for name, n in counts.items()})

@@ -402,7 +402,7 @@ def test_cli_eval_accuracy_on_ppi(tmp_path, monkeypatch, capsys, engine):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--mode", "fused"], "not yet ported"),
+    (["--mode", "fused", "--weights", "w.npz"], "not yet ported"),
     (["--regular", "--zerotile_jump", "--mode", "mega"], "quantized engine"),
     (["--regular", "--resident", "--mode", "mega"], "--resident"),
 ])

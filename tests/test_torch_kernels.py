@@ -838,6 +838,73 @@ def test_bits_engine_on_card_equals_cpu_and_digits(cuda, model):
         assert torch.equal(got, dig.forward_batch(b))
 
 
+@pytest.mark.parametrize("zerotile_jump", [None, True])
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_captured_fused_epoch_on_card(cuda, model, zerotile_jump):
+    """The fused epoch captured as one CUDA graph: the counters move at the
+    warm-up and the capture (3 packmm and 3 digitmm launches a batch each)
+    and not at a replay; a replay gives the step engine's logits bit for
+    bit, writes every batch again over a sentinel, and quant-in-loop gives
+    the same logits."""
+    ds = synthesize("Proteins", scale=0.05, seed=5)
+    it = ClusterBatcher(ds, 8, 2, bit_width=2, seed=5, partition_method="bfs")
+    eng = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4, device=cuda,
+                     zerotile_jump=zerotile_jump)
+    step = eng.forward_all(it)
+    before = packmm.LAUNCHES, digitmm.LAUNCHES
+    epoch = eng._fused_epoch(it)
+    assert (packmm.LAUNCHES - before[0], digitmm.LAUNCHES - before[1]) == (6 * len(it), 6 * len(it))
+    outs = epoch()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        assert len(outs) == len(it) and all(torch.equal(o, s) for o, s in zip(outs, step))
+        for o in outs:
+            o.fill_(-1.0)
+        before = packmm.LAUNCHES, digitmm.LAUNCHES
+        assert epoch() is outs and (packmm.LAUNCHES, digitmm.LAUNCHES) == before
+    qil = eng._fused_logits(it, quant_in_loop=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(q, s) for q, s in zip(qil, step))
+
+
+def test_refused_mega_bucket_runs_the_captured_fused_epoch_on_card(cuda, monkeypatch):
+    ds = synthesize("Proteins", scale=0.05, seed=5)
+    it = ClusterBatcher(ds, 8, 2, bit_width=2, seed=5, partition_method="bfs")
+    eng = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, seed=4, device=cuda)
+
+    def refuse(*args, **kw):
+        raise ValueError("refused")
+
+    monkeypatch.setattr(fused_model, "plan", refuse)
+    before = fused_model.LAUNCHES
+    got = eng._mega_logits(it)
+    torch.cuda.synchronize()
+    assert fused_model.LAUNCHES == before and all(b["fallback"] for b in eng.mega_buckets)
+    assert all(torch.equal(g, s) for g, s in zip(got, eng.forward_all(it)))
+
+
+@pytest.mark.parametrize("model", ["sage", "gin"])
+def test_captured_baseline_fused_loop_on_card(cuda, model):
+    """The baseline's fused loop captured as one CUDA graph against the
+    loop run uncaptured: within 2^-6 of each row's max |logit| (cuBLAS may
+    choose another algorithm under capture), and the same over a
+    sentinel."""
+    ds = synthesize("Proteins", scale=0.05, seed=5)
+    it = ClusterBatcher(ds, 8, 2, bit_width=2, seed=5, partition_method="bfs")
+    eng = BaselineEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=4, device=cuda)
+    loop = {}
+    for idx, a, x in eng._stage(it, ds, torch.uint8):
+        loop.update(zip(idx, eng._fused_bucket(a, x)))
+    epoch = eng._fused_epoch(it, ds)
+    outs = epoch()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        assert max(bf16_rel_err(o, loop[i]) for i, o in enumerate(outs)) <= BF16_REL_TOL
+        for o in outs:
+            o.fill_(-1e30)
+        assert epoch() is outs
+
+
 # -- the kernel-study probes (qgtc_ppopp22_tpu_torch/benchmarks/) ----------
 
 def _probe_operands(seed, m, k, np_, bits, tm, dev, dense=True):

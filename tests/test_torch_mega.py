@@ -230,7 +230,8 @@ def test_run_epochs_mega_matches_step_engine_and_jax(model, zerotile_jump):
 
 def test_run_epochs_mega_falls_back_loudly(capsys):
     """A bucket the kernel refuses (here: more layers than it takes) runs
-    through the step engine, and says so."""
+    through its captured fused epoch (the step engine's chains), and says
+    so."""
     ds, it, _, _, _ = _engine_pair("gcn")
     te = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, num_layers=9, seed=3,
                     device="cpu")
