@@ -119,13 +119,18 @@ Runs, and stops with a non-zero exit at the first failure:
    120), random S and x.
 2. The main path: 2-bit 3-layer Cluster-GCN (hidden 16) on the
    full-scale synthetic ogbn-arxiv stand-in, psize 1500, batch 20, 75
-   batches, through ``QGTCEngine.forward_all``; launch counts are reset
+   batches on the default partition, which must have resolved to the
+   native multilevel partitioner (the JAX package's ``auto``); 4 of its
+   batches built again without the native library must equal the native
+   densify / quantize / pack byte for byte (the buckets, their batch counts
+   and the K tiles the maps list are printed); then
+   through ``QGTCEngine.forward_all``; launch counts are reset
    just before and must show 3 packmm + 3 digitmm launches per batch;
    logits must equal the plain versions' and, for the first batch, a
    NumPy integer reference. Then 4 batches of 2-bit GIN (hidden 64).
    Then the mega engine on the same 75 batches
    (``QGTCEngine.run_epochs_mega``: one ``fused_model`` launch per shape
-   bucket, here one): launch counts reset just before, logits equal to
+   bucket, here three): launch counts reset just before, logits equal to
    the step engine's and the plain versions', no bucket falling back;
    and 4 batches of GIN through the mega engine against plain. Then the
    5-8-bit mega path: the same 75 batches packed at 8 bits through
@@ -173,7 +178,24 @@ Runs, and stops with a non-zero exit at the first failure:
    ``packmm_signed`` once and nothing else, its other packed rows
    ``packmm`` once and nothing else, its int8 rows (``torch._int_mm``)
    neither; every row's output equals plain (the 32768-row profile
-   shapes on their first 2048 rows).
+   shapes on their first 2048 rows). Then ``--use-pp`` at C1: the
+   batcher's precalc features (256 wide) through the step engine (3
+   packmm + 3 digitmm launches a batch, logits equal to plain, batch 0 to
+   ``qgcn_golden``), the mega engine (equal to the step engine; a bucket
+   K1's plan refuses falls back loudly and is recorded) and the sage
+   baseline's mega mode (within 2^-6 per row of its step; a refused bucket
+   recorded likewise). Then ``rebit(8)`` and ``rebit(8, quant_bits=2)``
+   of C1's batcher against fresh batchers, byte for byte on 4 batches, the
+   8-bit engine on them equal to plain. Then the layer API
+   (``models/layers.py``): ``QGCNConv`` / ``QGINConv`` objects composed on
+   batch 0 equal to ``qgcn_forward`` / ``qgin_forward``, digits (3 packmm +
+   3 digitmm launches) and bits (6 bitmm). Then ``SparseEngine`` on the
+   whole stand-in (GCN hidden 16, GIN hidden 64, 2-bit): the card's logits
+   equal to the same engine's on the CPU, 5 epochs timed. Then the CLI
+   in-process with each flag this slice ported (``--sparse``,
+   ``--use-pp``, ``--bucket-rows``, ``--profile-dir``, ``--json-out``,
+   ``--cache-dir``) on a small ppi stand-in: exit 0 and every record
+   written.
 3. The kernel studies through the probe modules' entry points, launch
    counts reset just before and each probe kernel launched: P2's three
    tables (bytes in the TPU's interpret-mode order, the fragments in the
@@ -189,7 +211,8 @@ Runs, and stops with a non-zero exit at the first failure:
    engine),
    the mega engine's ms/epoch with and without the compacted block
    schedule (twice each); the mega engine at 2 bits (E3) beside 8 bits
-   (E3-8, the levels form), twice; the baseline's ms/epoch in step (resident),
+   (E3-8, the levels form), twice (the kernel rows time the bucket that
+   holds the most batches); the baseline's ms/epoch in step (resident),
    fused and mega modes beside the quantized mega engine's (twice each);
    E1, E1z, E5 (the captured fused epoch), E5z (with the maps), E6
    (quant-in-loop), B2 (the baseline's captured fused loop) and B3 (its
@@ -240,11 +263,14 @@ and power limit, the second ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import functools
+import io
 import json
 import os
 import re
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -295,16 +321,20 @@ def main() -> int:
                              hand_map, k1_group, k1_groups, k2_chain, k2_group, k2_groups, k3_group, k3_groups,
                              k4_group, k4_groups, k5_group, k5_groups, k6_group, k6_groups, levels_plane, mega_case,
                              operands)
+    from qgtc_ppopp22_tpu_torch import cli
     from qgtc_ppopp22_tpu_torch.bench import card_line
     from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe, exp_packmm, grid_overhead_study, kernel_sweep
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
-    from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward
+    from qgtc_ppopp22_tpu_torch.models.layers import QGCNConv, QGINConv
+    from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward, qgcn_golden
     from qgtc_ppopp22_tpu_torch.ops import _build, bitgemm, digitmm, fused_model, packmm
-    from qgtc_ppopp22_tpu_torch.ops.bitpack import num_digits, pack_bits, unpack_bits
+    from qgtc_ppopp22_tpu_torch.ops.bitpack import num_digits, pack_bits, pack_bits_np, unpack_bits
     from qgtc_ppopp22_tpu_torch.ops.digits import (DigitTensor, digit_levels, digit_pack, digit_unpack,
                                                    to_digit_tensor)
-    from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, pack_rows, packed_levels, prepare_rhs, unpack_rows
-    from qgtc_ppopp22_tpu_torch.runtime import (BaselineEngine, QGTCEngine, mega_block_occ, mega_block_sched,
+    from qgtc_ppopp22_tpu_torch.ops.packmm import (PackedTensor, pack_rows, packed_levels, prepare_rhs, unpack_rows,
+                                                   unpack_rows_np)
+    from qgtc_ppopp22_tpu_torch.runtime import (BaselineEngine, QGTCEngine, SparseEngine, mega_block_occ,
+                                                mega_block_sched,
                                                 mega_chunk_occ)
     from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms, kernel_launches
 
@@ -918,11 +948,40 @@ def main() -> int:
     batcher = ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=2, seed=SEED,
                              cache_dir="./datasets")
     nb = len(batcher)
-    print(f"phase 2: {ds.name} {ds.num_nodes} nodes {ds.graph.num_edges} edges, "
-          f"{nb} batches, buckets {batcher.buckets()}, host pipeline "
-          f"{time.perf_counter() - t0:.1f} s")
+    host_s = time.perf_counter() - t0
     if nb != 75:
         raise AssertionError(f"expected 75 batches, got {nb}")
+    # the default partition is the JAX package's: 'auto' resolved to the
+    # native multilevel partitioner (the card's host has g++), and the
+    # native densify / quantize / pack of every batch equal to the NumPy
+    # path's byte for byte (the same partition, from the cache, built
+    # again with native=False); bit_A of 4 batches against NumPy's packer
+    if batcher.partition_method != "native":
+        raise AssertionError(f"partition 'auto' resolved to {batcher.partition_method!r}, want 'native'")
+    t1 = time.perf_counter()
+    numpy_batcher = ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=2, seed=SEED,
+                                   cache_dir="./datasets", native=False)
+    numpy_s = time.perf_counter() - t1
+    for i, (b, nb_) in enumerate(zip(batcher.batches, numpy_batcher.batches)):
+        pn_ = b.padded_nodes
+        pairs = [("nodes", b.nodes, nb_.nodes), ("a_words", b.a_words.numpy(), nb_.a_words.numpy()),
+                 ("bit_X", b.bit_X.planes.numpy(), nb_.bit_X.planes.numpy()),
+                 ("tile map", b.tile_kidx.numpy(), nb_.tile_kidx.numpy()),
+                 ("tile counts", b.tile_kcnt.numpy(), nb_.tile_kcnt.numpy())]
+        if i < 4:
+            pairs.append(("bit_A", b.bit_A.planes.numpy(),
+                          pack_bits_np(unpack_rows_np(nb_.a_words.numpy(), 1)[:pn_, :pn_], 1).planes.numpy()))
+        for what_, x_, y_ in pairs:
+            if not np.array_equal(x_, y_):
+                raise AssertionError(f"native batch {i} {what_} != the NumPy path's")
+    del numpy_batcher
+    c1_listed, c1_tiles = batcher.tile_counts()
+    print(f"phase 2: {ds.name} {ds.num_nodes} nodes {ds.graph.num_edges} edges, partition 'auto' -> "
+          f"{batcher.partition_method}, {nb} batches, buckets {batcher.buckets()} "
+          f"({', '.join(str(sum(b.padded_nodes == p for b in batcher.batches)) for p in batcher.buckets())} "
+          f"batches), K tiles listed {c1_listed}/{c1_tiles}, host pipeline {host_s:.1f} s; native densify / "
+          f"quantize / pack of {nb} batches == the NumPy path byte for byte (which took {numpy_s:.1f} s "
+          f"on the cached partition)")
     eng = QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model="gcn",
                      bit_width=2, seed=SEED, device=dev)
     eng.warmup(batcher)
@@ -987,7 +1046,7 @@ def main() -> int:
     # evaluation after the mega engine's epochs with zerotile_jump=True
     zeng.run_epochs_mega(batcher, n_epochs=1)
     zaccuracy = zeng.evaluate(batcher, ds.labels)
-    if zaccuracy != accuracy or not zeng.mega_buckets[0]["compact"]:
+    if zaccuracy != accuracy or not all(bk["compact"] for bk in zeng.mega_buckets):
         raise AssertionError(f"zero-tile accuracy {zaccuracy} != {accuracy}, or mega not compact")
     print(f"phase 2: zero-tile GCN logits of {nb} batches == plain == dense step engine == NumPy "
           f"reference (batch 0); launches {zero_launches}; tiles processed "
@@ -1379,6 +1438,149 @@ def main() -> int:
     print(f"phase 2: kernel sweep {sum(map(len, sweep.values()))} rows, launches {sweep_launches} "
           f"({time.perf_counter() - t0:.1f} s)")
 
+    # --use-pp at C1: the batcher's precalc features [X, (A X) / degree],
+    # 256 wide, through the step engine (K2 and K3 at X[pn x 256]), the mega
+    # engine (K1, or its loud fallback) and the sage baseline's mega mode (K5)
+    t0 = time.perf_counter()
+    batcher_pp = ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=2, seed=SEED, cache_dir="./datasets",
+                                precalc=True)
+    pp_host = time.perf_counter() - t0
+    if batcher_pp.feat_dim != 2 * ds.feat_dim or len(batcher_pp) != nb:
+        raise AssertionError(f"--use-pp batcher: feat {batcher_pp.feat_dim}, {len(batcher_pp)} batches")
+    engpp = QGTCEngine(feat_dim=batcher_pp.feat_dim, num_classes=ncls, model="gcn", bit_width=2, seed=SEED,
+                       device=dev)
+    engpp.warmup(batcher_pp)
+    packmm.LAUNCHES = digitmm.LAUNCHES = fused_model.LAUNCHES = bitgemm.LAUNCHES = 0
+    pp_logits = engpp.forward_all(batcher_pp)
+    torch.cuda.synchronize()
+    pp_launches = {"packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES, "fused_model": fused_model.LAUNCHES,
+                   "bitmm": bitgemm.LAUNCHES}
+    if pp_launches != {"packmm": 3 * nb, "digitmm": 3 * nb, "fused_model": 0, "bitmm": 0}:
+        raise AssertionError(f"--use-pp step launches {pp_launches}, want 3 each per batch")
+    for got, want in zip(pp_logits, engpp.forward_all(batcher_pp, plain=True)):
+        if not torch.isfinite(got).all() or not torch.equal(got, want):
+            raise AssertionError("--use-pp step engine: logits != plain")
+    bp0 = batcher_pp.batches[0]
+    gold_pp = qgcn_golden(packed_levels(engpp.put_batch(bp0)[0]).cpu().numpy(), unpack_bits(bp0.bit_X).numpy(),
+                          [digit_unpack(w).cpu().numpy() for w in engpp.weights], 2, 2)
+    if not np.array_equal(pp_logits[0].cpu().numpy(), gold_pp[: bp0.padded_nodes]):
+        raise AssertionError("--use-pp step engine: batch 0 logits != qgcn_golden")
+    fused_model.LAUNCHES = 0
+    pp_mega = engpp._mega_logits(batcher_pp)
+    torch.cuda.synchronize()
+    pp_fb = [bk["pn"] for bk in engpp.mega_buckets if bk["fallback"]]
+    if fused_model.LAUNCHES != len(engpp.mega_buckets) - len(pp_fb):
+        raise AssertionError(f"--use-pp mega: {fused_model.LAUNCHES} launches, buckets {engpp.mega_buckets}")
+    for b, got, step in zip(batcher_pp.batches, pp_mega, pp_logits):
+        n = b.num_nodes
+        if not torch.equal(got[:n, :ncls], step[:n, :ncls]):
+            raise AssertionError("--use-pp mega logits != the step engine's")
+    bpp = BaselineEngine(feat_dim=batcher_pp.feat_dim, num_classes=ncls, model="sage", seed=SEED, device=dev)
+    fused_model.BASELINE_LAUNCHES = 0
+    bpp_mega = bpp._mega_logits(batcher_pp, ds)
+    torch.cuda.synchronize()
+    bpp_fb = [bk["pn"] for bk in bpp.mega_buckets if bk["fallback"]]
+    if fused_model.BASELINE_LAUNCHES != len(bpp.mega_buckets) - len(bpp_fb):
+        raise AssertionError(f"--use-pp baseline mega: {fused_model.BASELINE_LAUNCHES} launches, "
+                             f"buckets {bpp.mega_buckets}")
+    pp_rel = max(bf16_rel_err(got, bpp.forward_batch(b, ds, batcher_pp.features))
+                 for b, got in zip(batcher_pp.batches, bpp_mega))
+    if pp_rel > BF16_REL_TOL:
+        raise AssertionError(f"--use-pp baseline mega: relative error {pp_rel} in a row")
+    print(f"phase 2: --use-pp at C1 (feat {batcher_pp.feat_dim}, host pipeline {pp_host:.1f} s): step GCN logits "
+          f"of {nb} batches == plain, batch 0 == qgcn_golden, launches {pp_launches}; mega == step, "
+          f"{fused_model.LAUNCHES} fused_model launch(es), fallback buckets {pp_fb or 'none'}; sage baseline "
+          f"mega within 2^-6 per row of its step (worst {pp_rel:.3e}), {fused_model.BASELINE_LAUNCHES} "
+          f"fused_baseline launch(es), fallback buckets {bpp_fb or 'none'} ({time.perf_counter() - t0:.1f} s)")
+    del bpp, bpp_mega
+
+    # rebit: C1's batcher at 8 bits (and at 8 bits on the 2-bit grid) from
+    # its bit-independent artifacts, byte for byte a fresh batcher's on 4
+    # batches, and the 8-bit engine on them equal to plain
+    t0 = time.perf_counter()
+    fresh82 = ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=8, quant_bits=2, seed=SEED,
+                             cache_dir="./datasets")
+    packmm.LAUNCHES = digitmm.LAUNCHES = 0
+    for what_, rb, fresh in (("rebit(8)", batcher.rebit(8), batcher8),
+                             ("rebit(8, quant_bits=2)", batcher.rebit(8, quant_bits=2), fresh82)):
+        for b, f in zip(rb.batches[:4], fresh.batches[:4]):
+            if not (np.array_equal(b.nodes, f.nodes) and torch.equal(b.a_words, f.a_words)
+                    and torch.equal(b.bit_X.planes, f.bit_X.planes) and torch.equal(b.tile_kidx, f.tile_kidx)):
+                raise AssertionError(f"{what_}: a batch != the fresh batcher's")
+            if not torch.equal(eng8.forward_batch(b), eng8.forward_batch(b, plain=True)):
+                raise AssertionError(f"{what_}: the 8-bit engine's logits != plain")
+    torch.cuda.synchronize()
+    if (packmm.LAUNCHES, digitmm.LAUNCHES) != (24, 24):
+        raise AssertionError(f"rebit: {packmm.LAUNCHES} packmm, {digitmm.LAUNCHES} digitmm launches, want 24 each")
+    print(f"phase 2: rebit(8) and rebit(8, quant_bits=2) of C1's batcher == fresh batchers byte for byte on 4 "
+          f"batches; the 8-bit engine on them == plain, 24 packmm + 24 digitmm launches "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del fresh82
+
+    # the layer API: QGCNConv / QGINConv objects composed into the 3-layer
+    # models on C1's batch 0 equal the engines' qgcn_forward / qgin_forward,
+    # digits (K2, K3) and bits (K6)
+    layer_launches = {}
+    for what_, conv, e, want in (("GCN digits", QGCNConv, eng, logits[0]), ("GIN digits", QGINConv, gin, gl[0]),
+                                 ("GCN bits", QGCNConv, beng4, blogits[0]), ("GIN bits", QGINConv, gin4, gl4[0])):
+        a_, h, _ = e.put_batch(b0)
+        h = h if e.fmt == "bits" else to_digit_tensor(h)
+        layers = [conv.create(w, 2, fmt=e.fmt, device=dev) for w in e.float_weights]
+        packmm.LAUNCHES = digitmm.LAUNCHES = bitgemm.LAUNCHES = 0
+        for lay in layers[:-1]:
+            h = lay(a_, h)
+        got = layers[-1](a_, h, final=True)
+        torch.cuda.synchronize()
+        layer_launches[what_] = (packmm.LAUNCHES, digitmm.LAUNCHES, bitgemm.LAUNCHES)
+        if layer_launches[what_] != ((0, 0, 6) if e.fmt == "bits" else (3, 3, 0)) or not torch.equal(got, want):
+            raise AssertionError(f"layer API {what_}: launches (packmm, digitmm, bitmm) {layer_launches[what_]}, "
+                                 f"or logits != the engine's forward")
+    print(f"phase 2: the layer API on C1's batch 0 == qgcn_forward / qgin_forward; launches (packmm, digitmm, "
+          f"bitmm) {layer_launches}")
+
+    # the full-graph sparse engine on the whole arxiv stand-in: the card's
+    # logits equal the same engine's on the CPU, a few epochs timed
+    t0 = time.perf_counter()
+    sparse_rows = []
+    for model in ("gcn", "gin"):
+        se = SparseEngine(ds, model=model, bit_width=2, seed=SEED, device=dev)
+        got = se.forward().cpu()
+        want = SparseEngine(ds, model=model, bit_width=2, seed=SEED, device="cpu").forward()
+        if got.shape != (ds.num_nodes, ncls) or not torch.equal(got, want) or not (got != 0).any():
+            raise AssertionError(f"sparse {model}: the card's logits != the CPU's")
+        st = se.run_epochs(5)
+        sparse_rows.append(f"{model} (hidden {se.cfg.hidden}) {st.avg_ms:.3f} ms/epoch, accuracy "
+                           f"{se.evaluate(ds.labels):.4f}")
+        del se
+    print(f"phase 2: SparseEngine on {ds.name} ({ds.num_nodes} nodes, feat {ds.feat_dim}, 2-bit): the card's "
+          f"logits == the CPU's; " + "; ".join(sparse_rows) + f", 5 epochs, one synchronize [{card}] "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # the CLI in-process once with each flag this slice ported, on a small
+    # dataset, each record appended to --json-out
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        jout = os.path.join(tmp, "records.jsonl")
+        base_argv = ["--dataset", "ppi", "--dataset-scale", "0.02", "--psize", "40", "--batch-size", "4",
+                     "--n-epochs", "2", "--json-out", jout, "--cache-dir", os.path.join(tmp, "cache")]
+        cli_runs = [["--sparse", "--eval-accuracy"], ["--use-pp"], ["--bucket-rows", "256", "--mode", "mega"],
+                    ["--profile-dir", os.path.join(tmp, "prof"), "--mode", "fused"],
+                    ["--use-pp", "--regular", "--mode", "mega"]]
+        for flags in cli_runs:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(base_argv + flags)
+            if rc != 0:
+                raise AssertionError(f"cli {flags}: exit {rc}")
+        with open(jout) as f:
+            records = [json.loads(line) for line in f]
+        if len(records) != len(cli_runs) or not os.path.exists(os.path.join(tmp, "prof", "trace.json")) \
+                or any(r["avg_epoch_ms"] <= 0 or r["engine"] != "sparse-full-graph"
+                       and r.get("partition_method") != "native" for r in records):
+            raise AssertionError(f"cli: records {records}")
+    print("phase 2: the CLI, exit 0 and the record written: " + "; ".join(
+        f"{' '.join(fl for fl in flags if fl.startswith('--'))} -> {r['engine']} {r['avg_epoch_ms']:.3f} ms"
+        for flags, r in zip(cli_runs, records)) + f" ({time.perf_counter() - t0:.1f} s)")
+
     # -- phase 3: timing ------------------------------------------------
     print(f"phase 3 starts {time.perf_counter() - start:.0f} s into the run")
     # the kernel studies through their entry points (the probe modules'
@@ -1428,7 +1630,7 @@ def main() -> int:
         for zj in (None, False):
             eng.zerotile_jump = zj
             st = eng.run_epochs_mega(batcher, n_epochs=20)
-            sched_on = eng.mega_buckets[0]["compact"]
+            sched_on = [bk["compact"] for bk in eng.mega_buckets]
             print(f"phase 3: mega engine GCN 2-bit arxiv, compact schedule {sched_on}: "
                   f"{st.avg_ms:.3f} ms/epoch over {st.n_batches} batches "
                   f"({len(eng.mega_buckets)} launch(es) per epoch) [{card}]")
@@ -1522,14 +1724,33 @@ def main() -> int:
          lambda: digitmm.digitmm_to_digits(h16, w40, 2), lambda: digitmm.digitmm_plain(h16, w40, 2)),
     ] + [(kind, what, lambda l=l, r=r, ob=ob: bitgemm.bitmm_to_bits(l, r, ob) if ob else bitgemm.bitmm_to_int(l, r),
           lambda l=l, r=r, ob=ob: bitgemm.bitmm_plain(l, r, ob)) for kind, what, l, r, ob in k6_rows]
-    # the mega path's one launch per epoch, at its shapes, beside plain
+    # the mega paths launch once a bucket an epoch (C1's native partition
+    # has three buckets): every bucket's launch is timed beside plain, and
+    # the kernels line sums the buckets into the epoch that `launches`
+    # counts. The variants (dense, 2-bit levels, 2-digit, first layer...)
+    # take the bucket that holds the most batches.
+    bucket_parts = {}  # kernel -> the timed kinds of its epoch's launches, one a bucket
+
+    def time_buckets(kernel, stage, bks, label, plain_of):
+        big_ = max(range(len(stage)), key=lambda i: len(stage[i][0]))
+        bucket_parts[kernel] = []
+        for j, ((idx_, fn_), bk) in enumerate(zip(stage, bks)):
+            if j == big_:  # timed with the variants below, under the kernel's own name
+                bucket_parts[kernel].append((kernel, bk["pn"], fn_))
+                continue
+            kind_ = f"{kernel} pn={bk['pn']}"
+            bucket_parts[kernel].append((kind_, bk["pn"], fn_))
+            timed.append((kind_, f"{label}, {len(idx_)} batches of pn={bk['pn']}", fn_,
+                          functools.partial(plain_of, fn_)))
+        return big_
+
     staged = eng._stage_mega(batcher)
-    if len(staged) != 1:
-        raise AssertionError(f"expected one bucket, got {len(staged)}")
-    mega_fn = staged[0][1]
+    big = time_buckets("fused_model", staged, eng.mega_buckets, "fused_model epoch",
+                       lambda f: fused_model.fused_model_epoch_plain(*f.args, **f.keywords))
+    mega_fn = staged[big][1]
     args, kw = mega_fn.args, mega_fn.keywords
     dense_kw = dict(kw, blk_sched=None)
-    what = f"fused_model epoch, {nb} batches of pn={eng.mega_buckets[0]['pn']}"
+    what = f"fused_model epoch, {len(staged[big][0])} batches of pn={eng.mega_buckets[big]['pn']}"
     timed.append(("fused_model", f"{what}, compact schedule {kw['blk_sched'] is not None}",
                   mega_fn, lambda: fused_model.fused_model_epoch_plain(*args, **kw)))
     # the plain epoch is the same chain with or without the schedule's
@@ -1549,23 +1770,26 @@ def main() -> int:
                   lambda: fused_model.fused_model_epoch(*args, **low_kw), None))
     # K1's levels form at C1 8-bit beside the 2-digit route on the same
     # batches (the levels split back into 2 digit planes on the card)
-    fn8 = eng8._stage_mega(batcher8)[0][1]
+    staged8 = eng8._stage_mega(batcher8)
+    big8 = time_buckets("fused_model_levels", staged8, eng8.mega_buckets, "fused_model epoch 8-bit, levels form",
+                        lambda f: fused_model.fused_model_epoch_plain(*f.args, **f.keywords))
+    idx8, fn8 = staged8[big8]
     a8s, xl8, ws8 = fn8.args[:3]
     lv8 = xl8.to(torch.int32) & 255
     x2_8 = torch.cat([lv8 & 15, lv8 >> 4], dim=1).to(torch.int8)
     kw2_8 = dict(fn8.keywords, x_levels_bits=None)
     if not torch.equal(fn8(), fused_model.fused_model_epoch(a8s, x2_8, ws8, 8, **kw2_8)):
         raise AssertionError("C1 8-bit: the levels form != the 2-digit route")
-    what8 = f"fused_model epoch 8-bit, {nb} batches of pn={buckets8[0]['pn']}"
-    timed.append(("fused_model_levels", f"{what8}, levels form ({buckets8[0]['form']})", fn8,
+    what8 = f"fused_model epoch 8-bit, {len(idx8)} batches of pn={eng8.mega_buckets[big8]['pn']}"
+    timed.append(("fused_model_levels", f"{what8}, levels form ({eng8.mega_buckets[big8]['form']})", fn8,
                   lambda: fused_model.fused_model_epoch_plain(*fn8.args, **fn8.keywords)))
     timed.append(("fused_model 2-digit", f"{what8}, the 2-digit route",
                   lambda: fused_model.fused_model_epoch(a8s, x2_8, ws8, 8, **kw2_8), None))
     # the same launch with the compacted block schedule, which the engine's
     # gate keeps for <= 4 bits (a TPU measurement)
-    pn8 = buckets8[0]["pn"]
-    sched8 = torch.from_numpy(np.stack([mega_block_sched(b.a_words.numpy(), 512, fused_model.mega_colblock(pn8))
-                                        for b in batcher8.batches])).to(dev)
+    pn8 = eng8.mega_buckets[big8]["pn"]
+    sched8 = torch.from_numpy(np.stack([mega_block_sched(batcher8.batches[i].a_words.numpy(), 512,
+                                                         fused_model.mega_colblock(pn8)) for i in idx8])).to(dev)
     kwc_8 = dict(fn8.keywords, blk_sched=sched8)
     if not torch.equal(fn8(), fused_model.fused_model_epoch(a8s, xl8, ws8, 8, **kwc_8)):
         raise AssertionError("C1 8-bit: the compacted schedule changed the logits")
@@ -1589,9 +1813,11 @@ def main() -> int:
     for kind, what_, *_ in timed:
         if kind in k1_plan_str:
             k2_plans[what_] = k1_plan_str[kind]
-    bfn = bstaged[0][1]
-    timed.append(("fused_baseline", f"fused_baseline epoch (sage hidden 16), {nb} batches of "
-                  f"pn={beng.mega_buckets[0]['pn']}", bfn,
+    bbig = time_buckets("fused_baseline", bstaged, beng.mega_buckets, "fused_baseline epoch (sage hidden 16)",
+                        lambda f: fused_model.fused_baseline_epoch_plain(*f.args))
+    bfn = bstaged[bbig][1]
+    timed.append(("fused_baseline", f"fused_baseline epoch (sage hidden 16), {len(bstaged[bbig][0])} batches of "
+                  f"pn={beng.mega_buckets[bbig]['pn']}", bfn,
                   lambda: fused_model.fused_baseline_epoch_plain(*bfn.args)))
     # where K5's time goes: the first layer alone (A @ X, 128 columns, then
     # [128 x 40]), and gin's widths (hidden 64) on the same stacks
@@ -1794,12 +2020,16 @@ def main() -> int:
     probe_kinds = set(probe_launches)
     probe_idx = {i for i, t in enumerate(timed) if t[0] in probe_kinds}
     captured_idx = {i for i, t in enumerate(timed) if t[0] == "captured epoch"}
+    # the smaller buckets' launches and their plain epochs, too
+    other_buckets = {kind for parts in bucket_parts.values() for kind, _, _ in parts if kind not in bucket_parts}
+    bucket_idx = {i for i, t in enumerate(timed) if t[0] in other_buckets}
 
     def session(k):
-        return 1 if k[0] in probe_idx or k[0] in probe_kinds else 2 if k[0] in captured_idx else 0
+        return (1 if k[0] in probe_idx or k[0] in probe_kinds else 2 if k[0] in captured_idx
+                else 3 if k[0] in bucket_idx else 0)
 
     dt = {}
-    for s_id in (0, 1, 2):
+    for s_id in (0, 1, 2, 3):
         sess = {k: f for k, f in fns.items() if session(k) == s_id}
         dt.update(device_times_ms(sess, iters={k: 1 if k[1] == "plain" or k[0] in many else
                                                10 if k[0] == "sweep" else 5 for k in sess}, warmup=1))
@@ -1818,8 +2048,8 @@ def main() -> int:
         times.setdefault(kind, (k_ms, p_ms))
         print(f"phase 3: {what}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us "
               f"device time per call [{card}]")
-    # B3's epoch is one fused_baseline launch
-    epoch_dev_ms["B3"] = kernel_ms["fused_baseline"]
+    # B3's epoch is one fused_baseline launch a bucket
+    epoch_dev_ms["B3"] = sum(kernel_ms[kind] for kind, _, _ in bucket_parts["fused_baseline"])
     print("phase 3: epochs of one call, host ms/epoch (3 runs) and device ms/epoch: "
           + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in host_ms[k]) + f" (device {epoch_dev_ms[k]:.3f})"
                       for k in host_ms) + f" [{card}]")
@@ -1937,25 +2167,46 @@ def main() -> int:
     bounds["fused_model"] = k1_bound(a_st, x_st, ws_k1, mega_fn(), kw["blk_sched"])
     # K1's levels form: the same logical work, X one byte a value
     bounds["fused_model_levels"] = k1_bound(a8s, xl8, ws8, fn8(), None)
-    k1_rows = {"fused_model": ("C1, compact", bounds["fused_model"], "fused_model"),
-               "fused_model dense": ("C1, dense", k1_bound(a_st, x_st, ws_k1, mega_fn(), None), "fused_model"),
-               "fused_model_levels": ("C1-8, levels (signed), dense", bounds["fused_model_levels"],
+    c1_pn, c18_pn = f"pn={eng.mega_buckets[big]['pn']}", f"pn={pn8}"
+    k1_rows = {"fused_model": (f"C1 {c1_pn}, compact", bounds["fused_model"], "fused_model"),
+               "fused_model dense": (f"C1 {c1_pn}, dense", k1_bound(a_st, x_st, ws_k1, mega_fn(), None),
+                                     "fused_model"),
+               "fused_model_levels": (f"C1-8 {c18_pn}, levels (signed), dense", bounds["fused_model_levels"],
                                       "fused_model_levels"),
-               "fused_model_levels compact": ("C1-8, levels (signed), C1's schedule",
+               "fused_model_levels compact": (f"C1-8 {c18_pn}, levels (signed), C1's schedule",
                                               k1_bound(a8s, xl8, ws8, fn8(), sched8), "fused_model_levels"),
-               "fused_model_levels low": ("C1 as 2-bit levels (signed), compact", bounds["fused_model"],
+               "fused_model_levels low": (f"C1 {c1_pn} as 2-bit levels (signed), compact", bounds["fused_model"],
                                           "fused_model")}
     for k, (row, (b_ms, by), plain_of) in k1_rows.items():
         print(f"phase 3: K1 {row}: kernel {kernel_ms[k] * 1e3:.1f} us, plain {times[plain_of][1] * 1e3:.1f} us, "
               f"bound {b_ms * 1e3:.2f} us ({by}), library none; plan {k1_plan_str[k]} [{card}]")
-    print(f"phase 3: K1 at C1 8-bit: levels form {kernel_ms['fused_model_levels'] * 1e3:.1f} us (compacted "
-          f"schedule {kernel_ms['fused_model_levels compact'] * 1e3:.1f}), the 2-digit route "
-          f"{kernel_ms['fused_model 2-digit'] * 1e3:.1f} us per epoch; 2-bit {kernel_ms['fused_model'] * 1e3:.1f}"
-          f" compact, {kernel_ms['fused_model dense'] * 1e3:.1f} dense [{card}]")
-    ba, bx, bws = bfn.args
-    k5_ops = ba.shape[0] * sum(2 * ba.shape[1] ** 2 * w.shape[0] + 2 * ba.shape[1] * w.shape[0] * w.shape[1]
-                               for w in bws)
-    bounds["fused_baseline"] = bound(nbytes(ba, bx, *bws, bfn()), k5_ops, "bf16")
+    print(f"phase 3: K1 at C1 8-bit, {c18_pn}: levels form {kernel_ms['fused_model_levels'] * 1e3:.1f} us "
+          f"(compacted schedule {kernel_ms['fused_model_levels compact'] * 1e3:.1f}), the 2-digit route "
+          f"{kernel_ms['fused_model 2-digit'] * 1e3:.1f} us a launch; 2-bit, {c1_pn}: "
+          f"{kernel_ms['fused_model'] * 1e3:.1f} compact, {kernel_ms['fused_model dense'] * 1e3:.1f} dense [{card}]")
+
+    def k5_bound(fn_):
+        ba, bx, bws = fn_.args
+        k5_ops = ba.shape[0] * sum(2 * ba.shape[1] ** 2 * w.shape[0] + 2 * ba.shape[1] * w.shape[0] * w.shape[1]
+                                   for w in bws)
+        return bound(nbytes(ba, bx, *bws, fn_()), k5_ops, "bf16")
+
+    # the epoch of each mega path: its launches' times and bounds summed
+    # over the buckets (the launches run one after another), bound by what
+    # bounds the launch with the largest bound
+    bound_of = {"fused_model": lambda f: k1_bound(*f.args[:3], f(), f.keywords.get("blk_sched")),
+                "fused_model_levels": lambda f: k1_bound(*f.args[:3], f(), f.keywords.get("blk_sched")),
+                "fused_baseline": k5_bound}
+    for kernel, parts in bucket_parts.items():
+        rows = [(kind, pn, *bound_of[kernel](fn_)) for kind, pn, fn_ in parts]
+        k_sum, p_sum = (sum(times[kind][s] for kind, *_ in rows) for s in (0, 1))
+        b_sum, by = sum(r[2] for r in rows), max(rows, key=lambda r: r[2])[3]
+        print(f"phase 3: {kernel} epoch at C1, {len(rows)} launches (one a bucket): "
+              + "; ".join(f"pn={pn} kernel {times[kind][0] * 1e3:.1f} us, plain {times[kind][1] * 1e3:.1f}, "
+                          f"bound {b_ms * 1e3:.2f} ({by_})" for kind, pn, b_ms, by_ in rows)
+              + f"; the epoch: kernel {k_sum * 1e3:.1f} us, plain {p_sum * 1e3:.1f}, bound {b_sum * 1e3:.2f}"
+              f" ({by}) [{card}]")
+        times[kernel], bounds[kernel] = (k_sum, p_sum), (b_sum, by)
 
     # the K skip: only the listed tiles' bytes of A (and of B the n real
     # columns of the K tiles some row tile lists) and 2 * tile_m * tile_k * n

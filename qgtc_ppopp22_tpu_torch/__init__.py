@@ -11,17 +11,22 @@ Layers, from the entry point down:
   forward chain per cluster batch, epochs timed the reference's way;
   fused and quant-in-loop engines: the buckets staged once, one captured
   CUDA graph replayed an epoch; mega engine: one whole-model launch per
-  shape bucket) and ``runtime.BaselineEngine`` (the full-precision bf16
-  baseline, ``--regular``).
+  shape bucket), ``runtime.BaselineEngine`` (the full-precision bf16
+  baseline, ``--regular``) and ``runtime.SparseEngine`` (the full graph,
+  ``--sparse``).
 * ``graph/``: the NumPy host layer (synthetic datasets, partitioning,
-  cluster batching and packing).
-* ``models/qmodels.py``: the GCN / GIN GEMM chains;
+  cluster batching and packing), over ``native/`` (the C++ multilevel
+  partitioner, densify, quantize and pack, built with g++ at first use)
+  where it builds.
+* ``models/qmodels.py``: the GCN / GIN GEMM chains and their NumPy
+  goldens (``models/golden.py``); ``models/layers.py``: the same chains as
+  composable layer objects; ``models/sparse.py``: the full-graph chains;
   ``models/baselines.py``: the bf16 baseline chains.
 * ``ops/``: formats, plus the kernels' wrappers, whose CUDA sources live
   in ``csrc/``: ``packmm`` (packed 1-bit adjacency x digit planes),
   ``digitmm`` (digit planes x digit planes) and ``fused_model`` (the
   whole quantized model, and the whole baseline, per bucket).
-* ``utils/``: device timing and the F1 metrics.
+* ``utils/``: device timing, the F1 metrics and the results writers.
 
 The package imports ``torch`` and never ``jax``. Kernels are compiled
 with ``nvcc`` at first use on a CUDA tensor (``ops/_build.py``); on CPU

@@ -10,6 +10,9 @@ the default; ``fused``; ``step``, the resident step engine),
 ``QGTC_BENCH_ZEROTILE`` (unset: the engine's auto gate; ``0`` / ``1``
 force zero-tile jumping off / on) and ``QGTC_BENCH_EPOCHS`` (20). The
 reference's epoch on an sm_86 GPU took ``BASELINE_MS`` (``bench.py:39``).
+The batches come from the native multilevel partition, which the JAX
+package's ``'auto'`` takes where its host library builds; the record
+names it (``detail.partition_method``).
 
 Prints one JSON line: ``metric``, ``value`` (the median ms/epoch over
 ``repeats`` timed runs in this process), ``unit``, ``vs_baseline`` (the
@@ -77,6 +80,7 @@ def bench(batcher: ClusterBatcher, device, mode: str = "mega", zerotile_jump=Non
         "n_epochs": n_epochs,
         "zerotile_jump": zerotile_jump,
         "mode": mode,
+        "partition_method": batcher.partition_method,
         "timing": "batches staged on the device before the timed region; each run launches all "
                   "its epochs, synchronizes once and divides by the epoch count "
                   "(main_qgtc.py:112-159); value is the median over the runs",
@@ -103,7 +107,10 @@ def main() -> int:
     zerotile = None if zt == "" else zt != "0"
     mode = os.environ.get("QGTC_BENCH_MODE", "mega")
     ds = load_dataset("ogbn-arxiv", data_dir="qgtc_graphs")
-    batcher = ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=2, seed=3, cache_dir="./datasets")
+    # the JAX package's default partition, named: a host without g++ fails
+    # here rather than measuring other batches
+    batcher = ClusterBatcher(ds, psize=1500, batch_size=20, bit_width=2, seed=3, cache_dir="./datasets",
+                             partition_method="native")
     bench(batcher, "cuda", mode, zerotile, n_epochs)
     return 0
 

@@ -5,9 +5,13 @@ Usage mirrors the reference (``main_qgtc.py:21-41``)::
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --bit_width 2 \
         --use_QGTC [--run_GIN] [--resident] [--fmt digits|bits] \
         [--mode step|fused|mega] [--quant-in-loop] [--zerotile_jump] \
-        [--timing-split] [--sync-every-epoch]
+        [--timing-split] [--sync-every-epoch] [--use-pp] [--bucket-rows N] \
+        [--partition-method auto|native|bfs|rcm] [--cache-dir D] \
+        [--json-out F] [--profile-dir D]
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --regular \
         [--run_GIN] [--resident] [--mode step|fused|mega] [--eval-accuracy]
+    python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --sparse \
+        [--run_GIN] [--eval-accuracy]
 
 ``--use_QGTC`` (the default engine) runs the quantized engine:
 ``--mode step`` (default) one GEMM chain per batch, ``--mode fused``
@@ -37,20 +41,29 @@ refuses runs the fused loop instead, and says so). ``--resident`` applies to the
 step modes of both engines. ``--sync-every-epoch`` times each epoch with
 its own synchronize instead of one after all epochs. ``--eval-accuracy``
 adds the accuracy, and micro / macro F1 where the dataset has multilabels.
+``--sparse`` runs the full-graph sparse engine (``SparseEngine``: no
+clustering, no densification) and warns about the cluster engines' flags,
+which it does not read. ``--use-pp`` pre-aggregates the features (the
+batcher's ``precalc``: twice as wide), for either cluster engine.
+``--partition-method auto`` takes the native multilevel partitioner when its
+library builds, else BFS, and the record names the one that ran
+(``partition_method``); partition lists are cached under ``--cache-dir``.
+``--profile-dir`` writes a ``torch.profiler`` trace of the timed epochs.
 
 Prints ``Avg. Epoch: <ms> ms`` as the reference does
 (``main_qgtc.py:157-159``), then one JSON record, with
 ``launch_sync_ms`` (all epochs launched, one synchronize, divided; 0
-under ``--sync-every-epoch``). Flags of the JAX
-package's CLI that this engine does not have yet stop with a "not yet
-ported" error instead of being ignored.
+under ``--sync-every-epoch``), also appended to ``--json-out``. The JAX
+package's ``--weights`` and ``--mesh`` are not ported yet: they stop with a
+"not yet ported" error instead of being ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
-import json
+import os
 import random
 import sys
 import time
@@ -60,12 +73,10 @@ import torch
 
 from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
 from qgtc_ppopp22_tpu_torch.graph.datasets import DEFAULT_PSIZE
-from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine
+from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine, SparseEngine
+from qgtc_ppopp22_tpu_torch.utils.metrics import write_json_line
 
-NOT_PORTED = (
-    "--sparse", "--use-pp", "--mesh", "--bucket-rows", "--cache-dir",
-    "--json-out", "--weights", "--profile-dir",
-)
+NOT_PORTED = ("--weights", "--mesh")
 
 
 class _NotPorted(argparse.Action):
@@ -124,7 +135,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "TileMap K skip (digits), the mega kernel's compacted schedule "
                         "(absent: off in step and fused modes; in mega mode auto, on at "
                         ">=45%% skippable blocks, pn >= 2048, <= 4 bits)")
-    p.add_argument("--partition-method", type=str, default="auto")
+    p.add_argument("--sparse", action="store_true",
+                   help="the full-graph sparse quantized engine (CSR gather and "
+                        "index_add_; no clustering, no densification)")
+    p.add_argument("--use-pp", action="store_true",
+                   help="precompute the feature aggregation (the sampler's precalc): "
+                        "features become [X, (A X) / degree], twice as wide")
+    p.add_argument("--bucket-rows", type=int, default=512,
+                   help="batches' node counts pad up to a multiple of this")
+    p.add_argument("--partition-method", type=str, default="auto",
+                   help="auto (native when its library builds, else bfs), native, bfs or rcm")
+    p.add_argument("--cache-dir", type=str, default="./datasets",
+                   help="where partition lists are cached")
+    p.add_argument("--json-out", type=str, default=None,
+                   help="append the JSON record to this file")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="write a torch.profiler trace of the timed epochs into this directory")
     p.add_argument("--rnd_seed", type=int, default=3)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the engine runs on (never changed "
@@ -137,21 +163,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.regular and args.zerotile_jump:
-        parser.error("--zerotile_jump is the quantized engine's option")
-    if args.regular and args.fmt != "digits":
-        parser.error("--fmt is the quantized engine's option")
-    for flag, name in ((args.quant_in_loop, "--quant-in-loop"), (args.timing_split, "--timing-split")):
-        if args.regular and flag:
-            parser.error(f"{name} is the quantized engine's option")
     mode = "quant-in-loop" if args.quant_in_loop else args.mode
-    if args.fmt != "digits" and mode != "step":
-        parser.error(f"{mode} mode requires fmt='digits'")
-    if mode != "step" and args.resident:
-        parser.error("--resident is the step modes' option; the fused, quant-in-loop "
-                     "and mega modes always stage their buckets on the device")
+    if not args.sparse:  # the full-graph engine warns instead
+        _refuse_combinations(parser, args, mode)
     random.seed(args.rnd_seed)
     np.random.seed(args.rnd_seed)
+    device = torch.device(args.device)
+    device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
     t0 = time.perf_counter()
     ds = load_dataset(args.dataset, data_dir=args.data_dir, scale=args.dataset_scale)
@@ -160,15 +178,37 @@ def main(argv=None) -> int:
         f"dataset {ds.name}: {ds.num_nodes} nodes, {ds.graph.num_edges} edges, "
         f"dim {ds.feat_dim}, {ds.num_classes} classes"
     )
+    timed = dict(n_epochs=args.n_epochs, sync_every_epoch=args.sync_every_epoch)
+    if args.sparse:
+        # JAX cli.py:128-142: the flags the full-graph engine does not read
+        for flag, name in ((args.zerotile_jump, "--zerotile_jump"), (args.use_pp, "--use-pp"),
+                           (args.regular, "--regular"), (args.resident, "--resident"),
+                           (args.mode != "step", "--mode"), (args.quant_in_loop, "--quant-in-loop"),
+                           (args.timing_split, "--timing-split"), (args.fmt != "digits", "--fmt")):
+            if flag:
+                print(f"warning: {name} has no effect with --sparse (full-graph CSR engine)",
+                      file=sys.stderr)
+        model = "gin" if args.run_GIN else "gcn"
+        eng = SparseEngine(ds, model=model, bit_width=args.bit_width, hidden=args.hidden,
+                           num_layers=args.num_layers, seed=args.rnd_seed, device=device)
+        with _profiled(args.profile_dir, device):
+            stats = eng.run_epochs(**timed)
+        record = dict(dataset=ds.name, bit_width=args.bit_width, model=model, engine="sparse-full-graph",
+                      n_epochs=args.n_epochs, sync_every_epoch=args.sync_every_epoch, device=str(device),
+                      device_name=device_name)
+        if args.eval_accuracy:
+            _accuracy(record, eng.evaluate, eng.evaluate_f1, ds)
+        return _emit(record, stats, args)
+
     t0 = time.perf_counter()
     psize = args.psize or DEFAULT_PSIZE.get(ds.name, 1500)
     batcher = ClusterBatcher(
         ds, psize=psize, batch_size=args.batch_size, bit_width=args.bit_width,
-        seed=args.rnd_seed, partition_method=args.partition_method,
-        cache_dir="./datasets",
+        seed=args.rnd_seed, bucket_rows=args.bucket_rows, precalc=args.use_pp,
+        partition_method=args.partition_method, cache_dir=args.cache_dir,
     )
     print(
-        f"[t] partition+pack: {time.perf_counter() - t0:.1f}s; "
+        f"[t] partition+pack ({batcher.partition_method}): {time.perf_counter() - t0:.1f}s; "
         f"{len(batcher)} batches/epoch, shape buckets {batcher.buckets()}"
     )
     if args.regular:
@@ -176,15 +216,15 @@ def main(argv=None) -> int:
         eng = BaselineEngine(
             feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model=model,
             hidden=args.hidden, num_layers=args.num_layers, seed=args.rnd_seed,
-            device=args.device,
+            device=device,
         )
-        timed = dict(n_epochs=args.n_epochs, sync_every_epoch=args.sync_every_epoch)
-        if args.mode == "mega":
-            stats = eng.run_epochs_mega(batcher, ds, **timed)
-        elif args.mode == "fused":
-            stats = eng.run_epochs_fused(batcher, ds, **timed)
-        else:
-            stats = eng.run_epochs(batcher, ds, resident=args.resident, **timed)
+        with _profiled(args.profile_dir, device):
+            if args.mode == "mega":
+                stats = eng.run_epochs_mega(batcher, ds, **timed)
+            elif args.mode == "fused":
+                stats = eng.run_epochs_fused(batcher, ds, **timed)
+            else:
+                stats = eng.run_epochs(batcher, ds, resident=args.resident, **timed)
         evaluate = functools.partial(eng.evaluate, batcher, ds)
         evaluate_f1 = functools.partial(eng.evaluate_f1, batcher, ds)
     else:
@@ -193,31 +233,29 @@ def main(argv=None) -> int:
             feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model=model,
             bit_width=args.bit_width, hidden=args.hidden, num_layers=args.num_layers,
             zerotile_jump=args.zerotile_jump, fmt=args.fmt, seed=args.rnd_seed,
-            device=args.device,
+            device=device,
         )
-        timed = dict(n_epochs=args.n_epochs, sync_every_epoch=args.sync_every_epoch)
-        if mode == "quant-in-loop":
-            stats = eng.run_epochs_quant_in_loop(batcher, **timed)
-        elif mode == "mega":
-            stats = eng.run_epochs_mega(batcher, **timed)
-        elif mode == "fused":
-            stats = eng.run_epochs_fused(batcher, **timed)
-        else:
-            stats = eng.run_epochs(batcher, resident=args.resident, **timed)
+        with _profiled(args.profile_dir, device):
+            if mode == "quant-in-loop":
+                stats = eng.run_epochs_quant_in_loop(batcher, **timed)
+            elif mode == "mega":
+                stats = eng.run_epochs_mega(batcher, **timed)
+            elif mode == "fused":
+                stats = eng.run_epochs_fused(batcher, **timed)
+            else:
+                stats = eng.run_epochs(batcher, resident=args.resident, **timed)
         evaluate = functools.partial(eng.evaluate, batcher)
         evaluate_f1 = functools.partial(eng.evaluate_f1, batcher)
-    device = torch.device(args.device)
     record = dict(
         dataset=ds.name, bit_width=args.bit_width, model=model,
         engine=f"{'regular' if args.regular else 'qgtc'}-{mode}", fmt=args.fmt,
         psize=psize, batch_size=args.batch_size, n_epochs=args.n_epochs,
-        resident=args.resident, sync_every_epoch=args.sync_every_epoch, device=str(device),
-        device_name=(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
+        zerotile_jump=args.zerotile_jump, resident=args.resident, mode=args.mode, mesh=None,
+        use_pp=args.use_pp, bucket_rows=args.bucket_rows, partition_method=batcher.partition_method,
+        sync_every_epoch=args.sync_every_epoch, device=str(device), device_name=device_name,
     )
-    print(f"Avg. Epoch: {stats.avg_ms:.3f} ms")
-    record["avg_epoch_ms"] = stats.avg_ms
-    record["epoch_ms"] = stats.epoch_ms
-    record["launch_sync_ms"] = stats.launch_sync_ms
+    if args.quant_in_loop:
+        record["quant_in_loop"] = True
     if mode == "mega":
         record["buckets"] = eng.mega_buckets
     if args.zerotile_jump:
@@ -238,12 +276,60 @@ def main(argv=None) -> int:
         record["transfer_ms"], record["compute_ms"] = transfer, compute
         print(f"timing split ({mode}): transfer {transfer:.2f} ms, compute {compute:.2f} ms per epoch")
     if args.eval_accuracy:
-        record["accuracy"] = evaluate(ds.labels)
-        print(f"accuracy: {record['accuracy']:.4f}")
-        if ds.multilabels is not None:
-            record.update(evaluate_f1(ds.multilabels))
-            print(f"F1-mic: {record['f1_micro']:.4f}, F1-mac: {record['f1_macro']:.4f}")
-    print(json.dumps(record))
+        _accuracy(record, evaluate, evaluate_f1, ds)
+    return _emit(record, stats, args)
+
+
+def _refuse_combinations(parser, args, mode: str) -> None:
+    """Stop on a flag the chosen cluster engine would not honour."""
+    if args.regular:
+        for flag, name in ((args.zerotile_jump, "--zerotile_jump"), (args.fmt != "digits", "--fmt"),
+                           (args.quant_in_loop, "--quant-in-loop"), (args.timing_split, "--timing-split")):
+            if flag:
+                parser.error(f"{name} is the quantized engine's option")
+    if args.fmt != "digits" and mode != "step":
+        parser.error(f"{mode} mode requires fmt='digits'")
+    if mode != "step" and args.resident:
+        parser.error("--resident is the step modes' option; the fused, quant-in-loop "
+                     "and mega modes always stage their buckets on the device")
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir, device: torch.device):
+    """A ``torch.profiler`` trace of the block (the timed epochs), written
+    as ``trace.json`` (Chrome trace format) into ``profile_dir``; nothing
+    without one."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profile: {path}")
+
+
+def _accuracy(record: dict, evaluate, evaluate_f1, ds) -> None:
+    record["accuracy"] = evaluate(ds.labels)
+    print(f"accuracy: {record['accuracy']:.4f}")
+    if ds.multilabels is not None:
+        record.update(evaluate_f1(ds.multilabels))
+        print(f"F1-mic: {record['f1_micro']:.4f}, F1-mac: {record['f1_macro']:.4f}")
+
+
+def _emit(record: dict, stats, args) -> int:
+    """The one tail every engine shares (JAX ``cli.py:454-467``): the
+    reference's ``Avg. Epoch`` line (``main_qgtc.py:157-159``), then the
+    record as one JSON line, also appended to ``--json-out``."""
+    print(f"Avg. Epoch: {stats.avg_ms:.3f} ms")
+    record["avg_epoch_ms"] = stats.avg_ms
+    record["epoch_ms"] = stats.epoch_ms
+    record["launch_sync_ms"] = stats.launch_sync_ms
+    print(write_json_line(args.json_out, record))
     return 0
 
 

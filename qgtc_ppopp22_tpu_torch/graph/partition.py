@@ -18,8 +18,11 @@ dense-ish — is filled by two built-in methods:
   chunks. One vectorized SciPy call — fast, but BFS-level interleaving
   gives a worse cut on small-world graphs; kept as an option.
 
-The JAX package also has a native C++ multilevel partitioner; it is not
-ported yet, so ``method='auto'`` resolves to ``bfs`` here.
+A native C++ multilevel partitioner (heavy-edge-matching coarsening,
+greedy growing, boundary refinement; :mod:`qgtc_ppopp22_tpu_torch.native`)
+is ``method='native'``, and ``method='auto'`` takes it when its library
+builds, else ``bfs``, as the JAX package resolves ``auto``. These NumPy
+methods are the portable fallback and the reference it is held against.
 """
 
 from __future__ import annotations
@@ -89,6 +92,17 @@ def _partition_bfs(adj: sp.csr_matrix, psize: int) -> List[np.ndarray]:
     return parts
 
 
+def resolve_method(method: str) -> str:
+    """The partitioner ``method`` names: ``'auto'`` is ``'native'`` when the
+    native library builds, else ``'bfs'`` (JAX
+    ``graph/partition.py:110-118``); any other name is itself."""
+    if method != "auto":
+        return method
+    from qgtc_ppopp22_tpu_torch import native
+
+    return "native" if native.available() else "bfs"
+
+
 def get_partition_list(
     g: CSRGraph,
     psize: int,
@@ -101,12 +115,11 @@ def get_partition_list(
     Equivalent of ``partition_utils.get_partition_list``
     (``partition_utils.py:11-18``), with the reference's on-disk cache
     behavior (``sampler.py:56-63``) when ``cache_dir``/``cache_name``
-    are given. ``method='auto'`` is ``bfs``.
+    are given. ``method='auto'`` is :func:`resolve_method`'s.
     """
-    if method == "auto":
-        # Resolve before the cache lookup so the cache is keyed by the
-        # algorithm that actually produced it.
-        method = "bfs"
+    # Resolve before the cache lookup so the cache is keyed by the
+    # algorithm that actually produced it.
+    method = resolve_method(method)
 
     if cache_dir and cache_name:
         # Key includes graph size so a rescaled/reseeded synthetic
@@ -124,6 +137,10 @@ def get_partition_list(
         parts = _partition_rcm(g.undirected_scipy(), psize)
     elif method == "bfs":
         parts = _partition_bfs(g.undirected_scipy(), psize)
+    elif method == "native":
+        from qgtc_ppopp22_tpu_torch.native import partition_native
+
+        parts = partition_native(g, psize)
     else:
         raise ValueError(f"unknown partition method {method!r}")
 

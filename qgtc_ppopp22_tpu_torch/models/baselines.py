@@ -81,6 +81,8 @@ def sparse_aggregate(
     row ``i`` is the sum of ``x[indices[indptr[i]:indptr[i+1]]]``."""
     num_nodes = num_nodes or (indptr.shape[0] - 1)
     deg = torch.diff(indptr)
-    row = torch.repeat_interleave(torch.arange(num_nodes, device=x.device), deg)
+    # output_size: the edge count, so CUDA needs no host synchronize
+    row = torch.repeat_interleave(torch.arange(num_nodes, device=x.device), deg,
+                                  output_size=indices.numel())
     out = torch.zeros((num_nodes,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     return out.index_add_(0, row, x[indices])

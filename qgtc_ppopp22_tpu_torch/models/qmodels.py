@@ -28,6 +28,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from qgtc_ppopp22_tpu_torch.models.golden import bitmm_np
 from qgtc_ppopp22_tpu_torch.ops.bitgemm import TileMap, bitmm_plain, bitmm_to_bits, bitmm_to_int
 from qgtc_ppopp22_tpu_torch.ops.bitpack import BitTensor, pack_bits
 from qgtc_ppopp22_tpu_torch.ops.digitmm import (
@@ -184,3 +185,30 @@ def qgin_forward(
         h = _mm_to_bits(h, w, out_bits, next(sh), plain)
         h = _mm_to_bits(bit_a, h, out_bits, next(sh), plain, tile_map)
     return _mm_to_f32(h, bit_ws[-1], plain)
+
+
+# -- NumPy golden forwards (integer semantics), for parity checks -------
+
+
+def qgcn_golden(qa, qx, qws, bit_width: int, out_bits: int, shifts=None) -> np.ndarray:
+    """Integer-exact NumPy model of :func:`qgcn_forward` over levels: ``qa``
+    the 0/1 adjacency, ``qx`` the feature levels, ``qws`` the weight levels
+    (JAX ``models/qmodels.qgcn_golden``)."""
+    sh = iter(_shifts(shifts, len(qws)))
+    h, hb = qx, bit_width
+    for l, w in enumerate(qws):
+        h, hb = bitmm_np(h, w, hb, bit_width, out_bits, next(sh)), out_bits
+        if l < len(qws) - 1:
+            h = bitmm_np(qa, h, 1, hb, out_bits, next(sh))
+    return bitmm_np(qa, h, 1, hb, None)
+
+
+def qgin_golden(qa, qx, qws, bit_width: int, out_bits: int, shifts=None) -> np.ndarray:
+    """Integer-exact NumPy model of :func:`qgin_forward`, arguments as in
+    :func:`qgcn_golden` (JAX ``models/qmodels.qgin_golden``)."""
+    sh = iter(_shifts(shifts, len(qws)))
+    h, hb = bitmm_np(qa, qx, 1, bit_width, out_bits, next(sh)), out_bits
+    for w in qws[:-1]:
+        h = bitmm_np(h, w, hb, bit_width, out_bits, next(sh))
+        h = bitmm_np(qa, h, 1, out_bits, out_bits, next(sh))
+    return bitmm_np(h, qws[-1], hb, bit_width, None)

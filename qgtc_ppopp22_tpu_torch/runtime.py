@@ -23,7 +23,9 @@ levels); the fused and quant-in-loop engines (``run_epochs_fused``,
 whole epoch's chains captured into one CUDA graph, one replay an epoch,
 JAX's ``lax.scan`` in one dispatch); and the full-precision
 ``BaselineEngine`` (step, fused and mega modes, the fused loop captured
-likewise, the mega mode through the ``fused_baseline`` kernel).
+likewise, the mega mode through the ``fused_baseline`` kernel); and the
+full-graph ``SparseEngine`` (``models/sparse.py`` over the whole CSR
+graph: no clustering, no densification).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 
 from qgtc_ppopp22_tpu_torch.graph.batching import ClusterBatch, ClusterBatcher
 from qgtc_ppopp22_tpu_torch.models.baselines import gin_forward, init_mlp_weights, sage_forward
+from qgtc_ppopp22_tpu_torch.models.golden import quantize_np
 from qgtc_ppopp22_tpu_torch.models.qmodels import (
     QModelConfig,
     init_weights,
@@ -45,6 +48,7 @@ from qgtc_ppopp22_tpu_torch.models.qmodels import (
     qgcn_forward,
     qgin_forward,
 )
+from qgtc_ppopp22_tpu_torch.models.sparse import sparse_q_forward
 from qgtc_ppopp22_tpu_torch.ops import fused_model
 from qgtc_ppopp22_tpu_torch.ops.bitgemm import TileMap
 from qgtc_ppopp22_tpu_torch.ops.bitpack import LANE, BitTensor, num_digits, pack_bits, round_up
@@ -580,6 +584,72 @@ class QGTCEngine(_Engine):
             rows.append(logits[: batch.num_nodes].cpu().numpy())
             labs.append(multilabels[batch.nodes])
         return _threshold_f1(np.concatenate(rows), np.concatenate(labs))
+
+
+class SparseEngine(_Engine):
+    """Full-graph sparse quantized engine (``models/sparse.py`` over the
+    whole CSR graph: no clustering, no densification), the counterpart of
+    JAX ``runtime.SparseEngine`` (``runtime.py:747-830``).
+
+    The same run / record interface as :class:`QGTCEngine`, so the CLI
+    treats every engine alike. ``float_weights`` (e.g. a JAX engine's, as
+    NumPy arrays) and ``shifts`` replace the seeded weights and the
+    unscaled requantize; the result is the exact-integer equivalent of the
+    dense engines on the full graph. The graph, the feature levels and the
+    weight levels are put on ``device`` once, at construction."""
+
+    def __init__(
+        self,
+        dataset,
+        model: str = "gcn",
+        bit_width: int = 2,
+        hidden: Optional[int] = None,
+        num_layers: int = 3,
+        seed: int = 0,
+        shifts: Optional[Sequence[int]] = None,
+        float_weights: Optional[Sequence] = None,
+        device="cuda",
+    ):
+        if model not in ("gcn", "gin"):
+            raise ValueError(f"unknown model {model!r}")
+        self._set_device(device)
+        if hidden is None:
+            hidden = 16 if model == "gcn" else 64
+        self.model = model
+        self.bit_width = bit_width
+        self.dataset = dataset
+        self.cfg = QModelConfig(in_dim=dataset.feat_dim, hidden=hidden, out_dim=dataset.num_classes,
+                                bit_width=bit_width, num_layers=num_layers)
+        if float_weights is None:
+            float_weights = init_weights(torch.Generator().manual_seed(seed), self.cfg)
+        self.float_weights = [w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w, np.float32)
+                              for w in float_weights]
+        self.shifts = tuple(shifts) if shifts is not None else None
+        dev = self.device
+        self._qws = [torch.from_numpy(quantize_np(w, bit_width)).to(dev) for w in self.float_weights]
+        self._indptr = torch.from_numpy(np.asarray(dataset.graph.indptr, np.int64)).to(dev)
+        self._indices = torch.from_numpy(np.asarray(dataset.graph.indices, np.int64)).to(dev)
+        self._qx = torch.from_numpy(quantize_np(dataset.features, bit_width)).to(dev)
+
+    def forward(self) -> torch.Tensor:
+        """float32 logits [num_nodes, num_classes] on the engine's device."""
+        return sparse_q_forward(self._indptr, self._indices, self._qx, self._qws, out_bits=self.bit_width,
+                                model=self.model, shifts=self.shifts)
+
+    def run_epochs(self, n_epochs: int = 20, sync_every_epoch: bool = False) -> EpochStats:
+        """Timed epochs, one full-graph forward each, after one untimed
+        forward; timing as in :meth:`QGTCEngine.run_epochs` (one batch an
+        epoch)."""
+        return self._run_staged(self.forward, n_epochs, 1, sync_every_epoch)
+
+    def evaluate(self, labels: np.ndarray) -> float:
+        """Argmax accuracy over every node."""
+        pred = self.forward()[: len(labels)].argmax(dim=1).cpu().numpy()
+        return float((pred == labels).mean())
+
+    def evaluate_f1(self, multilabels: np.ndarray) -> dict:
+        """Multilabel micro / macro F1 (see :meth:`QGTCEngine.evaluate_f1`)."""
+        return _threshold_f1(self.forward()[: len(multilabels)].cpu().numpy(), multilabels)
 
 
 class BaselineEngine(_Engine):

@@ -3,14 +3,17 @@ results output.
 
 NumPy copy of ``f1_score`` and ``multilabel_f1`` from
 ``qgtc_ppopp22_tpu/utils/metrics.py``: micro / macro F1 over argmax
-predictions, and the multilabel branch that thresholds logits at 0; and
-its ``write_csv``, which writes the same bytes.
+predictions, and the multilabel branch that thresholds logits at 0; its
+``Logger`` (the reference's append-to-file logger, ``utils.py:12-28``),
+``write_csv`` and ``write_json_line``, which write the same bytes.
 """
 
 from __future__ import annotations
 
 import csv
+import json
 import os
+import time
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
@@ -59,6 +62,19 @@ def multilabel_f1(logits: np.ndarray, labels: np.ndarray, average: str = "micro"
     return float(np.mean(_f1_from_counts(tp, fp, fn)))
 
 
+class Logger:
+    """Append-to-file logger (reference ``utils.py:12-28``): each line
+    stamped with the local time."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def write(self, msg: str) -> None:
+        with open(self.path, "a") as f:
+            f.write(f"{time.strftime('%Y-%m-%d %H:%M:%S')} {msg}\n")
+
+
 def write_csv(path: str, rows: Iterable[Dict], fieldnames: List[str]) -> None:
     """Structured results output (replaces the reference's ``parse_time.py``
     scraping): a header line, then one line per row."""
@@ -68,3 +84,13 @@ def write_csv(path: str, rows: Iterable[Dict], fieldnames: List[str]) -> None:
         w.writeheader()
         for r in rows:
             w.writerow(r)
+
+
+def write_json_line(path: Optional[str], record: Dict) -> str:
+    """``record`` as one JSON line, appended to ``path`` when one is given;
+    returns the line."""
+    line = json.dumps(record)
+    if path:
+        with open(path, "a") as f:
+            f.write(line + "\n")
+    return line

@@ -229,6 +229,6 @@ def test_cli_runs_step_engine_on_cpu(tmp_path, monkeypatch, capsys):
 
 def test_cli_rejects_unported_flags(capsys):
     with pytest.raises(SystemExit) as exc:
-        cli.main(["--sparse"])
+        cli.main(["--mesh", "1,1"])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err

@@ -260,6 +260,7 @@ def test_bench_prints_one_record(buckets, capsys, mode):
     assert len(d["epoch_ms"]) == len(d["launch_sync_ms"]) == 3 and d["median_ms"] == rec["value"]
     assert d["spread_ms"] == max(d["epoch_ms"]) - min(d["epoch_ms"]) and d["transfer_inclusive_ms"] > 0
     assert d["mode"] == mode and d["card"] == "cpu" and "PCIe" in d["transfer_note"]
+    assert d["partition_method"] == batcher.partition_method
     assert "tunnel" not in line
 
 

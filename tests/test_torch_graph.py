@@ -76,15 +76,27 @@ def test_partition_matches_jax(datasets, method):
 
 
 def test_partition_auto_is_bfs_and_cached(datasets, tmp_path):
-    ds, _ = datasets
+    """``auto`` resolves as JAX's does (native when the library builds,
+    else bfs), the cache file is keyed by the resolved method and read back,
+    and ``method='native'`` equals JAX's."""
+    from qgtc_ppopp22_tpu import native as jnative
+
+    ds, jds = datasets
+    resolved = partition.resolve_method("auto")
+    assert resolved == ("native" if jnative.available() else "bfs")
     parts = graph.get_partition_list(ds.graph, 6, cache_dir=str(tmp_path), cache_name="p")
     files = list(tmp_path.iterdir())
-    assert len(files) == 1 and files[0].name.endswith("_6_bfs.npz")
+    assert len(files) == 1 and files[0].name.endswith(f"_6_{resolved}.npz")
     again = partition.get_partition_list(ds.graph, 6, cache_dir=str(tmp_path), cache_name="p")
-    for p, q in zip(parts, again):
+    for p, q, r in zip(parts, again, jgraph.get_partition_list(jds.graph, 6, method="auto")):
         np.testing.assert_array_equal(p, q)
+        np.testing.assert_array_equal(p, r)
+    if jnative.available():
+        for p, q in zip(graph.get_partition_list(ds.graph, 6, method="native"),
+                        jgraph.get_partition_list(jds.graph, 6, method="native")):
+            np.testing.assert_array_equal(p, q)
     with pytest.raises(ValueError):
-        graph.get_partition_list(ds.graph, 6, method="native")
+        graph.get_partition_list(ds.graph, 6, method="metis")
 
 
 @pytest.mark.parametrize("bit_width", [1, 2, 8])
