@@ -140,7 +140,11 @@ Runs, and stops with a non-zero exit at the first failure:
    before, one levels-form ``fused_model`` launch per bucket (the signed
    chain), no fallback, logits equal to plain, to the 8-bit step engine
    and, for batch 0, to a NumPy chain; then 4 batches of 8-bit GIN
-   (hidden 64, feature width 128) the same way. Then the
+   (hidden 64, feature width 128) the same way. Then K1's weight
+   operands (``fused_model.pack_mega_weights``): over three mega epochs of
+   C1 and of C1-8 each engine builds them once (its form's, digits and
+   signed) for all its buckets' launches, and C1-8's logits with them equal
+   the same launches with the operands built per launch. Then the
    full-precision baseline on the same 75 batches through
    ``BaselineEngine.run_epochs_mega``'s staging (one ``fused_baseline``
    launch per bucket, counts reset just before; a bucket the kernel
@@ -195,7 +199,16 @@ Runs, and stops with a non-zero exit at the first failure:
    in-process with each flag this slice ported (``--sparse``,
    ``--use-pp``, ``--bucket-rows``, ``--profile-dir``, ``--json-out``,
    ``--cache-dir``) on a small ppi stand-in: exit 0 and every record
-   written.
+   written. Then quantization-aware training (``models/train.py``,
+   :func:`qat_phase`): ``qat_train`` of C1's model (2-bit GCN, hidden 16, 3
+   layers) on C1's 75 batches on the card, ``QAT_EPOCHS`` smooth and STE
+   epochs; the twin's accuracy equal to the deployed step and mega engines'
+   and its logits to theirs on every batch; the checkpoint deployed by
+   ``python -m qgtc_ppopp22_tpu_torch.cli --weights`` in step and mega mode
+   with the same accuracy; the accuracy ladder at 1 and 2 bits on a small
+   Proteins stand-in, monotone, its exact emulation equal to the 1-bit row.
+   Its seconds and accuracy are printed on a line of their own before the
+   card's line.
 3. The kernel studies through the probe modules' entry points, launch
    counts reset just before and each probe kernel launched: P2's three
    tables (bytes in the TPU's interpret-mode order, the fragments in the
@@ -258,9 +271,10 @@ is the larger of its bytes (inputs read once, outputs written once) over
 int8, 989 TFLOP/s bf16); bitmm is charged 2 M N K int8 operations per
 pair of base-16 digits on the logical shapes (the data sheet gives no
 one-bit rate) and the bytes of A's and B's real columns, and the work its
-planned grid does is printed beside. The third line from the end is the card's name
-and power limit, the second ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+planned grid does is printed beside. The fifth line from the end is ``qat: {...}`` (the QAT
+phase's seconds, epochs and accuracy), the third the card's name and power
+limit, the second ``{"kernels": [...]}``; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import contextlib
@@ -304,6 +318,98 @@ def bound(nbytes, ops, kind):
     """(bound_ms, bound_by): the least time for the bytes and operations."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+QAT_EPOCHS = (20, 10)  # the QAT phase's smooth and STE epochs (qat_train's 25 and 20 cut to stay near 60 s)
+
+
+def qat_phase(dev, ds, batcher, cli_argv, root) -> dict:
+    """Quantization-aware training of C1's model (2-bit GCN, hidden 16, 3
+    layers) on ``batcher`` (C1's batches) on ``dev``, and its deployment:
+
+    (a) the twin's train accuracy equals ``quantized_accuracy`` through the
+        step engine and through the mega engine exactly;
+    (b) the twin's logits equal, on every batch over the real extents, the
+        step engine's (3 packmm + 3 digitmm launches a batch) and the mega
+        engine's (one fused_model launch a bucket, none falling back);
+    (c) the model saved with ``save_checkpoint`` and deployed by ``python -m
+        qgtc_ppopp22_tpu_torch.cli <cli_argv> --weights ... --eval-accuracy``
+        in step and in mega mode (two processes at once, from ``root``):
+        exit 0, the same accuracy, the record naming the checkpoint;
+    (d) the ladder at bits [1, 2] on the Proteins stand-in (scale 0.05,
+        psize 8, batch 2, one seed): monotone rows, the 2-bit row's exact
+        emulation of the 1-bit winner equal to the 1-bit row.
+
+    Float32 matmuls must be at full precision (no TF32): the twin's integer
+    sums are exact only there. Returns the phase's record."""
+    import subprocess
+
+    import torch
+
+    from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
+    from qgtc_ppopp22_tpu_torch.models import train
+    from qgtc_ppopp22_tpu_torch.models.qmodels import QModelConfig
+    from qgtc_ppopp22_tpu_torch.ops import digitmm, fused_model, packmm
+    from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("QAT: float32 matmuls are not at full precision")
+    t0 = time.perf_counter()
+    cfg = QModelConfig(batcher.feat_dim, 16, ds.num_classes, bit_width=2, num_layers=3)
+    ws, shifts, acc = train.qat_train(ds, batcher, cfg, smooth_epochs=QAT_EPOCHS[0], ste_epochs=QAT_EPOCHS[1],
+                                      seed=SEED, device=dev)
+    train_s = time.perf_counter() - t0
+    deployed = {mode: train.quantized_accuracy(ds, batcher, ws, 2, shifts=shifts, device=dev, mode=mode)
+                for mode in ("step", "mega")}
+    if any(v != acc for v in deployed.values()) or not 0.0 < acc <= 1.0:
+        raise AssertionError(f"QAT: twin accuracy {acc} != deployed {deployed}")
+    nb, ncls = len(batcher.batches), ds.num_classes
+    twin = train.float_twin_logits(ds, batcher, ws, 2, "gcn", shifts, device=dev)
+    eng = QGTCEngine(feat_dim=batcher.feat_dim, num_classes=ncls, bit_width=2, hidden=16, shifts=shifts, device=dev)
+    eng.set_float_weights(ws)
+    packmm.LAUNCHES = digitmm.LAUNCHES = fused_model.LAUNCHES = 0
+    step = eng.forward_all(batcher)
+    launches = {"packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES}
+    mega = eng._mega_logits(batcher)
+    launches["fused_model"] = fused_model.LAUNCHES
+    if launches != {"packmm": 3 * nb, "digitmm": 3 * nb, "fused_model": len(eng.mega_buckets)} \
+            or any(bk["fallback"] for bk in eng.mega_buckets):
+        raise AssertionError(f"QAT deployment: launches {launches}, buckets {eng.mega_buckets}")
+    for b, t, st, mg in zip(batcher.batches, twin, step, mega):
+        n = b.num_nodes
+        if t.shape != (b.padded_nodes, ncls) or not torch.isfinite(t).all() \
+                or not torch.equal(t[:n], st[:n, :ncls]) or not torch.equal(t[:n], mg[:n, :ncls]):
+            raise AssertionError("QAT: the twin's logits != the step / mega engine's")
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        ck = os.path.join(tmp, "qat_c1.npz")
+        train.save_checkpoint(ck, ws, shifts, cfg, model="gcn")
+        procs = {mode: subprocess.Popen(
+            [sys.executable, "-m", "qgtc_ppopp22_tpu_torch.cli", *cli_argv, "--weights", ck, "--eval-accuracy",
+             "--mode", mode, "--n-epochs", "1", "--device", str(dev), "--json-out", os.path.join(tmp, mode)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for mode in ("step", "mega")}
+        for mode, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
+            if proc.returncode != 0:
+                raise AssertionError(f"cli --weights --mode {mode}: exit {proc.returncode}\n{err[-3000:]}")
+            with open(os.path.join(tmp, mode)) as f:
+                rec = json.loads(f.read())
+            if rec["accuracy"] != acc or rec["weights"] != ck or rec["mode"] != mode:
+                raise AssertionError(f"cli --weights --mode {mode}: record {rec}, twin accuracy {acc}")
+    small = load_dataset("Proteins", scale=0.05)
+
+    def make_batcher(bits, feature_scale=1.0, quant_bits=None):
+        return ClusterBatcher(small, psize=8, batch_size=2, bit_width=bits, shuffle=False,
+                              feature_scale=feature_scale, quant_bits=quant_bits)
+
+    rows = train.qat_ladder(small, make_batcher, [1, 2], seeds=(SEED,), device=dev)
+    if rows[1]["accuracy"] < rows[0]["accuracy"] or rows[1]["emulated"] != rows[0]["accuracy"]:
+        raise AssertionError(f"QAT ladder: {rows}")
+    return dict(seconds=time.perf_counter() - t0, train_seconds=train_s, epochs=QAT_EPOCHS, accuracy=acc,
+                shifts=shifts, launches=launches,
+                ladder=[{k: r[k] for k in ("bits", "accuracy", "winner", "emulated")} for r in rows])
 
 
 def main() -> int:
@@ -1313,6 +1419,30 @@ def main() -> int:
           f"chain (batch 0); shifts {shg8}, shares below the rail "
           + ", ".join(f"{x:.3f}" for x in shareg8) + f"; {fused_model.LEVELS_LAUNCHES} levels launch(es)")
 
+    # K1's weight operands (fused_model.pack_mega_weights) built once a
+    # staging for each form, not once a launch: three mega epochs of C1 and
+    # of C1-8, the counts reset just before; C1-8's logits the same with the
+    # operands built per launch
+    pack_mega_weights, built = fused_model.pack_mega_weights, []
+    fused_model.pack_mega_weights = lambda ws_, form_: built.append(form_) or pack_mega_weights(ws_, form_)
+    try:
+        fused_model.LAUNCHES = 0
+        eng.run_epochs_mega(batcher, n_epochs=3)
+        eng8.run_epochs_mega(batcher8, n_epochs=3)
+        torch.cuda.synchronize()
+    finally:
+        fused_model.pack_mega_weights = pack_mega_weights
+    k1_calls = fused_model.LAUNCHES
+    if built != ["digits", "signed"] or k1_calls != 4 * (len(eng.mega_buckets) + len(eng8.mega_buckets)):
+        raise AssertionError(f"K1 weight prep: built {built} over {k1_calls} launches")
+    for idx, fn in eng8._stage_mega(batcher8):
+        per_launch = fused_model.fused_model_epoch(*fn.args, **dict(fn.keywords, packed=None))
+        for i, lg in zip(idx, per_launch):
+            if not torch.equal(lg, mega8[i]):
+                raise AssertionError("8-bit mega: logits with the staged weight operands != built per launch")
+    print(f"phase 2: K1's weight operands built once a staging ({built}) over {k1_calls} launches of three mega "
+          f"epochs (C1 and C1-8, one warm-up each); C1-8's logits with them == built per launch == plain")
+
     # the captured engines on C1's 75 batches: the fused and quant-in-loop
     # epochs, each one CUDA graph replayed once an epoch, the mega engine's
     # fallback, and the baseline's fused loop; the wrappers count their
@@ -1581,6 +1711,16 @@ def main() -> int:
         f"{' '.join(fl for fl in flags if fl.startswith('--'))} -> {r['engine']} {r['avg_epoch_ms']:.3f} ms"
         for flags, r in zip(cli_runs, records)) + f" ({time.perf_counter() - t0:.1f} s)")
 
+    # quantization-aware training at C1's width on C1's batches, deployed
+    # through the step and mega engines and through the CLI's --weights
+    qat = qat_phase(dev, ds, batcher, ["--dataset", "ogbn-arxiv", "--psize", "1500", "--batch-size", "20",
+                                       "--cache-dir", "./datasets"], root)
+    print(f"phase 2: QAT at C1 (2-bit GCN, hidden 16, 3 layers, {qat['epochs']} epochs, {nb} batches): twin "
+          f"accuracy {qat['accuracy']:.4f} == deployed step (K2, K3) == mega (K1) == the CLI's --weights in step "
+          f"and mega modes; twin logits == step == mega engine on every batch (launches {qat['launches']}); "
+          f"shifts {qat['shifts']}; training {qat['train_seconds']:.1f} s of {qat['seconds']:.1f} s; ladder "
+          f"{qat['ladder']} [{card}]")
+
     # -- phase 3: timing ------------------------------------------------
     print(f"phase 3 starts {time.perf_counter() - start:.0f} s into the run")
     # the kernel studies through their entry points (the probe modules'
@@ -1760,7 +1900,7 @@ def main() -> int:
                   lambda: fused_model.fused_model_epoch(*args, **dense_kw), None))
     # the 1-4-bit levels form (no caller stages it): C1's 2-bit X read as
     # one plane of 2-bit levels, the signed chain
-    low_kw = dict(kw, x_levels_bits=2)
+    low_kw = dict(kw, x_levels_bits=2, packed=fused_model.pack_mega_weights(args[2], "signed"))
     if fused_model.plan(args[0].shape, args[1].shape, args[2], 2, "gcn", kw["shifts"], kw["out_cols"],
                         None if kw["blk_sched"] is None else kw["blk_sched"].shape, 2).form != "signed" \
             or not torch.equal(fused_model.fused_model_epoch(*args, **low_kw),
@@ -1777,7 +1917,7 @@ def main() -> int:
     a8s, xl8, ws8 = fn8.args[:3]
     lv8 = xl8.to(torch.int32) & 255
     x2_8 = torch.cat([lv8 & 15, lv8 >> 4], dim=1).to(torch.int8)
-    kw2_8 = dict(fn8.keywords, x_levels_bits=None)
+    kw2_8 = dict(fn8.keywords, x_levels_bits=None, packed=None)  # the digit planes' operands, per launch
     if not torch.equal(fn8(), fused_model.fused_model_epoch(a8s, x2_8, ws8, 8, **kw2_8)):
         raise AssertionError("C1 8-bit: the levels form != the 2-digit route")
     what8 = f"fused_model epoch 8-bit, {len(idx8)} batches of pn={eng8.mega_buckets[big8]['pn']}"
@@ -2285,6 +2425,7 @@ def main() -> int:
          "library_ms": lib_ms.get(k)}
         for k, (src, rep_, counts) in sources.items()
     ]
+    print("qat: " + json.dumps({k: qat[k] for k in ("seconds", "train_seconds", "epochs", "accuracy")}))
     print(f"chip_smoke: {time.perf_counter() - start:.0f} s")
     print(card)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": kernels}))

@@ -21,7 +21,9 @@ Layers, from the entry point down:
 * ``models/qmodels.py``: the GCN / GIN GEMM chains and their NumPy
   goldens (``models/golden.py``); ``models/layers.py``: the same chains as
   composable layer objects; ``models/sparse.py``: the full-graph chains;
-  ``models/baselines.py``: the bf16 baseline chains.
+  ``models/baselines.py``: the bf16 baseline chains; ``models/train.py``:
+  quantization-aware training of the float twin, deployed through the
+  engines, and its checkpoints (the CLI's ``--weights``).
 * ``ops/``: formats, plus the kernels' wrappers, whose CUDA sources live
   in ``csrc/``: ``packmm`` (packed 1-bit adjacency x digit planes),
   ``digitmm`` (digit planes x digit planes) and ``fused_model`` (the

@@ -1,6 +1,7 @@
 """C1's set-up and epochs on the native and the BFS partition.
 
-    python3 -m qgtc_ppopp22_tpu_torch.benchmarks.partition_epochs [--runs 3] [--epochs 20]
+    python3 -m qgtc_ppopp22_tpu_torch.benchmarks.partition_epochs [--runs 3] [--epochs 20] \
+        [--methods native bfs] [--cells E1 E3 E3-8 E5 B3] [--host-runs 3] [--trace-dir D]
 
 C1 is the 2-bit 3-layer Cluster-GCN (hidden 16) on the full ogbn-arxiv
 stand-in, psize 1500, batch 20. For each partition method (``native``, the
@@ -22,12 +23,14 @@ and at 8 bits, K5. Then it times, in turns over the two partitions,
   one K5 launch per bucket);
 
 each a host-clock ms/epoch over all epochs launched and one synchronize.
+``--methods`` and ``--cells`` narrow the partitions and the timed runs.
 
 Then, on the native partition, the host pipeline with densify, quantize
 and pack in the native library and in NumPy (``native=False``), both on
-the cached partition, ``--runs`` builds each in turns; and, on both
-partitions, a trace of E3 and E3-8 (:func:`trace_epochs`): the host's
-time per launch, the device's time and idle share per epoch, the
+the cached partition, ``--host-runs`` (default ``--runs``) builds each in
+turns (0: none); and,
+on each partition, a trace of E3 and E3-8 (:func:`trace_epochs`): the
+host's time per launch, the device's time and idle share per epoch, the
 synchronizing calls and the host ops with the most self time.
 ``--trace-dir`` also writes each trace's table of host ops and its
 Chrome trace there. Prints the card's name and power limit first and
@@ -53,6 +56,7 @@ from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms
 
 SEED = 3
 METHODS = ("native", "bfs")
+CELLS = ("E1", "E3", "E3-8", "E5", "B3")
 SHIFTS8 = (6, 2, 11, 2, 11)  # C1-8's (PERF.md section 4)
 
 
@@ -168,25 +172,30 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--trace-epochs", type=int, default=5)
     p.add_argument("--trace-dir", default=None)
+    p.add_argument("--methods", nargs="+", choices=METHODS, default=list(METHODS))
+    p.add_argument("--cells", nargs="+", choices=CELLS, default=list(CELLS))
+    p.add_argument("--host-runs", type=int, default=None, help="default: --runs")
     args = p.parse_args(argv)
     device = torch.device(args.device)
     card = card_line(device)
     print(f"card: {card}")
     ds = load_dataset("ogbn-arxiv", data_dir="qgtc_graphs")
-    cells = {m: setup(ds, m, device, args.epochs) for m in METHODS}
+    cells = {m: setup(ds, m, device, args.epochs) for m in args.methods}
     for m, c in cells.items():
         print(f"set-up {m}: " + json.dumps(c["record"]))
-    times = {m: {k: [] for k in c["runs"]} for m, c in cells.items()}
-    for k in ("E1", "E3", "E3-8", "E5", "B3"):
+    times = {m: {k: [] for k in args.cells} for m in cells}
+    for k in args.cells:
         for _ in range(args.runs):
             for m, c in cells.items():
                 times[m][k].append(c["runs"][k]().avg_ms)
         print(f"{k} ms/epoch, {args.runs} runs of {args.epochs} epochs in turns: "
               + "; ".join(f"{m} " + " / ".join(f"{v:.3f}" for v in times[m][k]) for m in cells) + f" [{card}]")
-    host = host_pipeline_s(ds, args.runs)
-    cells["native"]["record"]["host_pipeline_cached_s"] = host
-    print("host pipeline on the cached native partition, densify / quantize / pack in: "
-          + "; ".join(f"{k} " + " / ".join(f"{v:.2f}" for v in vs) for k, vs in host.items()) + " s")
+    host_runs = args.runs if args.host_runs is None else args.host_runs
+    if host_runs and "native" in cells:
+        host = host_pipeline_s(ds, host_runs)
+        cells["native"]["record"]["host_pipeline_cached_s"] = host
+        print("host pipeline on the cached native partition, densify / quantize / pack in: "
+              + "; ".join(f"{k} " + " / ".join(f"{v:.2f}" for v in vs) for k, vs in host.items()) + " s")
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
     for m, c in cells.items():

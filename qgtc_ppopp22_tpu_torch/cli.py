@@ -7,11 +7,11 @@ Usage mirrors the reference (``main_qgtc.py:21-41``)::
         [--mode step|fused|mega] [--quant-in-loop] [--zerotile_jump] \
         [--timing-split] [--sync-every-epoch] [--use-pp] [--bucket-rows N] \
         [--partition-method auto|native|bfs|rcm] [--cache-dir D] \
-        [--json-out F] [--profile-dir D]
+        [--json-out F] [--profile-dir D] [--weights CHECKPOINT.npz]
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --regular \
         [--run_GIN] [--resident] [--mode step|fused|mega] [--eval-accuracy]
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --sparse \
-        [--run_GIN] [--eval-accuracy]
+        [--run_GIN] [--eval-accuracy] [--weights CHECKPOINT.npz]
 
 ``--use_QGTC`` (the default engine) runs the quantized engine:
 ``--mode step`` (default) one GEMM chain per batch, ``--mode fused``
@@ -49,13 +49,19 @@ batcher's ``precalc``: twice as wide), for either cluster engine.
 library builds, else BFS, and the record names the one that ran
 (``partition_method``); partition lists are cached under ``--cache-dir``.
 ``--profile-dir`` writes a ``torch.profiler`` trace of the timed epochs.
+``--weights F`` deploys a QAT checkpoint (``models/train.save_checkpoint``,
+either package's npz) instead of seeded weights, in any quantized engine:
+the checkpoint sets the model, the bit width (the batcher's too), the hidden
+width, the layer count and the shifts, and the record names it.
+``--eval-accuracy`` takes the logits from the engine ``--mode`` chose (step,
+fused or mega; quant-in-loop: the step engine's, the same integers).
 
 Prints ``Avg. Epoch: <ms> ms`` as the reference does
 (``main_qgtc.py:157-159``), then one JSON record, with
 ``launch_sync_ms`` (all epochs launched, one synchronize, divided; 0
 under ``--sync-every-epoch``), also appended to ``--json-out``. The JAX
-package's ``--weights`` and ``--mesh`` are not ported yet: they stop with a
-"not yet ported" error instead of being ignored.
+package's ``--mesh`` is not ported yet: it stops with a "not yet ported"
+error instead of being ignored.
 """
 
 from __future__ import annotations
@@ -73,10 +79,11 @@ import torch
 
 from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
 from qgtc_ppopp22_tpu_torch.graph.datasets import DEFAULT_PSIZE
+from qgtc_ppopp22_tpu_torch.models.train import load_checkpoint
 from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine, SparseEngine
 from qgtc_ppopp22_tpu_torch.utils.metrics import write_json_line
 
-NOT_PORTED = ("--weights", "--mesh")
+NOT_PORTED = ("--mesh",)
 
 
 class _NotPorted(argparse.Action):
@@ -151,6 +158,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append the JSON record to this file")
     p.add_argument("--profile-dir", type=str, default=None,
                    help="write a torch.profiler trace of the timed epochs into this directory")
+    p.add_argument("--weights", type=str, default=None,
+                   help="deploy a QAT checkpoint (models/train.py save_checkpoint, either "
+                        "package's) instead of seeded weights; it sets the model, bit width, "
+                        "hidden width, layers and shifts")
     p.add_argument("--rnd_seed", type=int, default=3)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the engine runs on (never changed "
@@ -179,6 +190,15 @@ def main(argv=None) -> int:
         f"dim {ds.feat_dim}, {ds.num_classes} classes"
     )
     timed = dict(n_epochs=args.n_epochs, sync_every_epoch=args.sync_every_epoch)
+    model = "gin" if args.run_GIN else "gcn"
+    bit_width, hidden, num_layers = args.bit_width, args.hidden, args.num_layers
+    ck_ws = shifts = None
+    if args.weights:
+        # the checkpoint is authoritative for the model and its quantization
+        ck_ws, shifts, ck_cfg, model = load_checkpoint(args.weights)
+        bit_width, hidden, num_layers = ck_cfg.bit_width, ck_cfg.hidden, ck_cfg.num_layers
+        print(f"loaded checkpoint: {model}, {bit_width}-bit, hidden={hidden}, layers={num_layers}, "
+              f"shifts={shifts}")
     if args.sparse:
         # JAX cli.py:128-142: the flags the full-graph engine does not read
         for flag, name in ((args.zerotile_jump, "--zerotile_jump"), (args.use_pp, "--use-pp"),
@@ -188,14 +208,13 @@ def main(argv=None) -> int:
             if flag:
                 print(f"warning: {name} has no effect with --sparse (full-graph CSR engine)",
                       file=sys.stderr)
-        model = "gin" if args.run_GIN else "gcn"
-        eng = SparseEngine(ds, model=model, bit_width=args.bit_width, hidden=args.hidden,
-                           num_layers=args.num_layers, seed=args.rnd_seed, device=device)
+        eng = SparseEngine(ds, model=model, bit_width=bit_width, hidden=hidden, num_layers=num_layers,
+                           seed=args.rnd_seed, shifts=shifts, float_weights=ck_ws, device=device)
         with _profiled(args.profile_dir, device):
             stats = eng.run_epochs(**timed)
-        record = dict(dataset=ds.name, bit_width=args.bit_width, model=model, engine="sparse-full-graph",
+        record = dict(dataset=ds.name, bit_width=bit_width, model=model, engine="sparse-full-graph",
                       n_epochs=args.n_epochs, sync_every_epoch=args.sync_every_epoch, device=str(device),
-                      device_name=device_name)
+                      device_name=device_name, weights=args.weights)
         if args.eval_accuracy:
             _accuracy(record, eng.evaluate, eng.evaluate_f1, ds)
         return _emit(record, stats, args)
@@ -203,7 +222,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     psize = args.psize or DEFAULT_PSIZE.get(ds.name, 1500)
     batcher = ClusterBatcher(
-        ds, psize=psize, batch_size=args.batch_size, bit_width=args.bit_width,
+        ds, psize=psize, batch_size=args.batch_size, bit_width=bit_width,
         seed=args.rnd_seed, bucket_rows=args.bucket_rows, precalc=args.use_pp,
         partition_method=args.partition_method, cache_dir=args.cache_dir,
     )
@@ -228,13 +247,14 @@ def main(argv=None) -> int:
         evaluate = functools.partial(eng.evaluate, batcher, ds)
         evaluate_f1 = functools.partial(eng.evaluate_f1, batcher, ds)
     else:
-        model = "gin" if args.run_GIN else "gcn"
         eng = QGTCEngine(
             feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model=model,
-            bit_width=args.bit_width, hidden=args.hidden, num_layers=args.num_layers,
+            bit_width=bit_width, hidden=hidden, num_layers=num_layers,
             zerotile_jump=args.zerotile_jump, fmt=args.fmt, seed=args.rnd_seed,
-            device=device,
+            device=device, shifts=shifts,
         )
+        if ck_ws is not None:
+            eng.set_float_weights(ck_ws)
         with _profiled(args.profile_dir, device):
             if mode == "quant-in-loop":
                 stats = eng.run_epochs_quant_in_loop(batcher, **timed)
@@ -244,15 +264,18 @@ def main(argv=None) -> int:
                 stats = eng.run_epochs_fused(batcher, **timed)
             else:
                 stats = eng.run_epochs(batcher, resident=args.resident, **timed)
-        evaluate = functools.partial(eng.evaluate, batcher)
-        evaluate_f1 = functools.partial(eng.evaluate_f1, batcher)
+        # the logits of the engine that ran (quant-in-loop's equal the step engine's)
+        eval_mode = mode if mode in ("fused", "mega") else "step"
+        evaluate = functools.partial(eng.evaluate, batcher, mode=eval_mode)
+        evaluate_f1 = functools.partial(eng.evaluate_f1, batcher, mode=eval_mode)
     record = dict(
-        dataset=ds.name, bit_width=args.bit_width, model=model,
+        dataset=ds.name, bit_width=bit_width, model=model,
         engine=f"{'regular' if args.regular else 'qgtc'}-{mode}", fmt=args.fmt,
         psize=psize, batch_size=args.batch_size, n_epochs=args.n_epochs,
         zerotile_jump=args.zerotile_jump, resident=args.resident, mode=args.mode, mesh=None,
         use_pp=args.use_pp, bucket_rows=args.bucket_rows, partition_method=batcher.partition_method,
         sync_every_epoch=args.sync_every_epoch, device=str(device), device_name=device_name,
+        weights=args.weights,
     )
     if args.quant_in_loop:
         record["quant_in_loop"] = True
@@ -284,7 +307,8 @@ def _refuse_combinations(parser, args, mode: str) -> None:
     """Stop on a flag the chosen cluster engine would not honour."""
     if args.regular:
         for flag, name in ((args.zerotile_jump, "--zerotile_jump"), (args.fmt != "digits", "--fmt"),
-                           (args.quant_in_loop, "--quant-in-loop"), (args.timing_split, "--timing-split")):
+                           (args.quant_in_loop, "--quant-in-loop"), (args.timing_split, "--timing-split"),
+                           (args.weights, "--weights")):
             if flag:
                 parser.error(f"{name} is the quantized engine's option")
     if args.fmt != "digits" and mode != "step":

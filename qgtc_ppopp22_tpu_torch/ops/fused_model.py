@@ -36,7 +36,8 @@ below its padded width, JAX's test) the kernel runs the offset-signed
 single-plane chain: every operand one int8 plane of level - 128, one
 int8 pass per GEMM, exact rank-1 corrections (``csrc/fused_model_k1.cuh``),
 with the weights' planes and correction rows built by
-:func:`signed_weights`. Otherwise it splits the bytes into base-16
+:func:`signed_weights`; an engine builds the weights' operands once
+(:func:`pack_mega_weights`) and passes them to every launch. Otherwise it splits the bytes into base-16
 digits as it loads them and runs the digit chain. ``MegaPlan.form`` says which ("signed", "split" or
 "digits"). JAX's signed kernel also stores its ones-lane bookkeeping in
 the last padded logit column (``out_cols`` past ``cp - 8``); here every
@@ -394,6 +395,7 @@ def fused_model_epoch_plain(
     x_cols: Optional[int] = None,
     chunk_occ: Optional[torch.Tensor] = None,
     x_levels_bits: Optional[int] = None,
+    packed: Optional[MegaWeights] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version on any device: each batch's chain through
     ``packmm_plain`` / ``digitmm_plain``, with the blocks that a schedule
@@ -401,10 +403,13 @@ def fused_model_epoch_plain(
     (the flags are read directly, not through the compacted schedule).
     Levels-form X is split into digit planes first
     (:func:`levels_to_digits`): the integer chain is the same in every
-    form. Returns float32[B, pn, oc]."""
+    form. ``packed`` is checked as a launch checks it, then unused: the
+    chain reads ``ws``. Returns float32[B, pn, oc]."""
     _exclusive(blk_sched, chunk_occ, None)
     p = plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
              None if blk_sched is None else blk_sched.shape, x_levels_bits)
+    if packed is not None:
+        _check_packed(packed, ws, p.form, a_stack.device)
     if p.form != "digits":
         x_stack = levels_to_digits(x_stack, p)
     occ = None
@@ -436,6 +441,53 @@ def _weights_blob(planes: Sequence[torch.Tensor]) -> tuple:
     return torch.cat(flats), offs
 
 
+@dataclasses.dataclass(frozen=True)
+class MegaWeights:
+    """K1's weight operands, built once by :func:`pack_mega_weights`: every
+    weight's digit planes (``form`` ``"digits"``, which the split chain
+    reads too) or its offset-signed plane (``"signed"``) in one int8
+    buffer at byte offsets ``offs``; for the signed form also every
+    weight's correction row in one int32 buffer at element offsets
+    ``c_offs``. ``widths``: per weight (rows, cols, padded rows, padded
+    cols, digit planes), which a launch checks."""
+
+    form: str
+    blob: torch.Tensor
+    offs: List[int]
+    corr: Optional[torch.Tensor]
+    c_offs: List[int]
+    widths: List[tuple]
+
+
+def _weight_widths(ws: Sequence[DigitTensor]) -> List[tuple]:
+    return [(*w.shape, w.padded_rows, w.padded_cols, w.ndigits) for w in ws]
+
+
+def pack_mega_weights(ws: Sequence[DigitTensor], form: str) -> MegaWeights:
+    """K1's weight operands for launches of ``form`` (``MegaPlan.form``:
+    ``"digits"``, ``"split"`` or ``"signed"``), on the weights' device.
+    Weights do not change between epochs, so an engine builds this once and
+    passes it to every launch as ``packed=``: the JAX kernel's host-side
+    weight prep, amortized like the reference's out-of-loop weight packing
+    (JAX ``ops/fused_model.py:490-516``, ``main_qgtc.py:108-110``)."""
+    if form == "signed":  # one plane per operand
+        planes, corrs = signed_weights(ws)
+        blob, offs = _weights_blob(planes)
+        c_offs = np.cumsum([0] + [c.numel() for c in corrs[:-1]]).tolist()
+        return MegaWeights("signed", blob, offs, torch.cat(corrs), c_offs, _weight_widths(ws))
+    blob, offs = _weights_blob([w.digits for w in ws])
+    return MegaWeights("digits", blob, offs, None, [0] * len(ws), _weight_widths(ws))
+
+
+def _check_packed(packed: MegaWeights, ws: Sequence[DigitTensor], form: str, device: torch.device) -> None:
+    """``packed`` must be the operands of ``ws`` for a launch of ``form`` on
+    ``device``: its form, every weight's widths and its device."""
+    want = "signed" if form == "signed" else "digits"
+    if (packed.form, packed.widths, packed.blob.device) != (want, _weight_widths(ws), device):
+        raise ValueError(f"packed weights of form {packed.form!r}, widths {packed.widths} on "
+                         f"{packed.blob.device}; this launch needs {want!r}, {_weight_widths(ws)} on {device}")
+
+
 def fused_model_epoch(
     a_stack: torch.Tensor,  # int32[B, pn/32, pn] M-packed 1-bit adjacency
     x_stack: torch.Tensor,  # int8[B, nd_x, pn, xp] digits, or [B, 1, pn, xp] levels
@@ -450,6 +502,7 @@ def fused_model_epoch(
     chunk_occ: Optional[torch.Tensor] = None,
     resident_a: Optional[bool] = None,
     unpack_once: Optional[bool] = None,
+    packed: Optional[MegaWeights] = None,
     _plan: Optional[K1Plan] = None,
 ) -> torch.Tensor:
     """The whole model over every stacked batch in one kernel launch.
@@ -465,9 +518,12 @@ def fused_model_epoch(
     (:func:`chunk_occ_sched`), exclusive with one.
     ``resident_a`` (None, True or False) is the same launch: on this card
     A is read from device memory or L2 either way; ``blk_sched`` with
-    ``False`` is refused, as JAX refuses it. ``_plan`` forces a launch
-    (:func:`fused_model_plan`'s record; tests only); on the CPU it is
-    checked against the shape and the plain version runs."""
+    ``False`` is refused, as JAX refuses it. ``packed``: the weights'
+    operands from :func:`pack_mega_weights`, built here when absent; one
+    of another form, other widths or another device raises ``ValueError``.
+    ``_plan`` forces a launch (:func:`fused_model_plan`'s record; tests
+    only); on the CPU it is checked against the shape and the plain version
+    runs."""
     global LAUNCHES, LEVELS_LAUNCHES
     _refuse_unported(unpack_once)
     _exclusive(blk_sched, chunk_occ, resident_a)
@@ -476,11 +532,15 @@ def fused_model_epoch(
             _check_forced(_plan, plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
                                       None if blk_sched is None else blk_sched.shape, x_levels_bits), model)
         return fused_model_epoch_plain(a_stack, x_stack, ws, out_bits, model, shifts,
-                                       out_cols, blk_sched, x_cols, chunk_occ, x_levels_bits)
+                                       out_cols, blk_sched, x_cols, chunk_occ, x_levels_bits, packed)
     p = plan(a_stack.shape, x_stack.shape, ws, out_bits, model, shifts, out_cols,
              None if blk_sched is None else blk_sched.shape, x_levels_bits)
     kp = fused_model_plan(p, model) if _plan is None else _check_forced(_plan, p, model)
     dev = a_stack.device
+    if packed is None:
+        packed = pack_mega_weights(ws, p.form)
+    else:
+        _check_packed(packed, ws, p.form, dev)
     if chunk_occ is not None:  # compacted on the card, into the launch's schedule
         blk_sched = chunk_occ_sched(chunk_occ.to(dev), p.B, p.pn, p.chunk)
         p = dataclasses.replace(p, nj=blk_sched.shape[2] - 1)
@@ -489,16 +549,7 @@ def fused_model_epoch(
         if t.device != dev:
             raise ValueError(f"operands on {dev} and {t.device} ({name})")
     n = len(ws)
-    corr, c_offs = None, [0] * n
-    nd_w, nd_h = p.nd_w, p.nd_h
-    if p.form == "signed":  # one plane per operand
-        planes, corrs = signed_weights(ws)
-        blob, offs = _weights_blob(planes)
-        corr = torch.cat(corrs)
-        c_offs = np.cumsum([0] + [c.numel() for c in corrs[:-1]]).tolist()
-        nd_w = nd_h = 1
-    else:
-        blob, offs = _weights_blob([w.digits for w in ws])
+    nd_w, nd_h = (1, 1) if p.form == "signed" else (p.nd_w, p.nd_h)  # the signed chain: one plane each
     hw = max(p.widths)
     # the hidden planes P0 / P1, transposed: [B][2][nd_h][hw][pn]
     scratch = torch.empty((p.B, 2, nd_h, hw, p.pn), dtype=torch.int8, device=dev)
@@ -509,7 +560,7 @@ def fused_model_epoch(
             int(model == "gin"), out_bits, p.oc, p.chunk, p.nj, hw, x_form, p.x_bits,
             kp.rows, kp.cl, kp.stages, kp.smem, kp.depth]
     for l, w in enumerate(ws):
-        meta += [w.padded_rows, w.padded_cols, p.widths[l], offs[l], c_offs[l]]
+        meta += [w.padded_rows, w.padded_cols, p.widths[l], packed.offs[l], packed.c_offs[l]]
     meta += sh
     meta_c = (ctypes.c_int * len(meta))(*meta)
     sched = None
@@ -521,7 +572,7 @@ def fused_model_epoch(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.qgtc_fused_model(
-            out.data_ptr(), a, x, blob.data_ptr(), None if corr is None else corr.data_ptr(),
+            out.data_ptr(), a, x, packed.blob.data_ptr(), None if packed.corr is None else packed.corr.data_ptr(),
             None if sched is None else sched.data_ptr(), scratch.data_ptr(),
             meta_c, len(meta), stream,
         )

@@ -178,8 +178,9 @@ class QGTCEngine(_Engine):
     ``fmt``: ``'digits'`` (packed adjacency x digit planes, the step,
     fused and mega engines) or ``'bits'`` (bit planes throughout, the reference's
     bit-serial form; step engine only). Weights are drawn from ``torch.Generator().manual_seed(seed)``;
-    assign ``self.weights`` (e.g. from ``models.qmodels.weights_from_jax``)
-    to run other weights.
+    :meth:`set_float_weights` runs other float weights (trained ones, a
+    checkpoint's), and assigning ``self.weights`` (e.g. from
+    ``models.qmodels.weights_from_jax``) other packed ones.
 
     ``shifts``: per-GEMM requantize shifts in ``qgcn_forward`` /
     ``qgin_forward`` order (None: the reference's unscaled requantize),
@@ -230,10 +231,18 @@ class QGTCEngine(_Engine):
             in_dim=feat_dim, hidden=hidden, out_dim=num_classes,
             bit_width=bit_width, num_layers=num_layers,
         )
-        self.float_weights = init_weights(torch.Generator().manual_seed(seed), self.cfg)
-        self.weights = [w.to(self.device)
-                        for w in pack_weights(self.float_weights, bit_width, fmt=fmt)]
+        self.set_float_weights(init_weights(torch.Generator().manual_seed(seed), self.cfg))
         self._fwd = qgcn_forward if model == "gcn" else qgin_forward
+
+    def set_float_weights(self, float_weights: Sequence[torch.Tensor], quant_bits: Optional[int] = None) -> None:
+        """Run ``float_weights`` (CPU float32 tensors, e.g. trained by
+        ``models.train`` or read by ``load_checkpoint``): kept as
+        ``float_weights``, quantized and packed in the engine's format onto
+        its device as ``weights``. ``quant_bits`` (default ``bit_width``): the
+        weights' quantization grid (``pack_weights``)."""
+        self.float_weights = list(float_weights)
+        self.weights = [w.to(self.device) for w in pack_weights(self.float_weights, self.bit_width, fmt=self.fmt,
+                                                                quant_bits=quant_bits)]
 
     # -- single batch ---------------------------------------------------
 
@@ -455,7 +464,9 @@ class QGTCEngine(_Engine):
         each bucket's choices in ``self.mega_buckets``: ``form`` is the
         kernel's (``MegaPlan.form``), ``"signed"`` or ``"split"`` for 5-8-bit
         features, which cross as one plane of byte levels (JAX
-        ``runtime.py:504-516``), else ``"digits"``.
+        ``runtime.py:504-516``), else ``"digits"``. The weights' operands
+        (:func:`fused_model.pack_mega_weights`) are built here once for
+        each form the buckets take, and every launch is given them.
 
         ``resident_a`` is JAX's residency tier (``runtime.py:531-613``):
         ``False`` (streamed A) never takes the compacted block schedule and
@@ -470,6 +481,7 @@ class QGTCEngine(_Engine):
         ws, dev, bw = self.weights, self.device, self.bit_width
         levels = num_digits(bw) == 2
         staged, self.mega_buckets = [], []
+        prepared: dict = {}  # K1's weight operands, built once for each form the buckets take
         for (pn, feat), idx, a_np, x_np, kidx, kcnt in self._fused_groups(batcher):
             bs = [batcher.batches[i] for i in idx]
             B, xshape = len(idx), bs[0].bit_X.shape
@@ -493,6 +505,9 @@ class QGTCEngine(_Engine):
                 staged.append((idx, self._capture(self._fused_bucket(bs, a_np, x_np, kidx, kcnt))))
                 continue
             info["form"] = geo.form
+            signed = geo.form == "signed"
+            if signed not in prepared:
+                prepared[signed] = fused_model.pack_mega_weights(ws, geo.form)
             a_stack = a_np[:, 0].to(dev).contiguous()
             x_stack = torch.empty(x_shape, dtype=torch.int8, device=dev)
             for i in range(0, B, 16):  # bounds the unpack intermediate
@@ -527,7 +542,7 @@ class QGTCEngine(_Engine):
                 fused_model.fused_model_epoch, a_stack, x_stack, ws, self.clamp_bits,
                 model=self.model, shifts=self.shifts, out_cols=self.cfg.out_dim,
                 blk_sched=sched, x_cols=self.cfg.in_dim,
-                x_levels_bits=bw if levels else None, **tier,
+                x_levels_bits=bw if levels else None, packed=prepared[signed], **tier,
             )))
         return staged
 
@@ -564,24 +579,36 @@ class QGTCEngine(_Engine):
 
     # -- accuracy -------------------------------------------------------
 
-    def evaluate(self, batcher: ClusterBatcher, labels: np.ndarray) -> float:
-        """Masked node-classification accuracy over all batches."""
+    def _real_logits(self, batcher: ClusterBatcher, mode: str):
+        """(batch, logits [num_nodes, num_classes]) of every batch, the
+        logits from ``mode``'s engine: ``"step"`` (:meth:`forward_all`),
+        ``"fused"`` (one captured epoch) or ``"mega"`` (one ``fused_model``
+        launch a bucket, :meth:`_mega_logits`)."""
+        engines = {"step": self.forward_all, "fused": self._fused_logits, "mega": self._mega_logits}
+        if mode not in engines:
+            raise ValueError(f"unknown mode {mode!r}: {sorted(engines)}")
+        for batch, logits in zip(batcher.batches, engines[mode](batcher)):
+            yield batch, logits[: batch.num_nodes, : self.cfg.out_dim]
+
+    def evaluate(self, batcher: ClusterBatcher, labels: np.ndarray, mode: str = "step") -> float:
+        """Masked node-classification accuracy over all batches, the logits
+        from ``mode``'s engine (:meth:`_real_logits`)."""
         correct = total = 0
-        for batch, logits in zip(batcher.batches, self.forward_all(batcher)):
-            pred = logits[: batch.num_nodes].argmax(dim=1).cpu().numpy()
+        for batch, logits in self._real_logits(batcher, mode):
+            pred = logits.argmax(dim=1).cpu().numpy()
             correct += int((pred == labels[batch.nodes]).sum())
             total += batch.num_nodes
         return correct / max(total, 1)
 
-    def evaluate_f1(self, batcher: ClusterBatcher, multilabels: np.ndarray) -> dict:
+    def evaluate_f1(self, batcher: ClusterBatcher, multilabels: np.ndarray, mode: str = "step") -> dict:
         """Multilabel micro / macro F1 (reference ``calc_f1`` /
-        ``evaluate``, ``utils.py:43-60``, used for ppi). The engine's
-        logits are unsigned integers, so the reference's threshold at 0
-        becomes the per-class mean logit (``_threshold_f1``), as in the
-        JAX engine."""
+        ``evaluate``, ``utils.py:43-60``, used for ppi), the logits from
+        ``mode``'s engine. The engine's logits are unsigned integers, so
+        the reference's threshold at 0 becomes the per-class mean logit
+        (``_threshold_f1``), as in the JAX engine."""
         rows, labs = [], []
-        for batch, logits in zip(batcher.batches, self.forward_all(batcher)):
-            rows.append(logits[: batch.num_nodes].cpu().numpy())
+        for batch, logits in self._real_logits(batcher, mode):
+            rows.append(logits.cpu().numpy())
             labs.append(multilabels[batch.nodes])
         return _threshold_f1(np.concatenate(rows), np.concatenate(labs))
 

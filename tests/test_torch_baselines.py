@@ -402,9 +402,10 @@ def test_cli_eval_accuracy_on_ppi(tmp_path, monkeypatch, capsys, engine):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--mode", "fused", "--weights", "w.npz"], "not yet ported"),
+    (["--mode", "fused", "--mesh", "2,1"], "not yet ported"),
     (["--regular", "--zerotile_jump", "--mode", "mega"], "quantized engine"),
     (["--regular", "--resident", "--mode", "mega"], "--resident"),
+    (["--regular", "--weights", "w.npz", "--mode", "mega"], "quantized engine"),
 ])
 def test_cli_refuses(capsys, argv, msg):
     with pytest.raises(SystemExit) as exc:
