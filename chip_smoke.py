@@ -208,7 +208,13 @@ Runs, and stops with a non-zero exit at the first failure:
    with the same accuracy; the accuracy ladder at 1 and 2 bits on a small
    Proteins stand-in, monotone, its exact emulation equal to the 1-bit row.
    Its seconds and accuracy are printed on a line of their own before the
-   card's line.
+   card's line. Then the (dp, sp) mesh engine (``parallel/``,
+   :func:`mesh_phase`) over this card repeated: C1 at (4, 1) (K1 a dp row)
+   and (2, 2) (the ring of K2 raw-int32 shard GEMMs, K3 updates), GIN and
+   8-bit on 4 batches at both, the dense digit-plane path in both
+   aggregation modes, the CLI's ``--mesh``, ``dryrun_multichip(4)`` and two
+   ``gloo`` processes on the card, each equal to the step engine bit for
+   bit and each path's launches counted.
 3. The kernel studies through the probe modules' entry points, launch
    counts reset just before and each probe kernel launched: P2's three
    tables (bytes in the TPU's interpret-mode order, the fragments in the
@@ -231,6 +237,9 @@ Runs, and stops with a non-zero exit at the first failure:
    (quant-in-loop), B2 (the baseline's captured fused loop) and B3 (its
    mega mode), three runs of 20 epochs each in turns, each beside its
    epoch's device time (a step epoch's kernels, a replay's, K5's launch);
+   E3 beside the mesh at (1, 1), (4, 1) and the ring at (2, 2), three runs
+   each in turns, and K2's raw-int32 call at a ring shard's shape beside
+   plain (:func:`mesh_timing`);
    and the device time of each kernel beside its plain version at the
    slice's shapes (torch.profiler), with ``torch._int_mm`` on the same
    operands as the library yardstick of packmm, digitmm and bitmm, each
@@ -271,7 +280,8 @@ is the larger of its bytes (inputs read once, outputs written once) over
 int8, 989 TFLOP/s bf16); bitmm is charged 2 M N K int8 operations per
 pair of base-16 digits on the logical shapes (the data sheet gives no
 one-bit rate) and the bytes of A's and B's real columns, and the work its
-planned grid does is printed beside. The fifth line from the end is ``qat: {...}`` (the QAT
+planned grid does is printed beside. The sixth line from the end is ``mesh: {...}`` (the mesh
+phase's seconds and timings), the fifth ``qat: {...}`` (the QAT
 phase's seconds, epochs and accuracy), the third the card's name and power
 limit, the second ``{"kernels": [...]}``; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -410,6 +420,226 @@ def qat_phase(dev, ds, batcher, cli_argv, root) -> dict:
     return dict(seconds=time.perf_counter() - t0, train_seconds=train_s, epochs=QAT_EPOCHS, accuracy=acc,
                 shifts=shifts, launches=launches,
                 ladder=[{k: r[k] for k in ("bits", "accuracy", "winner", "emulated")} for r in rows])
+
+
+MESH_BATCHES = 4  # the mesh phase's GIN, 8-bit and dense-path gates
+
+
+def mesh_phase(dev, ds, batcher, batcher8, sh8, step, step8, gin_step, root) -> dict:
+    """The (dp, sp) mesh engine (``parallel/``) on C1, every mesh over
+    ``dev`` repeated (one GPU runs every shard), each gate a hard failure:
+
+    (a) ``MeshEngine`` at dp 4, sp 1 on C1's batches: every bucket's mode
+        ``mega`` (one K1 launch a dp row), logits equal to the step engine's
+        (``step``) bit for bit on every batch over the real extents, read
+        after the previous epoch's outputs were filled with NaN and freed;
+    (b) dp 2, sp 2: every bucket ``ring`` (K2 raw int32 a rotation, K3 the
+        updates), equal likewise;
+    (c) GIN (hidden 64, ``gin_step``) and the 8-bit GCN with C1-8's shifts
+        (``batcher8``, ``sh8``, ``step8``) on ``MESH_BATCHES`` batches at (4,
+        1) and (2, 2), equal likewise;
+    (d) the dense digit-plane path: ``dp_sp_epoch_step`` at (2, 2), ring
+        and gather aggregation, on ``MESH_BATCHES`` batches (two copies a
+        call), equal to the step engine;
+    (e) the CLI with ``--mesh 1,1`` (distinct GPUs) and ``--mesh 2,2`` on
+        ``dev`` repeated: exit 0, the record's engine and modes;
+        ``entry.dryrun_multichip(4, [dev] * 4)`` passes;
+    (f) two processes of ``parallel/multihost_worker.py`` on ``dev``
+        (``gloo``), each at (dp 2, sp 1), K1 a dp row, and at (dp 2, sp 2),
+        the ring: each process's gathered logits equal the single-process
+        engine's, every bucket in its mesh's mode, the mesh's kernels
+        launched.
+
+    Each gate's launches are counted from 0 just before it and read just
+    after; a kernel of the path launched no time fails. Returns the launches
+    and seconds."""
+    import subprocess
+    import socket
+    from types import SimpleNamespace
+
+    import torch
+
+    from qgtc_ppopp22_tpu_torch import cli
+    from qgtc_ppopp22_tpu_torch.entry import dryrun_multichip
+    from qgtc_ppopp22_tpu_torch.ops import digitmm, fused_model, packmm
+    from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack, to_digit_tensor
+    from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, packed_levels
+    from qgtc_ppopp22_tpu_torch.parallel import MeshEngine, dp_sp_epoch_step, make_mesh
+
+    t0 = time.perf_counter()
+    one = torch.device(dev.type, 0) if dev.type == "cuda" else dev
+    devs4 = [one] * 4
+    ncls = ds.num_classes
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def counts():
+        return {"fused_model": fused_model.LAUNCHES, "packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES}
+
+    def zero():
+        fused_model.LAUNCHES = packmm.LAUNCHES = digitmm.LAUNCHES = 0
+
+    def check(what, eng, bt, refs):
+        """One epoch whose outputs are filled with NaN and freed, then the
+        counted one, every real batch against ``refs``; its launches."""
+        eng.stage(bt)
+        outs = eng._epoch()
+        for o in outs:
+            for row in o.parts:
+                for part in row:
+                    part.fill_(float("nan"))
+        del outs
+        sync()
+        zero()
+        got = eng.forward_batches(bt)
+        sync()
+        n = counts()
+        for i, (b, g, r) in enumerate(zip(bt.batches, got, refs)):
+            if g.shape != (b.num_nodes, ncls) or not torch.equal(g, r[: b.num_nodes, :ncls].cpu()):
+                raise AssertionError(f"mesh {what}: batch {i} != the step engine's logits")
+        padded = sum(s.padded for s in eng._staged)
+        layers, sp = eng.cfg.num_layers, eng.sp
+        if eng.sp == 1:
+            want = {"fused_model": eng.dp * len(eng._staged), "packmm": 0, "digitmm": 0}
+            if eng.modes != ["mega"] * len(eng._staged) and not all(
+                    s.info["fallback"] for s in eng._staged if s.mode == "ring"):
+                raise AssertionError(f"mesh {what}: modes {eng.modes}")
+            if "ring" in eng.modes:
+                want = None
+        else:
+            want = {"fused_model": 0, "packmm": padded * layers * sp * sp, "digitmm": padded * layers * sp}
+            if eng.modes != ["ring"] * len(eng._staged):
+                raise AssertionError(f"mesh {what}: modes {eng.modes}")
+        if (want is not None and n != want) or not any(n.values()):
+            raise AssertionError(f"mesh {what}: launches {n}, want {want}")
+        return n
+
+    launches = {}
+    few = SimpleNamespace(batches=batcher.batches[:MESH_BATCHES], bit_width=2)
+    few8 = SimpleNamespace(batches=batcher8.batches[:MESH_BATCHES], bit_width=8)
+    for dp, sp in ((4, 1), (2, 2)):
+        kw = dict(dp=dp, sp=sp, seed=SEED, devices=devs4)
+        launches[f"C1 ({dp},{sp})"] = check(f"C1 ({dp},{sp})", MeshEngine(batcher.feat_dim, ncls, **kw),
+                                            batcher, step)
+        launches[f"GIN ({dp},{sp})"] = check(f"GIN ({dp},{sp})", MeshEngine(batcher.feat_dim, ncls, model="gin",
+                                                                            **kw), few, gin_step)
+        launches[f"8-bit ({dp},{sp})"] = check(f"8-bit ({dp},{sp})", MeshEngine(
+            batcher8.feat_dim, ncls, bit_width=8, shifts=sh8, **kw), few8, step8)
+    # (d) the dense digit-plane path, ring and gather
+    ws = MeshEngine(batcher.feat_dim, ncls, seed=SEED, devices=[one]).weights
+    mesh = make_mesh(2, 2, devs4)
+    zero()
+    for i, b in enumerate(batcher.batches[:MESH_BATCHES]):
+        pn = b.padded_nodes
+        a_d = digit_pack(packed_levels(PackedTensor(words=b.a_words.to(one), shape=(pn, pn), bits=1)), 1).digits
+        x = to_digit_tensor(b.bit_X.to(one))
+        for mode in ("ring", "gather"):
+            out = dp_sp_epoch_step(mesh, torch.stack([a_d] * 2), torch.stack([x.digits] * 2), ws, 2, x_bits=2,
+                                   agg_mode=mode, x_cols=x.shape[1]).gather(one)
+            for o in out:
+                if not torch.equal(o[: b.num_nodes, :ncls], step[i][: b.num_nodes, :ncls]):
+                    raise AssertionError(f"dense mesh path ({mode}): batch {i} != the step engine's logits")
+    sync()
+    launches["dense (2,2)"] = counts()
+    if launches["dense (2,2)"]["digitmm"] == 0:
+        raise AssertionError(f"dense mesh path: launches {launches['dense (2,2)']}")
+    # (e) the CLI and the dry run
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        jout = os.path.join(tmp, "mesh.jsonl")
+        base = ["--dataset", "ppi", "--dataset-scale", "0.02", "--psize", "40", "--batch-size", "4", "--n-epochs", "2",
+                "--json-out", jout, "--cache-dir", os.path.join(tmp, "cache")]
+        runs = [(["--mesh", "1,1", "--device", str(dev)], "qgtc-mesh-dp1-sp1"),
+                (["--mesh", "2,2", "--device", str(one)], "qgtc-mesh-dp2-sp2")]
+        for flags, engine in runs:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(base + flags)
+            if rc != 0:
+                raise AssertionError(f"cli {flags}: exit {rc}")
+        with open(jout) as f:
+            records = [json.loads(line) for line in f]
+        if [r["engine"] for r in records] != [e for _, e in runs] or records[0]["mesh_modes"] != \
+                ["mega"] * len(records[0]["mesh_modes"]) or set(records[1]["mesh_modes"]) != {"ring"} \
+                or any(r["avg_epoch_ms"] <= 0 for r in records):
+            raise AssertionError(f"cli --mesh: records {records}")
+    with contextlib.redirect_stdout(io.StringIO()) as dry:
+        dryrun_multichip(4, devs4)
+    if "dryrun_multichip ok: 4 devices" not in dry.getvalue():
+        raise AssertionError(f"dryrun_multichip: {dry.getvalue()}")
+    # (f) two processes on one device, gloo between them
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, "-m", "qgtc_ppopp22_tpu_torch.parallel.multihost_worker", str(r), "2",
+                               str(port), "--device", str(one)], cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    walls = []
+    for r, proc in enumerate(procs):
+        try:
+            out, _ = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        if proc.returncode != 0 or f"p{r}: MULTIHOST-OK" not in out or any(
+                f"p{r}: MESH-EPOCH-OK dp=2 sp={sp} " not in out for sp in (1, 2)):
+            raise AssertionError(f"two-process worker {r}: exit {proc.returncode}\n{out[-3000:]}")
+        walls.append(dict(re.findall(r"EPOCH-WALL dp=2 (sp=\d) ms=([0-9.]+)", out)))
+    return dict(launches=launches, seconds=time.perf_counter() - t0, worker_walls_ms=walls,
+                cli=[(r["engine"], r["mesh_modes"], r["avg_epoch_ms"]) for r in records])
+
+
+def mesh_timing(dev, batcher, eng, card, nb: int) -> dict:
+    """Host ms/epoch, in turns (3 runs): E3 (the mega engine, ``eng``), the
+    mesh at (1, 1) (the same K1 launches), at (4, 1) and the ring at (2, 2)
+    over ``dev`` repeated; every engine staged once. Then K2's raw-int32
+    call at a ring shard's shape (the first batch of the bucket with the
+    most batches, C1's pn 2560, shard 0's first column block: A[1280²]
+    1-bit words x H[1280 x 16] 2-bit) beside its
+    plain version, device time. Records, not gates."""
+    import torch
+
+    from qgtc_ppopp22_tpu_torch.ops import packmm
+    from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack
+    from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor
+    from qgtc_ppopp22_tpu_torch.parallel import MeshEngine
+    from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms
+
+    t0 = time.perf_counter()
+    one = torch.device(dev.type, 0) if dev.type == "cuda" else dev
+    feat, ncls = batcher.feat_dim, eng.cfg.out_dim
+    meshes = {"mesh (1,1)": MeshEngine(feat, ncls, seed=SEED, devices=None if dev.type == "cuda" else [dev]),
+              "mesh (4,1)": MeshEngine(feat, ncls, dp=4, seed=SEED, devices=[one] * 4),
+              "ring (2,2)": MeshEngine(feat, ncls, dp=2, sp=2, seed=SEED, devices=[one] * 4)}
+    fns = [fn for _, fn in eng._stage_mega(batcher)]
+    runs = {"E3": (lambda: [f() for f in fns], eng, 20)}
+    for k, m in meshes.items():
+        m.stage(batcher)
+        runs[k] = (m._epoch, m, 5 if k.startswith("ring") else 20)
+    host_ms = {k: [] for k in runs}
+    for _ in range(3):
+        for k, (fn, e, n) in runs.items():
+            host_ms[k].append(e._run_staged(fn, n, nb, False).avg_ms)
+    print("phase 3: mesh host ms/epoch, 3 runs each in turns (one GPU; (4,1) and (2,2) over cuda:0 repeated: "
+          "structure, not scaling): " + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in vs)
+                                                 for k, vs in host_ms.items()) + f" [{card}]")
+    bk = max(meshes["ring (2,2)"]._staged, key=lambda s: s.padded)  # C1's: pn 2560
+    blocks = bk.fn.args[1].parts[0][0]  # shard (0, 0)'s column blocks
+    rows = blocks.shape[-1]
+    a = PackedTensor(words=blocks[0, 0], shape=(rows, rows), bits=1)
+    g = torch.Generator().manual_seed(SEED)
+    h = digit_pack(torch.randint(0, 4, (rows, 16), generator=g).to(one), 2)
+    same = torch.equal(packmm.packmm_to_i32(a, h), packmm.packmm_plain(a, h, raw_i32=True))
+    if not same:
+        raise AssertionError("K2 raw int32 at the ring shard != plain")
+    dt = device_times_ms({"kernel": lambda: packmm.packmm_to_i32(a, h),
+                          "plain": lambda: packmm.packmm_plain(a, h, raw_i32=True)}, iters={"kernel": 50, "plain": 5})
+    nbytes = a.words.numel() * 4 + rows * 16 + rows * 16 * 4
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 3: K2 raw int32 at a ring shard of the pn {bk.pn} bucket (A[{rows}²] 1-bit words, "
+          f"{int((a.words != 0).sum())} nonzero words, x H[{rows}x16] 2-bit): kernel {dt['kernel'] * 1e3:.2f} us, plain {dt['plain'] * 1e3:.1f} us, "
+          f"bound {b_ms * 1e3:.3f} us (bytes); == plain [{card}]")
+    return dict(host_ms=host_ms, k2_i32_us=dt["kernel"] * 1e3, k2_i32_plain_us=dt["plain"] * 1e3,
+                seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -1721,6 +1951,15 @@ def main() -> int:
           f"shifts {qat['shifts']}; training {qat['train_seconds']:.1f} s of {qat['seconds']:.1f} s; ladder "
           f"{qat['ladder']} [{card}]")
 
+    # the (dp, sp) mesh engine on C1, every shard on this one card
+    mesh = mesh_phase(dev, ds, batcher, batcher8, sh8, logits, step8, gl, root)
+    print(f"phase 2: mesh engine (parallel/) at C1 over {dev} repeated: (4,1) every bucket mega, (2,2) every bucket "
+          f"ring, == the step engine bit for bit on all {nb} batches after a NaN fill; GIN (hidden 64) and 8-bit "
+          f"(shifts {sh8}) on {MESH_BATCHES} batches at both meshes ==; dense dp_sp_epoch_step ring and gather ==; "
+          f"CLI " + ", ".join(f"{e} {m} {ms:.3f} ms" for e, m, ms in mesh["cli"]) + "; dryrun_multichip(4) ok; two "
+          f"gloo processes on one device == the single-process engine (walls {mesh['worker_walls_ms']} ms); "
+          f"mesh launches {mesh['launches']} ({mesh['seconds']:.1f} s) [{card}]")
+
     # -- phase 3: timing ------------------------------------------------
     print(f"phase 3 starts {time.perf_counter() - start:.0f} s into the run")
     # the kernel studies through their entry points (the probe modules'
@@ -1802,6 +2041,7 @@ def main() -> int:
     print("phase 3: host ms/epoch, all epochs launched and one synchronize, 3 runs each in turns: "
           + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in vs) for k, vs in host_ms.items())
           + f" [{card}]")
+    mesh_times = mesh_timing(dev, batcher, eng, card, nb)
 
     def on_card(q, bits, packed=False):
         t = torch.from_numpy(q).to(dev)
@@ -2425,6 +2665,8 @@ def main() -> int:
          "library_ms": lib_ms.get(k)}
         for k, (src, rep_, counts) in sources.items()
     ]
+    print("mesh: " + json.dumps({"seconds": mesh["seconds"], "timing_seconds": mesh_times["seconds"],
+                                  "host_ms": mesh_times["host_ms"], "k2_i32_us": mesh_times["k2_i32_us"]}))
     print("qat: " + json.dumps({k: qat[k] for k in ("seconds", "train_seconds", "epochs", "accuracy")}))
     print(f"chip_smoke: {time.perf_counter() - start:.0f} s")
     print(card)  # as nvidia-smi prints it: name, power limit

@@ -28,6 +28,11 @@ Layers, from the entry point down:
   in ``csrc/``: ``packmm`` (packed 1-bit adjacency x digit planes),
   ``digitmm`` (digit planes x digit planes) and ``fused_model`` (the
   whole quantized model, and the whole baseline, per bucket).
+* ``parallel/``: the same engine on a (dp, sp) mesh of devices
+  (``MeshEngine``, ``--mesh``): batches over dp, each batch's adjacency
+  rows over sp with a ring of shard GEMMs; dp across processes
+  (``parallel/multihost.py``). ``entry.py``: the flagship step and the
+  multi-device dry run.
 * ``utils/``: device timing, the F1 metrics and the results writers.
 
 The package imports ``torch`` and never ``jax``. Kernels are compiled

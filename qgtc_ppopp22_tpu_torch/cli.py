@@ -12,6 +12,8 @@ Usage mirrors the reference (``main_qgtc.py:21-41``)::
         [--run_GIN] [--resident] [--mode step|fused|mega] [--eval-accuracy]
     python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --sparse \
         [--run_GIN] [--eval-accuracy] [--weights CHECKPOINT.npz]
+    python -m qgtc_ppopp22_tpu_torch.cli --dataset ogbn-arxiv --mesh DP,SP \
+        [--device cuda|cuda:0|cpu] [--run_GIN] [--zerotile_jump] [--eval-accuracy]
 
 ``--use_QGTC`` (the default engine) runs the quantized engine:
 ``--mode step`` (default) one GEMM chain per batch, ``--mode fused``
@@ -55,13 +57,22 @@ the checkpoint sets the model, the bit width (the batcher's too), the hidden
 width, the layer count and the shifts, and the record names it.
 ``--eval-accuracy`` takes the logits from the engine ``--mode`` chose (step,
 fused or mega; quant-in-loop: the step engine's, the same integers).
+``--mesh DP,SP`` runs the quantized model on a (dp, sp) mesh
+(``parallel/engine.MeshEngine``): batches over dp, each dp row running the
+whole-model kernel on its share at sp 1, the adjacency rows over sp with
+the ring of packed shard GEMMs at sp > 1 (``bucket_rows`` then rounds up to
+a multiple of 256 x sp). Its devices are ``cuda:0 ... cuda:DP*SP-1`` for
+``--device cuda``, else the one ``--device`` names, repeated (``cuda:0``:
+every shard on one GPU; ``cpu``). The flags it does not read
+(``--resident``, ``--mode``, ``--fmt``, ``--timing-split``,
+``--quant-in-loop``) draw a warning; ``--regular`` runs the baseline
+instead, as the JAX CLI does.
 
 Prints ``Avg. Epoch: <ms> ms`` as the reference does
 (``main_qgtc.py:157-159``), then one JSON record, with
 ``launch_sync_ms`` (all epochs launched, one synchronize, divided; 0
-under ``--sync-every-epoch``), also appended to ``--json-out``. The JAX
-package's ``--mesh`` is not ported yet: it stops with a "not yet ported"
-error instead of being ignored.
+under ``--sync-every-epoch``), also appended to ``--json-out``. A malformed ``--mesh`` stops with exit
+2 (``bad --mesh``).
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ import os
 import random
 import sys
 import time
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,19 +92,11 @@ import torch
 from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
 from qgtc_ppopp22_tpu_torch.graph.datasets import DEFAULT_PSIZE
 from qgtc_ppopp22_tpu_torch.models.train import load_checkpoint
+from qgtc_ppopp22_tpu_torch.parallel.engine import MeshEngine
 from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine, SparseEngine
 from qgtc_ppopp22_tpu_torch.utils.metrics import write_json_line
 
-NOT_PORTED = ("--mesh",)
-
-
-class _NotPorted(argparse.Action):
-    def __init__(self, option_strings, dest, **kwargs):
-        kwargs["nargs"] = "?"
-        super().__init__(option_strings, dest, **kwargs)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not yet ported to the PyTorch engine")
+NOT_PORTED = ()  # the JAX CLI's flags that this one refuses: none since --mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -163,11 +167,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "package's) instead of seeded weights; it sets the model, bit width, "
                         "hidden width, layers and shifts")
     p.add_argument("--rnd_seed", type=int, default=3)
+    p.add_argument("--mesh", type=str, default=None, metavar="DP,SP",
+                   help="run the packed engine over a (dp, sp) device mesh (parallel/engine.py): "
+                        "batches over dp (each dp row runs the whole-model kernel on its "
+                        "share), adjacency rows over sp (the ring of packed shard GEMMs); "
+                        "devices: distinct GPUs for --device cuda, else --device repeated")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the engine runs on (never changed "
                         "on its own)")
-    for flag in NOT_PORTED:
-        p.add_argument(flag, action=_NotPorted, help=argparse.SUPPRESS)
     return p
 
 
@@ -175,7 +182,8 @@ def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     mode = "quant-in-loop" if args.quant_in_loop else args.mode
-    if not args.sparse:  # the full-graph engine warns instead
+    mesh = _parse_mesh(parser, args.mesh)
+    if not args.sparse and not (mesh and not args.regular):  # these engines warn instead
         _refuse_combinations(parser, args, mode)
     random.seed(args.rnd_seed)
     np.random.seed(args.rnd_seed)
@@ -204,7 +212,8 @@ def main(argv=None) -> int:
         for flag, name in ((args.zerotile_jump, "--zerotile_jump"), (args.use_pp, "--use-pp"),
                            (args.regular, "--regular"), (args.resident, "--resident"),
                            (args.mode != "step", "--mode"), (args.quant_in_loop, "--quant-in-loop"),
-                           (args.timing_split, "--timing-split"), (args.fmt != "digits", "--fmt")):
+                           (args.timing_split, "--timing-split"), (args.fmt != "digits", "--fmt"),
+                           (args.mesh, "--mesh")):
             if flag:
                 print(f"warning: {name} has no effect with --sparse (full-graph CSR engine)",
                       file=sys.stderr)
@@ -221,9 +230,12 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     psize = args.psize or DEFAULT_PSIZE.get(ds.name, 1500)
+    bucket_rows = args.bucket_rows
+    if mesh and mesh[1] > 1:  # each sp shard holds whole 256-row pack groups (JAX cli.py:199-202)
+        bucket_rows = -(-bucket_rows // (256 * mesh[1])) * (256 * mesh[1])
     batcher = ClusterBatcher(
         ds, psize=psize, batch_size=args.batch_size, bit_width=bit_width,
-        seed=args.rnd_seed, bucket_rows=args.bucket_rows, precalc=args.use_pp,
+        seed=args.rnd_seed, bucket_rows=bucket_rows, precalc=args.use_pp,
         partition_method=args.partition_method, cache_dir=args.cache_dir,
     )
     print(
@@ -246,6 +258,28 @@ def main(argv=None) -> int:
                 stats = eng.run_epochs(batcher, ds, resident=args.resident, **timed)
         evaluate = functools.partial(eng.evaluate, batcher, ds)
         evaluate_f1 = functools.partial(eng.evaluate_f1, batcher, ds)
+    elif mesh:
+        # JAX cli.py:235-248: the flags the mesh engine does not read
+        for flag, name in ((args.resident, "--resident"), (args.mode != "step", "--mode"),
+                           (args.fmt != "digits", "--fmt"), (args.timing_split, "--timing-split"),
+                           (args.quant_in_loop, "--quant-in-loop")):
+            if flag:
+                print(f"warning: {name} has no effect with --mesh (the mesh engine picks "
+                      "mega-per-shard automatically)", file=sys.stderr)
+        n_dev = mesh[0] * mesh[1]
+        eng = MeshEngine(
+            feat_dim=batcher.feat_dim, num_classes=ds.num_classes, dp=mesh[0], sp=mesh[1], model=model,
+            bit_width=bit_width, hidden=hidden, num_layers=num_layers, seed=args.rnd_seed, shifts=shifts,
+            zerotile_jump=args.zerotile_jump,
+            devices=None if device.type == "cuda" and device.index is None else [device] * n_dev,
+        )
+        if ck_ws is not None:
+            eng.set_float_weights(ck_ws)
+        with _profiled(args.profile_dir, device):
+            stats = eng.run_epochs(batcher, **timed)
+        print(f"mesh dp={mesh[0]} sp={mesh[1]}: bucket modes {eng.modes}")
+        evaluate = functools.partial(eng.evaluate, batcher)
+        evaluate_f1 = functools.partial(eng.evaluate_f1, batcher)
     else:
         eng = QGTCEngine(
             feat_dim=batcher.feat_dim, num_classes=ds.num_classes, model=model,
@@ -272,14 +306,16 @@ def main(argv=None) -> int:
         dataset=ds.name, bit_width=bit_width, model=model,
         engine=f"{'regular' if args.regular else 'qgtc'}-{mode}", fmt=args.fmt,
         psize=psize, batch_size=args.batch_size, n_epochs=args.n_epochs,
-        zerotile_jump=args.zerotile_jump, resident=args.resident, mode=args.mode, mesh=None,
-        use_pp=args.use_pp, bucket_rows=args.bucket_rows, partition_method=batcher.partition_method,
+        zerotile_jump=args.zerotile_jump, resident=args.resident, mode=args.mode, mesh=args.mesh,
+        use_pp=args.use_pp, bucket_rows=bucket_rows, partition_method=batcher.partition_method,
         sync_every_epoch=args.sync_every_epoch, device=str(device), device_name=device_name,
         weights=args.weights,
     )
-    if args.quant_in_loop:
+    if mesh and not args.regular:
+        record["engine"], record["mesh_modes"] = f"qgtc-mesh-dp{mesh[0]}-sp{mesh[1]}", eng.modes
+    elif args.quant_in_loop:
         record["quant_in_loop"] = True
-    if mode == "mega":
+    elif mode == "mega":
         record["buckets"] = eng.mega_buckets
     if args.zerotile_jump:
         # the reference's tile counters (print_counter, kernel.h:17-28), a
@@ -287,7 +323,7 @@ def main(argv=None) -> int:
         processed, total = batcher.tile_counts()
         record["tiles_total"], record["tiles_processed"] = total, processed
         print(f"zero-tile: processed {processed}/{total} (jumped {1 - processed / max(total, 1):.1%})")
-    if args.timing_split:
+    if args.timing_split and not (mesh and not args.regular):
         # the split of the engine --mode chose (JAX cli.py:413-440)
         if mode == "step":
             half = max(args.n_epochs // 2, 2)
@@ -301,6 +337,20 @@ def main(argv=None) -> int:
     if args.eval_accuracy:
         _accuracy(record, evaluate, evaluate_f1, ds)
     return _emit(record, stats, args)
+
+
+def _parse_mesh(parser, text: Optional[str]) -> Optional[Tuple[int, int]]:
+    """``--mesh DP,SP`` -> (dp, sp); anything else stops with exit 2, as the
+    JAX CLI (``cli.py:193-198``)."""
+    if text is None:
+        return None
+    try:
+        dp, sp = (int(v) for v in text.split(","))
+    except ValueError:
+        dp = sp = 0
+    if dp < 1 or sp < 1:
+        parser.error(f"bad --mesh {text!r}; expected DP,SP")
+    return dp, sp
 
 
 def _refuse_combinations(parser, args, mode: str) -> None:

@@ -478,24 +478,17 @@ class QGTCEngine(_Engine):
         budget, JAX's VMEM probe) refuses it falls back too."""
         if self.fmt != "digits":
             raise ValueError("mega mode requires fmt='digits'")
-        ws, dev, bw = self.weights, self.device, self.bit_width
-        levels = num_digits(bw) == 2
         staged, self.mega_buckets = [], []
         prepared: dict = {}  # K1's weight operands, built once for each form the buckets take
-        for (pn, feat), idx, a_np, x_np, kidx, kcnt in self._fused_groups(batcher):
+        for (pn, _), idx, a_np, x_np, kidx, kcnt in self._fused_groups(batcher):
             bs = [batcher.batches[i] for i in idx]
-            B, xshape = len(idx), bs[0].bit_X.shape
-            x_shape = (B, 1 if levels else num_digits(bw), round_up(xshape[0], LANE),
-                       round_up(feat, LANE))
-            info = dict(pn=pn, batches=B, fallback=False, compact=False, chunk_occ=False,
+            info = dict(pn=pn, batches=len(idx), fallback=False, compact=False, chunk_occ=False,
                         resident_a=resident_a, skippable=None, form=None)
             self.mega_buckets.append(info)
+            weights_on, shards = (lambda _dev: self.weights), [(self.device, slice(None))]
             try:
-                geo = fused_model.plan(a_np[:, 0].shape, x_shape, ws, self.clamp_bits, self.model,
-                                       self.shifts, self.cfg.out_dim,
-                                       x_levels_bits=bw if levels else None)
-                if dev.type == "cuda":
-                    fused_model.fused_model_plan(geo, self.model)
+                geos = plan_mega_shards(bs, weights_on, shards, model=self.model, clamp_bits=self.clamp_bits,
+                                        shifts=self.shifts, cfg=self.cfg)
             except ValueError as e:
                 # Loudly: a silent fallback would turn a "mega" measurement
                 # into a fused-engine one.
@@ -504,45 +497,15 @@ class QGTCEngine(_Engine):
                 info["fallback"] = True
                 staged.append((idx, self._capture(self._fused_bucket(bs, a_np, x_np, kidx, kcnt))))
                 continue
-            info["form"] = geo.form
-            signed = geo.form == "signed"
-            if signed not in prepared:
-                prepared[signed] = fused_model.pack_mega_weights(ws, geo.form)
-            a_stack = a_np[:, 0].to(dev).contiguous()
-            x_stack = torch.empty(x_shape, dtype=torch.int8, device=dev)
-            for i in range(0, B, 16):  # bounds the unpack intermediate
-                d = planes_stack_to_digits(x_np[i:i + 16].to(dev), xshape, bw)
-                if levels:  # the 2 digit planes collapse to one plane of byte levels
-                    d = (d[:, :1].to(torch.int32) | (d[:, 1:].to(torch.int32) << 4)) \
-                        .to(torch.uint8).view(torch.int8)
-                x_stack[i:i + 16] = d
-            cb = fused_model.mega_colblock(pn)
-            occ = np.stack([mega_block_occ(b.a_words.numpy(), geo.chunk, cb) for b in bs])
-            info["skippable"] = float(1.0 - occ.mean())
-            zj = self.zerotile_jump
-            sched = chunk_occ = None
-            if resident_a is False:
-                # JAX's streaming tier: every skipped block saves its
-                # crossing, so the map is on at >= 30% skippable
-                if zj is True or (zj is None and info["skippable"] >= 0.30):
-                    chunk_occ = torch.from_numpy(occ).to(dev)
-                    info["chunk_occ"] = True
-            elif zj is True or (zj is None and info["skippable"] >= 0.45
-                                and pn >= 2048 and bw <= 4):
-                # The JAX engine's gate for its resident kernel
-                # (runtime.py:595-607)
-                sched = torch.from_numpy(np.stack([
-                    mega_block_sched(b.a_words.numpy(), geo.chunk, cb) for b in bs
-                ])).to(dev)
-                info["compact"] = True
+            st = stage_mega_shards(bs, a_np, x_np, weights_on, shards, geos, info, prepared, model=self.model,
+                                   shifts=self.shifts, cfg=self.cfg, zerotile_jump=self.zerotile_jump,
+                                   resident_a=resident_a)
             tier = {} if resident_a is None else dict(resident_a=resident_a)
-            if chunk_occ is not None:
-                tier["chunk_occ"] = chunk_occ
+            if st.chunk_occ[0] is not None:
+                tier["chunk_occ"] = st.chunk_occ[0]
             staged.append((idx, functools.partial(
-                fused_model.fused_model_epoch, a_stack, x_stack, ws, self.clamp_bits,
-                model=self.model, shifts=self.shifts, out_cols=self.cfg.out_dim,
-                blk_sched=sched, x_cols=self.cfg.in_dim,
-                x_levels_bits=bw if levels else None, packed=prepared[signed], **tier,
+                fused_model.fused_model_epoch, st.a[0], st.x[0], self.weights, self.clamp_bits,
+                blk_sched=st.blk_sched[0], packed=st.packed[0], **st.kw, **tier,
             )))
         return staged
 
@@ -964,3 +927,110 @@ def mega_block_sched(a_words: np.ndarray, chunk: int, cb: int) -> np.ndarray:
         out[c, 0] = len(js)
         out[c, 1:1 + len(js)] = js
     return out
+
+
+def mega_zero_tile_gate(zerotile_jump: Optional[bool], skippable: float, pn: int, bit_width: int,
+                        resident_a: Optional[bool]) -> Optional[str]:
+    """The zero-block schedule a K1 bucket takes, by the JAX engine's gates:
+    ``"chunk_occ"`` (its streaming tier, ``resident_a=False``: every skipped
+    block saves its crossing, so the occupancy map is on at >= 30%
+    skippable), ``"compact"`` (its resident kernel's gate,
+    ``runtime.py:595-607``: >= 45% skippable, pn >= 2048, <= 4 bits) or
+    None. ``zerotile_jump`` True forces the bucket's tier's schedule, False
+    forbids it."""
+    if resident_a is False:
+        if zerotile_jump is True or (zerotile_jump is None and skippable >= 0.30):
+            return "chunk_occ"
+        return None
+    if zerotile_jump is True or (zerotile_jump is None and skippable >= 0.45 and pn >= 2048
+                                 and bit_width <= 4):
+        return "compact"
+    return None
+
+
+@dataclasses.dataclass
+class MegaShards:
+    """One bucket staged for K1, split over devices: per shard its
+    ``fused_model_epoch`` operands (``a``, ``x``, ``blk_sched``,
+    ``chunk_occ``, ``packed``) on the shard's device, and ``kw``, the
+    keywords every shard's launch shares."""
+
+    a: List[torch.Tensor]
+    x: List[torch.Tensor]
+    blk_sched: List[Optional[torch.Tensor]]
+    chunk_occ: List[Optional[torch.Tensor]]
+    packed: list
+    kw: dict
+
+
+def plan_mega_shards(bs: Sequence[ClusterBatch], weights_on: Callable[[torch.device], list],
+                     shards: Sequence[Tuple[torch.device, slice]], *, model: str, clamp_bits: int, shifts,
+                     cfg: QModelConfig) -> list:
+    """K1's plan (:func:`fused_model.plan`) for each shard ``(device, batch
+    slice)`` of one shape bucket ``bs``. Raises ``ValueError`` where K1
+    refuses a shard (its geometry; on a CUDA device also its launch plan,
+    :func:`fused_model.fused_model_plan`) and nowhere else: that refusal is
+    what sends a bucket to an engine's fallback. ``weights_on(device)``
+    gives the weights on a device."""
+    bw = cfg.bit_width
+    pn, B, xshape = bs[0].padded_nodes, len(bs), bs[0].bit_X.shape
+    levels = num_digits(bw) == 2
+    x_shape = (1 if levels else num_digits(bw), round_up(xshape[0], LANE), round_up(xshape[1], LANE))
+    geos = []
+    for dev, sl in shards:
+        n = len(range(B)[sl])
+        geo = fused_model.plan((n, pn // 32, pn), (n,) + x_shape, weights_on(dev), clamp_bits, model, shifts,
+                               cfg.out_dim, x_levels_bits=bw if levels else None)
+        if dev.type == "cuda":
+            fused_model.fused_model_plan(geo, model)
+        geos.append(geo)
+    return geos
+
+
+def stage_mega_shards(bs: Sequence[ClusterBatch], a_words: torch.Tensor, x_planes: torch.Tensor,
+                      weights_on: Callable[[torch.device], list], shards: Sequence[Tuple[torch.device, slice]],
+                      geos: list, info: dict, prepared: dict, *, model: str, shifts, cfg: QModelConfig,
+                      zerotile_jump: Optional[bool], resident_a: Optional[bool]) -> MegaShards:
+    """Stage one shape bucket (``bs``, its stacked CPU ``a_words`` int32[B, 1,
+    pn/32, pn] and feature planes ``x_planes``) for K1, each shard ``(device,
+    batch slice)`` of ``shards`` on its device with its plan from
+    :func:`plan_mega_shards` (``geos``): the single-device mega engine
+    passes one shard, the mesh engine one per dp row. The zero-block
+    schedule is chosen once, over the whole bucket
+    (:func:`mega_zero_tile_gate`), and its rows go with their batches.
+    ``info`` (the bucket's record) gets the form, the skippable share and the
+    schedule; ``prepared`` caches K1's weight operands by (device, form);
+    ``weights_on(device)`` gives the weights on a device. 5-8-bit features
+    cross as one plane of byte levels (JAX ``runtime.py:504-516``)."""
+    bw = cfg.bit_width
+    pn, xshape = bs[0].padded_nodes, bs[0].bit_X.shape
+    levels = num_digits(bw) == 2
+    nd_x, xm, xp = 1 if levels else num_digits(bw), round_up(xshape[0], LANE), round_up(xshape[1], LANE)
+    info["form"], chunk = geos[0].form, geos[0].chunk
+    cb = fused_model.mega_colblock(pn)
+    occ = np.stack([mega_block_occ(b.a_words.numpy(), chunk, cb) for b in bs])
+    info["skippable"] = float(1.0 - occ.mean())
+    gate = mega_zero_tile_gate(zerotile_jump, info["skippable"], pn, bw, resident_a)
+    info["chunk_occ"], info["compact"] = gate == "chunk_occ", gate == "compact"
+    sched = None
+    if gate == "compact":
+        sched = torch.from_numpy(np.stack([mega_block_sched(b.a_words.numpy(), chunk, cb) for b in bs]))
+    st = MegaShards([], [], [], [], [], dict(model=model, shifts=shifts, out_cols=cfg.out_dim, x_cols=cfg.in_dim,
+                                              x_levels_bits=bw if levels else None))
+    for (dev, sl), geo in zip(shards, geos):
+        key = (dev, geo.form == "signed")
+        if key not in prepared:
+            prepared[key] = fused_model.pack_mega_weights(weights_on(dev), geo.form)
+        st.packed.append(prepared[key])
+        st.a.append(a_words[sl, 0].to(dev).contiguous())
+        planes = x_planes[sl]
+        x_stack = torch.empty((planes.shape[0], nd_x, xm, xp), dtype=torch.int8, device=dev)
+        for i in range(0, planes.shape[0], 16):  # bounds the unpack intermediate
+            d = planes_stack_to_digits(planes[i:i + 16].to(dev), xshape, bw)
+            if levels:  # the 2 digit planes collapse to one plane of byte levels
+                d = (d[:, :1].to(torch.int32) | (d[:, 1:].to(torch.int32) << 4)).to(torch.uint8).view(torch.int8)
+            x_stack[i:i + 16] = d
+        st.x.append(x_stack)
+        st.blk_sched.append(None if sched is None else sched[sl].to(dev))
+        st.chunk_occ.append(torch.from_numpy(occ[sl]).to(dev) if gate == "chunk_occ" else None)
+    return st

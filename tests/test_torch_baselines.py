@@ -402,7 +402,7 @@ def test_cli_eval_accuracy_on_ppi(tmp_path, monkeypatch, capsys, engine):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--mode", "fused", "--mesh", "2,1"], "not yet ported"),
+    (["--mode", "fused", "--mesh", "2"], "bad --mesh '2'; expected DP,SP"),
     (["--regular", "--zerotile_jump", "--mode", "mega"], "quantized engine"),
     (["--regular", "--resident", "--mode", "mega"], "--resident"),
     (["--regular", "--weights", "w.npz", "--mode", "mega"], "quantized engine"),

@@ -5,8 +5,8 @@
 port's record carries every key of the JAX record for the same command
 line, with the same dataset, sizes and buckets, and names the partition
 method that ran; ``--sparse`` warns about the same flags as JAX's;
-``--json-out`` appends the printed record; only ``--mesh`` is refused as
-not yet ported.
+``--json-out`` appends the printed record; no flag is refused as not yet
+ported (``--mesh`` runs).
 """
 
 import json
@@ -84,10 +84,13 @@ def test_json_out_and_profile_dir(toy, tmp_path, monkeypatch, capsys):
 
 
 def test_only_weights_and_mesh_not_ported(capsys):
-    """Only ``--mesh`` is left: ``--weights`` is ported
-    (``tests/test_torch_train.py``)."""
-    assert cli.NOT_PORTED == ("--mesh",)
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--mesh", "2,1"])
-    assert exc.value.code == 2 and "not yet ported" in capsys.readouterr().err
-    assert "--weights" in cli.build_parser().format_help()
+    """No flag of the JAX CLI is refused any more: ``--weights``
+    (``tests/test_torch_train.py``) and ``--mesh`` are offered, and
+    ``--mesh`` runs (``tests/test_torch_parallel.py`` checks its record)."""
+    assert cli.NOT_PORTED == ()
+    help_text = cli.build_parser().format_help()
+    assert "--weights" in help_text and "--mesh DP,SP" in help_text
+    rc = cli.main(["--dataset", "ppi", "--dataset-scale", "0.01", "--psize", "4", "--batch-size", "2",
+                   "--n-epochs", "1", "--device", "cpu", "--mesh", "2,1"])
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and record["engine"] == "qgtc-mesh-dp2-sp1" and record["mesh"] == "2,1"

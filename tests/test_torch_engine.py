@@ -228,7 +228,15 @@ def test_cli_runs_step_engine_on_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_rejects_unported_flags(capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--mesh", "1,1"])
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    """Every flag of the JAX CLI is the port's too (``--mesh`` was the last),
+    so none is refused as unported; a flag of neither still stops with exit
+    2, and a malformed ``--mesh`` as the JAX CLI stops it."""
+    from qgtc_ppopp22_tpu.cli import build_parser as jax_parser
+
+    jax_flags = {o for a in jax_parser()._actions for o in a.option_strings}
+    assert jax_flags <= {o for a in cli.build_parser()._actions for o in a.option_strings}
+    assert cli.NOT_PORTED == ()
+    for argv, msg in ((["--no-such-flag"], "unrecognized arguments"), (["--mesh", "1"], "bad --mesh")):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code == 2 and msg in capsys.readouterr().err
