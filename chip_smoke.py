@@ -273,6 +273,16 @@ Runs, and stops with a non-zero exit at the first failure:
    for P1 ``torch._int_mm`` on the unpacked levels, for P2's bitcasts a
    strided copy of the bytes, none for P3 (the zero body taking turns
    over copies of X, so each call reads X from HBM).
+   Last, the study modules (:func:`studies_phase`) at a cut size on C1's
+   batches: ``run_all`` (C1 GCN at 2 and 8 bits in mega, fused and step,
+   the sage baseline's mega mode, 3 epochs each; every row timed, no
+   fallback, each mode's kernels launched), ``zero_tile_study`` (C1's tile
+   counters, mega dense against zero-tile), ``transfer_study`` (one round),
+   ``roofline`` (C1's rows at 2 and 8 bits on the rates ``roofline.probe``
+   measures on the card, with the phase's E3 and E3-8: every measured
+   time at or above its floor), ``partition_quality`` (Proteins, three
+   methods) and ``ring_overlap`` (its ring and gather logits equal to the
+   step engine's).
 
 Test operands come from ``tests/torch_cases.py``. Each kernel's bound
 is the larger of its bytes (inputs read once, outputs written once) over
@@ -280,7 +290,9 @@ is the larger of its bytes (inputs read once, outputs written once) over
 int8, 989 TFLOP/s bf16); bitmm is charged 2 M N K int8 operations per
 pair of base-16 digits on the logical shapes (the data sheet gives no
 one-bit rate) and the bytes of A's and B's real columns, and the work its
-planned grid does is printed beside. The sixth line from the end is ``mesh: {...}`` (the mesh
+planned grid does is printed beside. The seventh line from the end is
+``studies: {...}`` (the study phase's seconds, the measured rates, its
+times, floors and overlap shares), the sixth ``mesh: {...}`` (the mesh
 phase's seconds and timings), the fifth ``qat: {...}`` (the QAT
 phase's seconds, epochs and accuracy), the third the card's name and power
 limit, the second ``{"kernels": [...]}``; the last line is ``{"ok": true,
@@ -640,6 +652,86 @@ def mesh_timing(dev, batcher, eng, card, nb: int) -> dict:
           f"bound {b_ms * 1e3:.3f} us (bytes); == plain [{card}]")
     return dict(host_ms=host_ms, k2_i32_us=dt["kernel"] * 1e3, k2_i32_plain_us=dt["plain"] * 1e3,
                 seconds=time.perf_counter() - t0)
+
+
+def studies_phase(dev, ds, batcher, card) -> dict:
+    """The study modules (``qgtc_ppopp22_tpu_torch/benchmarks``) through
+    their ``rows`` functions at a cut size, on C1's batcher (``batcher``),
+    each gate a hard failure:
+
+    (a) ``run_all``: C1 GCN at 2 and 8 bits in mega, fused and step mode,
+        and the sage baseline's mega mode, 3 epochs each: every row timed,
+        no bucket falling back, each mode's kernels launched (K1 and K5 in
+        mega, K2 and K3 in fused and step; counts reset just before);
+    (b) ``zero_tile_study``: C1's tile counters (equal to the batcher's
+        ``tile_counts``), mega dense against zero-tile, 3 epochs;
+    (c) ``transfer_study``: C1's packed and dense epoch, one round;
+    (d) ``roofline``: C1's GCN rows at 2 and 8 bits on the rates
+        ``roofline.probe`` measures, with (a)'s mega times (E3, E3-8):
+        each measured time at or above its floor on those rates (below it,
+        the count is wrong);
+    (e) ``partition_quality``: Proteins, native, BFS and RCM;
+    (f) ``ring_overlap``: its rows, whose ring and gather logits equal the
+        step engine's (the module raises otherwise).
+
+    Returns the rows and the phase's seconds."""
+    import torch
+
+    from qgtc_ppopp22_tpu_torch.benchmarks import (partition_quality, ring_overlap, roofline, run_all,
+                                                   transfer_study, zero_tile_study)
+    from qgtc_ppopp22_tpu_torch.graph import load_dataset
+    from qgtc_ppopp22_tpu_torch.ops import digitmm, fused_model, packmm
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    # (a) the epoch matrix at C1
+    out["run_all"] = []
+    for mode, want in (("mega", ("fused_model", "fused_baseline")), ("fused", ("packmm", "digitmm")),
+                       ("step", ("packmm", "digitmm"))):
+        fused_model.LAUNCHES = fused_model.BASELINE_LAUNCHES = packmm.LAUNCHES = digitmm.LAUNCHES = 0
+        out["run_all"] += run_all.dataset_rows(ds, batcher, [2, 8], dev, card, baseline=mode == "mega", mode=mode,
+                                               n_epochs=3)
+        launches[mode] = {"fused_model": fused_model.LAUNCHES, "fused_baseline": fused_model.BASELINE_LAUNCHES,
+                          "packmm": packmm.LAUNCHES, "digitmm": digitmm.LAUNCHES}
+        if not all(launches[mode][k] for k in want):
+            raise AssertionError(f"run_all {mode}: launches {launches[mode]}")
+    for r in out["run_all"]:
+        if r["not_run"] or r["fallback_buckets"] or not r["epoch_ms"] > 0:
+            raise AssertionError(f"run_all row {r}")
+    # (b) zero-tile counters and mega dense against zero-tile
+    out["zero_tile"] = zero_tile_study.dataset_rows(ds.name, batcher, ds.num_classes, ["mega"], 3, dev, card)
+    processed, total = batcher.tile_counts()
+    if (out["zero_tile"][0]["tiles_processed"], out["zero_tile"][0]["tiles_total"]) != (processed, total):
+        raise AssertionError(f"zero_tile_study counters {out['zero_tile'][0]} != tile_counts {processed}/{total}")
+    # (c) packed against dense transfer, one round
+    out["transfer"] = transfer_study.study_rows(ds, batcher, dev, card, epochs=1)
+    if not out["transfer"][0]["bytes_per_epoch"] < out["transfer"][1]["bytes_per_epoch"]:
+        raise AssertionError(f"transfer_study {out['transfer']}")
+    # (d) the roofline on the card's measured rates, with (a)'s E3 and E3-8
+    rates = roofline.probe(dev)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    print(f"phase 3: roofline rates measured on the card: HBM {rates['hbm'] / 1e9:.1f} GB/s, int8 "
+          f"{rates['int8'] / 1e12:.1f} TOP/s, bf16 {rates['bf16'] / 1e12:.1f} TFLOP/s, L2 {l2 / 2 ** 20:.1f} MiB "
+          f"[{card}]")
+    measured = {(ds.name, "gcn", r["bits"]): r["epoch_ms"] for r in out["run_all"]
+                if r["engine"] == "qgtc" and r["mode"] == "mega"}
+    out["roofline"] = roofline.dataset_rows(ds, batcher, [2, 8], ["gcn"], card, measured, rates, l2)
+    for r in out["roofline"]:
+        if r["measured_ms"] is None or r["measured_ms"] < r["floor_ms_card"]:
+            raise AssertionError(f"roofline: measured below the floor on the card's rates (a wrong count): {r}")
+    out["rates"] = rates
+    # (e) partition quality on Proteins
+    prot = load_dataset("Proteins")
+    out["partition_quality"] = [partition_quality.method_row(prot, m, 1500, 20, card)
+                                for m in partition_quality.METHODS]
+    for r in out["partition_quality"]:
+        print(r, flush=True)
+    # (f) the ring's overlap, link volume and timing; its logits gates
+    out["ring_overlap"] = ring_overlap.rows(dev)
+    out["launches"], out["seconds"] = launches, time.perf_counter() - t0
+    print(f"phase 3: studies (run_all, zero_tile_study, transfer_study, roofline, partition_quality, ring_overlap) "
+          f"at C1: every gate passed; run_all launches {launches} ({out['seconds']:.1f} s) [{card}]")
+    return out
 
 
 def main() -> int:
@@ -2665,6 +2757,14 @@ def main() -> int:
          "library_ms": lib_ms.get(k)}
         for k, (src, rep_, counts) in sources.items()
     ]
+    studies = studies_phase(dev, ds, batcher, card)
+    print("studies: " + json.dumps({
+        "seconds": studies["seconds"], "rates": studies["rates"],
+        "run_all_ms": {f"{r['engine']} {r['mode']} {r['bits']}": r["epoch_ms"] for r in studies["run_all"]},
+        "roofline": {r["bits"]: {k: r[k] for k in ("floor_ms", "floor_ms_card", "measured_ms", "fits_l2")}
+                     for r in studies["roofline"]},
+        "ring_overlap_share": {r["what"]: r.get("overlap_share") for r in studies["ring_overlap"] if r["part"] == "a"},
+        "ring_ms_per_step": {r["what"]: r["host_ms_per_step"] for r in studies["ring_overlap"] if r["part"] == "c"}}))
     print("mesh: " + json.dumps({"seconds": mesh["seconds"], "timing_seconds": mesh_times["seconds"],
                                   "host_ms": mesh_times["host_ms"], "k2_i32_us": mesh_times["k2_i32_us"]}))
     print("qat: " + json.dumps({k: qat[k] for k in ("seconds", "train_seconds", "epochs", "accuracy")}))

@@ -52,6 +52,16 @@ def card_line(device: torch.device) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def study_device(device) -> tuple:
+    """``(torch.device, card)`` for a study run on ``device``: the card's
+    line (:func:`card_line`) rides on every row. A CUDA device without CUDA
+    raises: a study never moves its work to the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available; pass --device cpu to run on the CPU")
+    return dev, card_line(dev)
+
+
 def bench(batcher: ClusterBatcher, device, mode: str = "mega", zerotile_jump=None,
           n_epochs: int = 20, repeats: int = 5) -> dict:
     """Time ``mode`` over ``batcher``'s batches on ``device``, print the

@@ -23,4 +23,4 @@ from qgtc_ppopp22_tpu_torch.parallel.packed import (
     dp_sp_epoch_packed,
     shard_packed_batches,
 )
-from qgtc_ppopp22_tpu_torch.parallel.engine import MeshEngine
+from qgtc_ppopp22_tpu_torch.parallel.engine import MeshEngine, x_digits_np

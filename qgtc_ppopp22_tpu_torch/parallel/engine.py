@@ -36,7 +36,7 @@ import torch
 
 from qgtc_ppopp22_tpu_torch.graph.batching import ClusterBatch, ClusterBatcher
 from qgtc_ppopp22_tpu_torch.models.qmodels import QModelConfig, init_weights, pack_weights
-from qgtc_ppopp22_tpu_torch.ops.bitpack import round_up
+from qgtc_ppopp22_tpu_torch.ops.bitpack import DIGIT_BITS, LANE, BitTensor, num_digits, round_up
 from qgtc_ppopp22_tpu_torch.ops.digits import planes_stack_to_digits
 from qgtc_ppopp22_tpu_torch.ops.packmm import PACK_GROUP
 from qgtc_ppopp22_tpu_torch.parallel.multihost import host_batch_slice, process_allgather, process_count
@@ -44,7 +44,27 @@ from qgtc_ppopp22_tpu_torch.parallel.packed import dp_mega_epoch_packed, dp_sp_e
 from qgtc_ppopp22_tpu_torch.parallel.sharded import Sharded, make_mesh, replicate
 from qgtc_ppopp22_tpu_torch.runtime import EpochStats, _Engine, _threshold_f1, plan_mega_shards, stage_mega_shards
 
-__all__ = ["MeshEngine", "MeshBucket"]
+__all__ = ["MeshEngine", "MeshBucket", "x_digits_np"]
+
+
+def x_digits_np(bit_x: BitTensor, pn: int) -> np.ndarray:
+    """Packed feature planes -> int8 digit planes on the host (JAX
+    ``parallel/engine.py:62``): words [bits, Mw, Kp] -> int8[nd, pn,
+    round_up(K, 128)], the trim ``ops/digits.to_digit_tensor`` applies on
+    the device, so a host-built stack holds the same operands."""
+    planes = bit_x.planes.cpu().numpy().view(np.uint32)
+    bits, (_, K) = bit_x.bits, bit_x.shape
+    kp = round_up(K, LANE)
+    j = np.arange(32, dtype=np.uint32)[None, None, :, None]
+    ones = ((planes[:, :, None, :] >> j) & np.uint32(1)).reshape(bits, -1, planes.shape[2])  # [bits, Mw*32, Kp]
+    out = []
+    for d in range(num_digits(bits)):
+        lo = d * DIGIT_BITS
+        acc = ones[lo].copy()
+        for b in range(lo + 1, min(lo + DIGIT_BITS, bits)):
+            acc |= ones[b] << np.uint32(b - lo)
+        out.append(acc[:pn, :kp].astype(np.int8))
+    return np.stack(out)
 
 
 @dataclasses.dataclass

@@ -13,7 +13,7 @@ from __future__ import annotations
 import time
 import warnings
 from collections import Counter
-from typing import Callable, Dict, Hashable, Union
+from typing import Callable, Dict, Hashable, Optional, Sequence, Union
 
 import torch
 
@@ -119,3 +119,41 @@ def kernel_launches(fn: Callable[[], object], iters: int = 1, warmup: int = 1) -
     if any(n % iters for n in counts.values()):
         raise RuntimeError(f"kernel counts {dict(counts)} over {iters} calls are not a whole number per call")
     return Counter({name: n // iters for name, n in counts.items()})
+
+
+def _first_tensor(r) -> Optional[torch.Tensor]:
+    """The first tensor in ``r``: a tensor, or one held in a list, tuple,
+    dict or dataclass (a ``DigitTensor``, a ``Sharded``...), depth first."""
+    if isinstance(r, torch.Tensor):
+        return r
+    if isinstance(r, dict):
+        r = list(r.values())
+    elif hasattr(r, "__dataclass_fields__"):
+        r = [getattr(r, f) for f in r.__dataclass_fields__]
+    if isinstance(r, (list, tuple)):
+        for x in r:
+            t = _first_tensor(x)
+            if t is not None:
+                return t
+    return None
+
+
+def host_bench(fn: Callable, args: Sequence, iters: int = 100) -> float:
+    """Host-loop seconds per call of ``fn(*args)``, the per-call launch
+    cost included (JAX ``utils/timing.py:150-167``): one call outside the
+    timing, then ``iters`` calls back to back and one synchronize of the
+    device of the last output's first tensor. Epoch-style timing, where
+    dispatch is part of the measured system (``main_qgtc.py:112-155``)."""
+
+    def sync(r):
+        t = _first_tensor(r)
+        if t is not None and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+
+    sync(fn(*args))
+    t0 = time.perf_counter()
+    r = None
+    for _ in range(iters):
+        r = fn(*args)
+    sync(r)
+    return (time.perf_counter() - t0) / iters
