@@ -109,14 +109,18 @@ Runs, and stops with a non-zero exit at the first failure:
    (``exp_packmm``) in every variant at 1/2/4 bits, tm 256 and 512, 16-,
    48- and 64-column B and C1's 2560 x 2560 (noextract against its own
    plain version, the int8 A and, at tm 256, K2's own loader against the
-   packed product) and its packed
-   out (group 0, 256 and 512, M = 768 in three 256-row groups, a
-   4096-row layout tile); P2's bitcasts (``exp_bitcast_probe``) and the
-   fragment registers of a random tile; P3's zero body
-   (``grid_overhead_study``, G 1 and 3, oc 8, 48, 120, and the study's
-   geometry: pn 1024 and 2048, G 1 and 5) and K-dot passes (K 0, 1, 2;
-   oc 8, 48, 120; pn 256 and 640, and the study's pn 2048 at oc 48 and
-   120), random S and x.
+   packed product); P1b's packed out (``exp_packmm_packed.cu``, CTAs
+   that own whole word rows) under every forced plan of
+   ``packedout_plan`` (column tile, K step, split, ring) at 1/2/4 bits,
+   layout tiles of 256, 512, 768, 1024 and 4096 rows, Np 16, 48 and 64,
+   sums below 0, each output twice after filling its block with -1 and
+   then 0; P2's bitcasts (``exp_bitcast_probe``) and the fragment
+   registers of a random tile; P3's zero body (``grid_overhead_study``, G
+   1 and 3, oc 8, 48, 120, and the study's geometry: pn 1024 and 2048, G
+   1 and 5; K1's rows a CTA and 64) and K-dot under every forced plan of
+   ``kdot_plan`` (rows a CTA, cluster, ring; K 0, 1, 2; oc 8,
+   48, 120; pn 256, 640 and the study's 2048), random S and x, each output
+   twice after a NaN fill.
 2. The main path: 2-bit 3-layer Cluster-GCN (hidden 16) on the
    full-scale synthetic ogbn-arxiv stand-in, psize 1500, batch 20, 75
    batches on the default partition, which must have resolved to the
@@ -271,8 +275,11 @@ Runs, and stops with a non-zero exit at the first failure:
    each probe kernel at its study's shape beside plain, bound and a
    library yardstick where one PyTorch call computes the same function:
    for P1 ``torch._int_mm`` on the unpacked levels, for P2's bitcasts a
-   strided copy of the bytes, none for P3 (the zero body taking turns
-   over copies of X, so each call reads X from HBM).
+   strided copy of the bytes, for P3b K ``torch._int_mm`` calls of S by
+   the 50 batches' rolled columns side by side, only the round_up(oc, 8)
+   that the function keeps, none for the zero body
+   (taking turns over copies of X, so each call reads X from HBM); K2's
+   packed words at 4096^2 x 16 beside P1b's first row.
    Last, the study modules (:func:`studies_phase`) at a cut size on C1's
    batches: ``run_all`` (C1 GCN at 2 and 8 bits in mega, fused and step,
    the sage baseline's mega mode, 3 epochs each; every row timed, no
@@ -302,6 +309,7 @@ limit, the second ``{"kernels": [...]}``; the last line is ``{"ok": true,
 import contextlib
 import functools
 import io
+import itertools
 import json
 import os
 import re
@@ -818,8 +826,9 @@ def main() -> int:
                 k1_spill[entry] = 0
                 continue
             entry = next((entry[entry.find(k):][:60] for k in ("exp_packmm_kernel",
-                                                                  "bitcast", "fragment_probe",
-                                                                  "zero_body_kernel", "kdot_kernel")
+                                                                  "packedout_kernel", "bitcast",
+                                                                  "fragment_probe", "zero_body_kernel",
+                                                                  "kdot_kernel")
                           if k in entry), entry[-60:])
         elif "wgmma" in line and "serialized" in line:  # ptxas C7512 / C7520
             serialized.append((entry, line.strip()))
@@ -1307,9 +1316,9 @@ def main() -> int:
                            lambda: digitmm.digitmm_plain(da, b, raw_i32=True, tile_map=tm))
 
     # the kernel-study probes: P1's template in every variant (noextract
-    # against its own plain version) and its packed out (odd group counts
-    # per CTA row band, a 4096-row layout tile), P2's bitcasts and fragment
-    # registers, P3's zero body and K-dot passes
+    # against its own plain version) and its packed out under every forced
+    # plan, P2's bitcasts and fragment registers, P3's zero body and K-dot
+    # under every forced plan
     def probe_words(seed, m, k, np_, bits, tm, dense=True):
         rng = np.random.default_rng(seed)
         qa = rng.integers(0, 1 << bits, (m, k)) if dense else operands(seed, m, k, 16, bits, bits, bits, 0)[0]
@@ -1331,12 +1340,44 @@ def main() -> int:
             if tm == 256:
                 compare("exp_packmm", exp_packmm.packmm_exp_k2loader(words, b, bits),
                         exp_packmm.packmm_exp_plain(words, b, bits, tm), f"packmm_exp k2loader {tag}")
-        for (M, K, Np, tm, group) in ((1024, 512, 16, 1024, 0), (1024, 512, 64, 512, 256), (1024, 512, 16, 1024, 512),
-                                      (768, 512, 16, 768, 256), (4096, 1024, 16, 4096, 0)):
-            _, words, b = probe_words(SEED + bits + group + M, M, K, Np, bits, group or tm, dense=False)
-            compare("exp_packmm_packedout", exp_packmm.packmm_exp_packedout(words, b, bits, tm, group),
-                    exp_packmm.packmm_exp_packedout_plain(words, b, bits, tm, group),
-                    f"packmm_exp_packedout bits={bits} M={M} K={K} Np={Np} tm={tm} group={group}")
+
+    # each output of a forced plan twice, its block first filled with each
+    # of `fills` (freed: the output may take it), so that an element the
+    # kernel leaves unwritten shows
+    def twice(kind, run, want, what, fills):
+        for i, fill in enumerate(fills):
+            torch.full_like(want, fill)
+            compare(kind, run(), want, what if i == 0 else f"{what}, computed again")
+
+    # P1b's packed output (csrc/exp_packmm_packed.cu: CTAs that own whole
+    # word rows) under every forced plan of packedout_plan (column tile; K
+    # step of 64, 128 or 256 columns, so 12, 6 or 3 steps over K 768; split
+    # of 1-8, uneven shares included; ring depth), at 1, 2 and 4 bits over
+    # layout tiles of 256-4096 rows (2 to 3 tiles, or one of 4096), Np 16,
+    # 48 and 64, sums below 0; filled with -1, then 0
+    t1, po_before, po_calls = time.perf_counter(), exp_packmm.PACKEDOUT_LAUNCHES, 0
+    for bits in (1, 2, 4):
+        for g, M in ((256, 768), (512, 1024), (768, 1536), (1024, 2048), (4096, 4096)):
+            for Np in (16, 48, 64):
+                K = 768
+                _, words, b = probe_words(SEED + bits + g + Np, M, K, Np, bits, g, dense=False)
+                group = 0 if g == M else g  # layout tile g: as tm, or as the group of a tm of M
+                want = exp_packmm.packmm_exp_packedout_plain(words, b, bits, M, group)
+                for bnt, splits, stages, depth in itertools.product(
+                        exp_packmm.PACKEDOUT_TILES, range(1, exp_packmm.PACKEDOUT_MAX_SPLIT + 1),
+                        exp_packmm.PACKEDOUT_STAGES, exp_packmm.PACKEDOUT_DEPTHS):
+                    try:
+                        plan = exp_packmm.packedout_plan(M, K, Np, bits, g, bnt, splits, stages, depth)
+                    except ValueError:
+                        continue
+                    twice("exp_packmm_packedout",
+                          lambda: exp_packmm.packmm_exp_packedout(words, b, bits, M, group, _plan=plan),
+                          want, f"packmm_exp_packedout bits={bits} M={M} K={K} Np={Np} g={g} plan {plan}", (-1, 0))
+                    po_calls += 2
+    if exp_packmm.PACKEDOUT_LAUNCHES - po_before != po_calls:
+        raise AssertionError("P1b: a case did not launch the kernel once")
+    print(f"phase 1: P1b packed out (word-row CTAs) under every forced plan, {po_calls} launches, each output "
+          f"twice, == plain ({time.perf_counter() - t1:.1f} s)")
     for shape in ((8, 128), (5, 40), (64, 300)):
         x = torch.from_numpy(np.random.default_rng(shape[1]).integers(-2**31, 2**31, shape).astype(np.int32)).to(dev)
         y = exp_bitcast_probe.bitcast32to8(x)
@@ -1349,23 +1390,40 @@ def main() -> int:
                          exp_bitcast_probe.fragment_registers_plain(tiles[0], tiles[1])):
         compare("fragment_probe", got, want, "fragment registers of a random tile")
     # zero body: small shapes, then the study's geometry (pn 1024 and 2048:
-    # 2 and 4 row tiles a CTA; G 5: 5 batches a cluster)
+    # 4 and 8 row tiles of 128 over clusters of 4 and 8; G 5: 5 batches a
+    # cluster), each on K1's rows a CTA and forced to 64
+    nan = float("nan")
     for B, pn, G, xp, oc in [(6, 512, G, xp, oc) for G in (1, 3) for xp, oc in ((128, 8), (128, 48), (64, 120))] \
             + [(10, pn, G, 128, 48) for pn in (1024, 2048) for G in (1, 5)]:
         x = torch.from_numpy(np.random.default_rng(G + oc + pn).integers(-128, 128, (B, pn, xp)).astype(np.int8)).to(dev)
-        torch.full((B, pn, oc), float("nan"), device=dev)  # freed: the output may reuse its block
-        compare("zero_body", grid_overhead_study.zero_body(x, oc, G),
-                grid_overhead_study.zero_body_plain(x, oc, G), f"zero_body B={B} pn={pn} G={G} xp={xp} oc={oc}")
-    # K-dot: 640 is 10 row tiles over a cluster of 8; 2048 the study's
-    # (4 row tiles a CTA), at its oc 48 and the widest
-    for pn, ocs in ((256, (8, 48, 120)), (640, (8, 48, 120)), (2048, (48, 120))):
+        want = grid_overhead_study.zero_body_plain(x, oc, G)
+        for rows in (None, 64):
+            twice("zero_body", lambda: grid_overhead_study.zero_body(x, oc, G, rows), want,
+                  f"zero_body B={B} pn={pn} G={G} xp={xp} oc={oc} rows={rows}", (nan, nan))
+    # P3b's K-dot (K1's ring, the roll as an address) under every forced
+    # plan of kdot_plan (rows a CTA, cluster, ring depth): 640 is 5 row
+    # tiles of 128 or 10 of 64 over clusters up to 8, 2048 the study's; K
+    # 0-2, oc 8, 48 and 120; NaN fills
+    t1, kd_before, kd_calls = time.perf_counter(), grid_overhead_study.KDOT_LAUNCHES, 0
+    for pn in (256, 640, 2048):
         rng = np.random.default_rng(pn)
         x = torch.from_numpy(rng.integers(-128, 128, (3, pn, 128)).astype(np.int8)).to(dev)
         s = torch.from_numpy(rng.integers(-128, 128, (pn, pn)).astype(np.int8)).to(dev)
         for K in (0, 1, 2):
-            for oc in ocs:
-                compare("kdot", grid_overhead_study.kdot(x, s, oc, K), grid_overhead_study.kdot_plain(x, s, oc, K),
-                        f"kdot pn={pn} K={K} oc={oc}")
+            for oc in (8, 48, 120):
+                want = grid_overhead_study.kdot_plain(x, s, oc, K)
+                for rows in (r for r in grid_overhead_study.ROWS if pn % r == 0):
+                    for cl, stages in itertools.product(
+                            range(1, min(grid_overhead_study.MAX_CLUSTER, pn // rows) + 1),
+                            grid_overhead_study.STAGES):
+                        plan = grid_overhead_study.kdot_plan(pn, oc, K, rows, cl, stages)
+                        twice("kdot", lambda: grid_overhead_study.kdot(x, s, oc, K, _plan=plan), want,
+                              f"kdot pn={pn} K={K} oc={oc} plan {plan}", (nan, nan))
+                        kd_calls += 2
+    if grid_overhead_study.KDOT_LAUNCHES - kd_before != kd_calls:
+        raise AssertionError("P3b: a case did not launch the kernel once")
+    print(f"phase 1: P3b kdot under every forced plan, {kd_calls} launches, each output twice, == plain "
+          f"({time.perf_counter() - t1:.1f} s)")
     print(f"phase 1: kernel == plain exactly in {ncase} cases (fused_baseline: the integer "
           f"and rounding ones; worst row's relative error of its random ones {worst_rel:.3e}) "
           f"({time.perf_counter() - t0:.1f} s); max abs err {err}")
@@ -2397,7 +2455,7 @@ def main() -> int:
     p1o_w = torch.from_numpy(exp_packmm.pack_rows_np(p1o_qa, 1, 4096)[None]).to(dev)
     # K2's yardsticks, timed in the main session beside K2: P1's concat on
     # a 16-column tile at C1 (above) and P1b's 4096^2 N 64 row (JAX's last
-    # run_packedout row: 64-row CTAs OR fields into zeroed words)
+    # run_packedout row, on P1b's CTAs that own whole word rows)
     p1w_qa, p1w_qb, p1w_b = exp_packmm.operands(4096, 4096, 64, 1, prng, dev)
     p1w_w = torch.from_numpy(exp_packmm.pack_rows_np(p1w_qa, 1, 256)[None]).to(dev)
     timed += [
@@ -2463,6 +2521,17 @@ def main() -> int:
         plain = next(t[3] for t in timed if t[0] == kind)
         if not torch.equal(fn(), plain()):
             raise AssertionError(f"{kind}: the library expression != plain")
+    # P3b: one torch._int_mm a pass, S times the 50 batches' rolled columns
+    # side by side, only the round_up(oc, 8) = 48 that the function keeps
+    # (the kernel computes round_up(oc, 16), the bound counts oc), laid out
+    # column-major (the layout at which cuBLAS runs int8 fastest on the
+    # card), checked against plain first
+    p3_lib_x = [torch.roll(p3_x, k, dims=2)[..., :48].permute(0, 2, 1).reshape(-1, 2048).contiguous().t()
+                for k in range(2)]
+    lib_calls["kdot"] = lambda: [torch._int_mm(p3_s, xk) for xk in p3_lib_x]
+    kdot_lib = sum(lib_calls["kdot"]()).view(2048, 50, 48).permute(1, 0, 2).float()
+    if not torch.equal(kdot_lib, grid_overhead_study.kdot_plain(p3_x, p3_s, 48, 2)):
+        raise AssertionError("kdot: the library's passes != plain")
     # P1: the same product of the unpacked levels
     for kind, qa_, qb_ in (("exp_packmm", p1_qa, p1_qb), ("exp_packmm_packedout", p1o_qa, p1o_qb)):
         lib_ops[kind] = tuple(torch.from_numpy(q.astype(np.int8)).to(dev) for q in (qa_, qb_))
@@ -2553,11 +2622,14 @@ def main() -> int:
                   f"TFLOP/s{k2}")
 
     # K2 against its yardsticks, all from the one profiler session above
+    k2_16_ms = next(dt[("sweep", "8a", i)] for i, c in enumerate(sweep["8a"]) if (c.bits, c.M, c.N) == (1, 4096, 16))
     k2_reads = [
         ("packed words 1-bit 4096^2 x 64 below torch._int_mm", kernel_ms["packmm packed"],
          lib_ms["packmm packed"], kernel_ms["packmm packed"] < lib_ms["packmm packed"]),
         ("packed words 1-bit 4096^2 x 64 at or below P1b's 4096^2 N 64 row", kernel_ms["packmm packed"],
          kernel_ms["yardstick P1b"], kernel_ms["packmm packed"] <= kernel_ms["yardstick P1b"]),
+        ("packed words 1-bit 4096^2 x 16 (the sweep's row) at or below P1b's first row (word-row CTAs)",
+         k2_16_ms, times["exp_packmm_packedout"][0], k2_16_ms <= times["exp_packmm_packedout"][0]),
         ("C1 to digits at or below P1's concat 16-column row", kernel_ms["packmm"],
          kernel_ms["yardstick P1 concat"], kernel_ms["packmm"] <= kernel_ms["yardstick P1 concat"]),
         ("C1 with batch 0's map below the dense C1 row", kernel_ms["packmm_skip"], kernel_ms["packmm"],
@@ -2744,7 +2816,7 @@ def main() -> int:
                "digitmm_skip": ("digitmm_k3.cuh", "qgtc_ppopp22_tpu/ops/digitmm.py:193", digit_a_launches),
                # the kernel-study probes: the studies' launches
                "exp_packmm": ("exp_packmm.cu", "benchmarks/exp_packmm.py:146", probe_launches),
-               "exp_packmm_packedout": ("exp_packmm.cu", "benchmarks/exp_packmm.py:60", probe_launches),
+               "exp_packmm_packedout": ("exp_packmm_packed.cu", "benchmarks/exp_packmm.py:60", probe_launches),
                "bitcast32to8": ("exp_bitcast_probe.cu", "benchmarks/exp_bitcast_probe.py:20", probe_launches),
                "bitcast8to32": ("exp_bitcast_probe.cu", "benchmarks/exp_bitcast_probe.py:46", probe_launches),
                "fragment_probe": ("exp_bitcast_probe.cu", "benchmarks/exp_bitcast_probe.py:20", probe_launches),

@@ -14,7 +14,11 @@ PyTorch version:
   :func:`packmm_exp_int8`, the same product with an int8 A, and
   :func:`packmm_exp_k2loader`, concat with K2's own A loader;
 * :func:`packmm_exp_packedout`: the requantized product repacked in A's
-  layout, per ``group`` rows (the reference's ``bitMM2Bit_profile`` op).
+  layout, per ``group`` rows (the reference's ``bitMM2Bit_profile`` op), by
+  a kernel of its own (``csrc/exp_packmm_packed.cu``) whose CTAs own whole
+  word rows, each word read once and written once (:func:`packedout_plan`,
+  :func:`word_row_ctas`): timed beside K2's packed route at the same
+  shapes, it reads what K2's row ranges of a 256-row group cost.
 
 The card's question: what one 64-deep K step of ``gemm_core.cuh``'s loop
 spends on the unpack of A, on staging it in shared memory and on the
@@ -34,6 +38,8 @@ Usage (needs a CUDA device)::
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import sys
 from typing import Dict, List, Optional
 
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from qgtc_ppopp22_tpu_torch.ops import _gemm
+from qgtc_ppopp22_tpu_torch.ops._gemm import SMS
 from qgtc_ppopp22_tpu_torch.ops._build import check, library
 from qgtc_ppopp22_tpu_torch.ops.bitgemm import flops_convention
 from qgtc_ppopp22_tpu_torch.ops.bitpack import round_up, u32_to_i32
@@ -63,8 +70,16 @@ PACKEDOUT_ROWS = (
     (4096, 4096, 16, 2, 4096, 4096, 256), (4096, 4096, 64, 1, 4096, 4096, 256),
 )
 
-LAUNCHES = 0  # csrc/exp_packmm.cu float-out launches since the count was last reset to 0
-PACKEDOUT_LAUNCHES = 0  # its packed-out launches, likewise
+# the packed output's kernel (csrc/exp_packmm_packed.cu)
+PACKEDOUT_TILES = (16, 32, 64)  # column tiles
+PACKEDOUT_STAGES = (4, 3)  # ring depths, K1's
+PACKEDOUT_DEPTHS = (64, 128, 256)  # columns of the contraction a K step holds
+PACKEDOUT_MAX_SPLIT = 8  # CTAs of a split-K cluster: a portable cluster
+PACKEDOUT_RESIDENT = 2 * SMS  # the CTAs the default split fills: two an SM
+CTA_ROWS = 64  # logical rows a CTA owns
+
+LAUNCHES = 0  # csrc/exp_packmm.cu launches since the count was last reset to 0
+PACKEDOUT_LAUNCHES = 0  # csrc/exp_packmm_packed.cu launches, likewise
 
 
 def field_bits(bits: int) -> int:
@@ -250,13 +265,13 @@ def bres_fits(kp: int, np_: int) -> bool:
     return bres_tile(np_) * (kp + 16) + 2 * 64 * 80 <= _SMEM_LIMIT
 
 
-def _launch(out, a, b, variant: str, f: int, Mp: int, Kp: int, Np: int, tm: int, out_bits: int):
+def _launch(out, a, b, variant: str, f: int, Mp: int, Kp: int, Np: int, tm: int):
     lib = library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.qgtc_exp_packmm(out.data_ptr(), _gemm._operand(a, a.dtype, "A"),
                                   _gemm._operand(b, torch.int8, "B"), _CODE[variant], f, Mp, Kp, Np,
-                                  tm, out_bits, stream)
+                                  tm, stream)
     check(err, f"qgtc_exp_packmm({variant})")
     return out
 
@@ -274,7 +289,7 @@ def packmm_exp(words: torch.Tensor, b: torch.Tensor, bits: int, tm: int, variant
     f, Mp, Kp, Np = _shapes(words, b, bits, tm)
     _kernel_shapes(Mp, Kp, Np, tm, variant)
     out = torch.empty((Mp, Np), dtype=torch.float32, device=words.device)
-    _launch(out, words, b, variant, f, Mp, Kp, Np, tm, 0)
+    _launch(out, words, b, variant, f, Mp, Kp, Np, tm)
     LAUNCHES += 1
     return out
 
@@ -289,25 +304,129 @@ def packmm_exp_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Mp, Kp, Np = a.shape[1], a.shape[2], b.shape[2]
     _kernel_shapes(Mp, Kp, Np, None, "int8")
     out = torch.empty((Mp, Np), dtype=torch.float32, device=a.device)
-    _launch(out, a, b, "int8", 8, Mp, Kp, Np, 0, 0)
+    _launch(out, a, b, "int8", 8, Mp, Kp, Np, 0)
     LAUNCHES += 1
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class PackedOutPlan:
+    """One launch of the packed output's kernel: a grid of ``grid`` =
+    (column tiles, row CTAs, ``splits``) CTAs of 64 rows x ``bnt`` columns,
+    the ``splits`` CTAs of an output tile one cluster, a ring of ``stages``
+    slots of K steps ``depth`` columns deep, ``smem`` bytes of dynamic
+    shared memory."""
+
+    bnt: int
+    splits: int
+    stages: int
+    depth: int
+    grid: tuple
+    smem: int
+
+
+def packedout_smem(f: int, bnt: int, stages: int, depth: int) -> int:
+    """The packed output's shared memory (``Layout`` in the source): two
+    transposed B tiles [bnt][depth + 16], then the ring (2 f word rows at a
+    stride of 4 depth + 64 bytes and B's [depth][bnt] a slot) or, after the
+    loop, the split's int32 sums [64][bnt + 4] and the levels [bnt][68],
+    whichever is larger."""
+    ring = stages * (2 * f * (4 * depth + 64) + depth * bnt)
+    return 2 * bnt * (depth + 16) + max(ring, CTA_ROWS * (bnt + 4) * 4 + bnt * (CTA_ROWS + 4))
+
+
+def packedout_plan(Mp: int, Kp: int, Np: int, bits: int, g: int, bnt: Optional[int] = None,
+                   splits: Optional[int] = None, stages: Optional[int] = None,
+                   depth: Optional[int] = None) -> PackedOutPlan:
+    """The packed output's launch at ``Mp`` x ``Kp`` words' rows and
+    columns, B of ``Np`` columns, ``bits``-bit levels in the layout of tile
+    ``g``. A CTA owns the ``64 / rpw`` word rows that hold 64 rows (see
+    :func:`word_row_ctas`) and ``bnt`` columns: the narrowest of 16, 32
+    and 64 that holds Np, else the widest that divides it; where the row
+    CTAs number fewer than 2 an SM, 64 columns are two tiles of 32 (as K2's
+    ``packmm_plan``). K steps of the deepest of 256, 128 and 64 columns
+    that divides Kp (a step's barrier and chain of loads cost more than
+    its MMAs). The split makes two CTAs an SM, ``PACKEDOUT_RESIDENT //
+    (column tiles x row CTAs)``, at most 8 and the K steps; 4 ring slots.
+    Each argument given forces that choice (a split of 1 to 8, no more
+    than the K steps; 3 or 4 slots); raises ``ValueError`` on a plan the
+    kernel cannot run (its C entry refuses the same).
+
+    Measured (``benchmarks/gemm_times.py --probes-only --plans``, one H100
+    80GB HBM3 at 700 W, 4 slots): at 1-bit 4096² x 16, K steps of 64 / 128
+    / 256 columns took 35.7 / 24.5 / 20.2 us at S 1 and 14.1 / 11.8 / 10.7
+    at S 4 (11.8 at S 8, 256); at x 64 on tiles of 32, 26.1 / 21.8 / 20.1
+    at S 2 and 29.2 at S 4 (256), on tiles of 64 19.7 at S 2 (256)."""
+    return _cached_packedout_plan(Mp, Kp, Np, bits, g, bnt, splits, stages, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_packedout_plan(Mp, Kp, Np, bits, g, bnt, splits, stages, depth) -> PackedOutPlan:
+    if not 1 <= bits <= 4:
+        raise ValueError(f"the packed output takes 1-4 bit levels, got {bits}")
+    if Mp <= 0 or Kp <= 0 or Np <= 0 or g <= 0 or g % 256 or Mp % g or Kp % K_STEP:
+        raise ValueError(f"the kernel needs g % 256, Mp % g and Kp % {K_STEP} to be 0, got Mp={Mp} Kp={Kp} "
+                         f"Np={Np} g={g}")
+    if depth is None:
+        depth = next(d for d in reversed(PACKEDOUT_DEPTHS) if Kp % d == 0)
+    if depth not in PACKEDOUT_DEPTHS or Kp % depth:
+        raise ValueError(f"K step {depth}: the kernel takes one of {PACKEDOUT_DEPTHS} dividing Kp={Kp}")
+    if bnt is None:
+        bnt = next((t for t in PACKEDOUT_TILES if t >= Np and Np % t == 0), None) \
+            or next((t for t in reversed(PACKEDOUT_TILES) if Np % t == 0), None)
+        if bnt == 64 and Mp // CTA_ROWS < 2 * SMS:
+            bnt = 32
+    if bnt not in PACKEDOUT_TILES or Np % bnt:
+        raise ValueError(f"column tile {bnt}: the kernel takes one of {PACKEDOUT_TILES} dividing Np={Np}")
+    steps = Kp // depth
+    tiles = (Np // bnt, Mp // CTA_ROWS)
+    if splits is None:
+        splits = max(1, min(PACKEDOUT_MAX_SPLIT, PACKEDOUT_RESIDENT // (tiles[0] * tiles[1]), steps))
+    if not 1 <= splits <= min(PACKEDOUT_MAX_SPLIT, steps):
+        raise ValueError(f"split {splits}: the kernel takes 1..{min(PACKEDOUT_MAX_SPLIT, steps)}")
+    if stages is not None and stages not in PACKEDOUT_STAGES:
+        raise ValueError(f"ring depth {stages}: the kernel takes {PACKEDOUT_STAGES}")
+    stages = stages or PACKEDOUT_STAGES[0]
+    return PackedOutPlan(bnt, splits, stages, depth, (*tiles, splits),
+                         packedout_smem(field_bits(bits), bnt, stages, depth))
+
+
+def word_row_ctas(Mp: int, bits: int, g: int) -> np.ndarray:
+    """The packed output kernel's row map: int64 [Mp / 64, 64], the
+    logical rows of CTA y in its local order ``q*4*WR + 4*w + k``: CTA y
+    owns word rows ``y*WR .. y*WR + WR - 1`` (WR = 64 / rpw), of tile t =
+    y*WR // ms from its word row i0 = y*WR % ms, and their rows ``t*g +
+    q*4*ms + 4*(i0 + w) + k`` (field q, word row w, byte k)."""
+    f = field_bits(bits)
+    rpw, wr = 32 // f, 64 * f // 32
+    ms = g // rpw
+    y, q, w, k = np.meshgrid(np.arange(Mp // CTA_ROWS), np.arange(8 // f), np.arange(wr), np.arange(4),
+                             indexing="ij")
+    t, i0 = y * wr // ms, y * wr % ms
+    return (t * g + q * 4 * ms + 4 * (i0 + w) + k).reshape(Mp // CTA_ROWS, CTA_ROWS)
+
+
 def packmm_exp_packedout(words: torch.Tensor, b: torch.Tensor, bits: int, tm: int, group: int = 0,
-                         tk: Optional[int] = None) -> torch.Tensor:
+                         tk: Optional[int] = None, _plan: Optional[PackedOutPlan] = None) -> torch.Tensor:
     """words (layout tile ``group or tm``) x B -> the requantized product
     ``r = acc > 2^b ? 2^b - 1 : (acc < 0 ? 1 : acc)``, ``r & (2^b - 1)``,
     repacked per ``group`` rows (0: per ``tm``): int32 [1, Mp/rpw, Np].
-    On the card the layout tile is all that ``tm`` and ``group`` set."""
+    On the card the layout tile is all that ``tm`` and ``group`` set, and
+    :func:`packedout_plan` the launch (``_plan`` forces one)."""
     global PACKEDOUT_LAUNCHES
     if not words.is_cuda:
         return packmm_exp_packedout_plain(words, b, bits, tm, group)
     g = group or tm
     f, Mp, Kp, Np = _shapes(words, b, bits, g)
     _kernel_shapes(Mp, Kp, Np, g, "concat")
-    out = torch.zeros((1, Mp // (32 // f), Np), dtype=torch.int32, device=words.device)
-    _launch(out, words, b, "concat", f, Mp, Kp, Np, g, bits)
+    plan = _plan or packedout_plan(Mp, Kp, Np, bits, g)
+    out = torch.empty((1, Mp // (32 // f), Np), dtype=torch.int32, device=words.device)  # written whole
+    with torch.cuda.device(words.device):
+        err = library().qgtc_exp_packedout(out.data_ptr(), _gemm._operand(words, torch.int32, "A"),
+                                           _gemm._operand(b, torch.int8, "B"), f, bits, Mp, Kp, Np, g,
+                                           plan.bnt, plan.splits, plan.stages, plan.depth,
+                                           torch.cuda.current_stream(words.device).cuda_stream)
+    check(err, "qgtc_exp_packedout")
     PACKEDOUT_LAUNCHES += 1
     return out
 
@@ -324,7 +443,7 @@ def packmm_exp_k2loader(words: torch.Tensor, b: torch.Tensor, bits: int) -> torc
     f, Mp, Kp, Np = _shapes(words, b, bits, 256)
     _kernel_shapes(Mp, Kp, Np, 256, "k2loader")
     out = torch.empty((Mp, Np), dtype=torch.float32, device=words.device)
-    _launch(out, words, b, "k2loader", f, Mp, Kp, Np, 256, 0)
+    _launch(out, words, b, "k2loader", f, Mp, Kp, Np, 256)
     LAUNCHES += 1
     return out
 

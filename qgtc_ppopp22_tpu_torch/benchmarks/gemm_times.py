@@ -13,7 +13,11 @@ with the compacted block schedule and dense (C1), and 8-bit levels (C1-8,
 schedule; K3 at C1's three updates (X x W0, H x W1, H x W2); the bf16
 baseline's K5 ``fused_baseline_epoch`` over the same 75 batches as the
 baseline mega engine stages them (C1-baseline: sage, 128 -> 16 -> 16 ->
-40), its first layer alone (128 -> 40) and the gin widths (hidden 64).
+40), its first layer alone (128 -> 40) and the gin widths (hidden 64);
+and the kernel-study probes at their studies' rows (P3b ``kdot``, P3a's
+zero body, P1b's packed output on JAX's ten rows) beside K2's packed
+route at P1b's 4096² x 16 and x 64 (``--probes-only``: these alone;
+with ``--plans``, P1b and P3b also on each of their plans).
 
 The script calls only what the port has offered since zero-tile jumping
 (``packmm_to_digits`` with and without a map, ``packmm_to_f32``,
@@ -21,7 +25,8 @@ The script calls only what the port has offered since zero-tile jumping
 ``kernel_sweep.figure_cases``, a batch's ``a_words`` and ``tile_kidx`` /
 ``tile_kcnt``, ``QGTCEngine(fmt="bits")``, ``fused_model_epoch``,
 ``run_epochs_mega``, ``BaselineEngine._stage_mega`` and
-``fused_baseline_epoch``), so two checkouts can be
+``fused_baseline_epoch``; the probes' ``kdot``, ``zero_body`` and
+``packmm_exp_packedout``), so two checkouts can be
 timed on one card in one command: copy it into the other checkout's
 ``benchmarks/`` folder and run it from each checkout's root in turns (A,
 B, B, A), each run on the kernels that its checkout builds. Operands come
@@ -53,12 +58,13 @@ clusters of 2, 4, 5 and 8. Needs a CUDA device.
 Usage::
 
     python -m qgtc_ppopp22_tpu_torch.benchmarks.gemm_times [--tag NAME] [--iters 20] [--epoch-runs 3] \
-        [--mega-runs 3] [--plans] [--scaling]
+        [--mega-runs 3] [--plans] [--scaling] [--probes-only]
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -197,6 +203,76 @@ def signed_plan_calls(a, b, sweep) -> dict:
         tiles = (16, 32, 64) if (c.M, c.N) == (4096, 64) else (None,)
         rows.update(rows_of(f"K4 sweep {c.M}² x {c.N}", c.a, c.b, np_, np_, c.N, tiles))
     rows.update(rows_of("K2 8-bit plane 4096² x 64", a, b, b.padded_cols, b.shape[1], 64, (16, 32, 64)))
+    return rows
+
+
+def probe_calls(seed: int, device) -> dict:
+    """The kernel-study probes at their studies' rows: P3b ``kdot`` at pn
+    2048 x 50 batches on each (K, oc) of ``KDOT_ROWS``, P3a's zero body
+    (G 1, oc 48, in turns over enough copies of X that each call reads
+    HBM), P1b's packed output on each of JAX's ten ``PACKEDOUT_ROWS``, and
+    K2's packed route (``packmm_to_packed`` to 1-bit words) at P1b's
+    4096² x 16 and x 64 shapes."""
+    from qgtc_ppopp22_tpu_torch.benchmarks import exp_packmm as ep
+    from qgtc_ppopp22_tpu_torch.benchmarks import grid_overhead_study as go
+
+    rows = {}
+    pn, B = go.KDOT_SHAPE
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = go.random_x(B, pn, gen, device)
+    s = torch.randint(-128, 128, (pn, pn), dtype=torch.int8, device=device, generator=gen)
+    for K, oc in go.KDOT_ROWS:
+        rows[f"P3b kdot X[{B}x{pn}x128] x S[{pn}x{pn}] K {K} oc {oc}"] = (
+            lambda K=K, oc=oc: go.kdot(x, s, oc, K))
+    xs = [go.random_x(B, pn, gen, device) for _ in range(go.l2_copies(B * pn * 128))]
+    rows[f"P3a zero_body X[{B}x{pn}x128] G 1 oc 48 (in turns over {len(xs)} copies)"] = go.in_turns(
+        lambda xx: go.zero_body(xx, 48, 1), xs)
+    rng = np.random.default_rng(seed)
+    for M, K, N, bits, tm, tk, group in ep.PACKEDOUT_ROWS:
+        qa, _, b = ep.operands(M, K, N, bits, rng, device)
+        words = torch.from_numpy(ep.pack_rows_np(qa, bits, group or tm)[None]).to(device)
+        rows[f"P1b packedout {bits}-bit A[{M}x{K}] x B[{K}x{N}] tm {tm} group {group}"] = (
+            lambda w=words, b=b, bits=bits, tm=tm, group=group: ep.packmm_exp_packedout(w, b, bits, tm, group))
+    for n in (16, 64):
+        qa, qb = rng.integers(0, 2, (4096, 4096)), rng.integers(0, 2, (4096, n))
+        a = pack_rows(torch.from_numpy(qa.astype(np.int32)).to(device), 1)
+        bd = digit_pack(torch.from_numpy(qb.astype(np.int32)).to(device), 1)
+        rows[f"K2 packmm_to_packed 1-bit A[4096x4096] x B[4096x{n}] to 1-bit words"] = (
+            lambda a=a, bd=bd: packmm.packmm_to_packed(a, bd, 1))
+    return rows
+
+
+def probe_plan_calls(seed: int, device) -> dict:
+    """P1b at 1-bit 4096² x 16 (tm 4096) and x 64 (group 256) on each column
+    tile, K step, split of 1, 2, 4 or 8 and ring depth that
+    ``packedout_plan`` can take, and P3b at pn 2048 x 50 batches, K 0-2, oc
+    48 on each rows a CTA, ring depth and a cluster of 8 or 4
+    (``kdot_plan``); this checkout only."""
+    from qgtc_ppopp22_tpu_torch.benchmarks import exp_packmm as ep
+    from qgtc_ppopp22_tpu_torch.benchmarks import grid_overhead_study as go
+
+    rows = {}
+    rng = np.random.default_rng(seed)
+    for M, K, N, bits, g in ((4096, 4096, 16, 1, 4096), (4096, 4096, 64, 1, 256)):
+        qa, _, b = ep.operands(M, K, N, bits, rng, device)
+        words = torch.from_numpy(ep.pack_rows_np(qa, bits, g)[None]).to(device)
+        for bnt, splits, stages, depth in itertools.product(ep.PACKEDOUT_TILES, (1, 2, 4, 8), ep.PACKEDOUT_STAGES,
+                                                            ep.PACKEDOUT_DEPTHS):
+            try:
+                plan = ep.packedout_plan(M, K, N, bits, g, bnt, splits, stages, depth)
+            except ValueError:
+                continue
+            rows[f"plan P1b {bits}-bit A[{M}x{K}] x B[{K}x{N}] g {g}: bnt {bnt} S {splits} stages {stages} "
+                 f"depth {depth}"] = (
+                lambda w=words, b=b, bits=bits, g=g, pl=plan: ep.packmm_exp_packedout(w, b, bits, g, _plan=pl))
+    pn, B = go.KDOT_SHAPE
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = go.random_x(B, pn, gen, device)
+    s = torch.randint(-128, 128, (pn, pn), dtype=torch.int8, device=device, generator=gen)
+    for K, r, stages, cl in itertools.product((0, 1, 2), go.ROWS, go.STAGES, (8, 4)):
+        plan = go.kdot_plan(pn, 48, K, r, cl, stages)
+        rows[f"plan P3b kdot pn {pn} B {B} K {K} oc 48: rows {r} cl {cl} stages {stages}"] = (
+            lambda K=K, pl=plan: go.kdot(x, s, 48, K, _plan=pl))
     return rows
 
 
@@ -509,9 +585,12 @@ def main(argv=None) -> int:
     p.add_argument("--epoch-runs", type=int, default=3, help="runs of 5 epochs for E1, E1z and E4 (0: none)")
     p.add_argument("--mega-runs", type=int, default=3, help="runs of 20 epochs for E3, E3-8 and B3 (0: none)")
     p.add_argument("--plans", action="store_true",
-                   help="K2, K4 and K6 on each column tile they can take, K1, K3 and K5 on each of their plans")
+                   help="K2, K4 and K6 on each column tile they can take, K1, K3 and K5 on each of their plans "
+                        "(with --probes-only: P1b and P3b on theirs)")
     p.add_argument("--scaling", action="store_true",
                    help="K1 at C1 dense over 1 to 75 batches and cluster sizes")
+    p.add_argument("--probes-only", action="store_true",
+                   help="only the kernel-study probes' rows (no C1 batches, no epochs)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("gemm_times: no CUDA device", file=sys.stderr)
@@ -519,6 +598,17 @@ def main(argv=None) -> int:
     from qgtc_ppopp22_tpu_torch.utils.timing import device_times_ms
 
     dev = torch.device("cuda")
+    if args.probes_only:
+        rows = probe_calls(args.seed, dev)
+        if args.plans:
+            rows.update(probe_plan_calls(args.seed, dev))
+        fns = {(name, rep): fn for rep in (0, 1) for name, fn in rows.items()}
+        dt = device_times_ms(fns, iters=args.iters)
+        print(f"card: {card_line()}")
+        for name in rows:
+            print(json.dumps({"tag": args.tag, "row": name, "us": round(min(dt[(name, 0)], dt[(name, 1)]) * 1e3, 2)}),
+                  flush=True)
+        return 0
     ds, batcher = c1_batches()
     rows = c1_calls(args.seed, dev)
     rows.update(c1_map_calls(args.seed, dev, batcher))
@@ -536,6 +626,7 @@ def main(argv=None) -> int:
     k5_a, k5_x, k5_w = k5_operands(ds, batcher, dev)
     rows.update(k5_calls(k5_a, k5_x, k5_w))
     rows.update(step_epoch_calls(ds, batcher, dev))
+    rows.update(probe_calls(args.seed, dev))
     if args.plans:
         rows.update(plan_calls(args.seed, dev))
         rows.update(signed_plan_calls(p8[0], p8[3], sweep))

@@ -1,21 +1,27 @@
 """Fixed-cost decomposition of the mega kernel, on the card (port of
 ``benchmarks/grid_overhead_study.py``).
 
-``fused_model`` (K1) runs one thread-block cluster of ``min(pn / 64, 8)``
-CTAs per batch. This ladder splits what a batch costs it without a
-profiler of the SMs:
+``fused_model`` (K1) runs one thread-block cluster per batch, its CTAs of
+128 rows (64 where 128 do not divide pn), and as many CTAs as give each
+the fewest row tiles, the smallest such cluster (``fused_model_plan``'s
+default rule; :func:`kdot_plan` restates it). This ladder splits what a
+batch costs K1 without a profiler of the SMs, both probes on that
+geometry:
 
 1. **zero-body** (:func:`zero_body`): K1's geometry, one cluster per ``G``
    batches, reading each batch's X into shared memory and writing zeros:
    the launch, cluster and traffic cost per batch, for G in {1, 5}.
-2. **K-dot** (:func:`kdot`): the same read, then K passes of a
-   single-stage int8 K loop built from ``gemm_core.cuh``'s pieces,
-   ``out[b] = (sum over k < K of S . roll(x[b], k))[:, :oc]``; the roll is
-   ``jnp.roll``'s along the 128 columns (column j moves to j + k). S is an
-   operand here (the TPU kernel used uninitialised scratch, and its x was
-   zero, so its output was zero). Here S and x are random, so every pass
-   does real products and the roll's direction shows. K in {0, 1, 2} at oc 48, and oc in
-   {8, 48, 120} at K = 0: the cost per pass and of the output width.
+2. **K-dot** (:func:`kdot`): K1's aggregation loop (a ``cp.async`` ring,
+   one barrier a 64-deep K step) over S's row tiles and x's K rows, with K
+   passes of int8 MMAs on each staged step, ``out[b] = (sum over k < K of
+   S . roll(x[b], k))[:, :oc]``; the roll is ``jnp.roll``'s along the 128
+   columns (column j moves to j + k), read as an address (pass k reads
+   column ``(j - k) mod 128`` for output column j, :func:`roll_column`).
+   S is an operand here (the TPU kernel used uninitialised scratch, and
+   its x was zero, so its output was zero). Here S and x are random, so
+   every pass does real products and the roll's direction shows. K in
+   {0, 1, 2} at oc 48, and oc in {8, 48, 120} at K = 0: a step's fixed
+   cost, the cost per pass and of the output width.
 3. **layer scaling**: K1 itself (``ops.fused_model.fused_model_epoch``)
    at 1, 3 and 5 layers on JAX's ``mega`` inputs (2-bit GCN, hidden 16,
    47 classes, 100 features, 1% dense adjacency, drawn with numpy from
@@ -40,9 +46,11 @@ Usage (needs a CUDA device)::
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import itertools
 import sys
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -53,6 +61,10 @@ from qgtc_ppopp22_tpu_torch.ops.bitpack import u32_to_i32
 
 XCOLS = 128  # kdot's x width, the roll's period
 MAX_CLUSTER = 8  # csrc/fused_model_k1.cuh MAX_CLUSTER
+ROWS = (128, 64)  # rows per CTA (8 or 4 warps of 16 rows), K1_ROWS: 64 only where 128 do not fit
+STAGES = (4, 3)  # depths of kdot's cp.async ring, K1_STAGES
+K_STEP = 64  # kdot's K step (csrc/grid_overhead.cu KD)
+_TLD = K_STEP + 16  # a row's stride in S's tile and in the transposed x
 ZERO_BODY_SHAPES = ((1024, 75), (2048, 50))  # (pn, B)
 KDOT_SHAPE = (2048, 50)
 KDOT_ROWS = ((0, 8), (0, 48), (0, 120), (1, 48), (2, 48))  # (K, oc)
@@ -64,9 +76,98 @@ ZERO_BODY_LAUNCHES = 0  # csrc/grid_overhead.cu zero_body launches since the cou
 KDOT_LAUNCHES = 0  # its kdot launches, likewise
 
 
-def cluster_size(pn: int) -> int:
-    """The CTAs per batch of K1's first design: one per 64-row tile, at most 8."""
-    return min(pn // 64, MAX_CLUSTER)
+def cluster_size(pn: int, rows: int = 64) -> int:
+    """K1's default CTAs per batch over ``rows``-row tiles: the fewest row
+    tiles a CTA, then the smallest such cluster, at most 8."""
+    tiles = pn // rows
+    return min(range(1, min(MAX_CLUSTER, tiles) + 1), key=lambda c: (-(-tiles // c), c))
+
+
+@dataclasses.dataclass(frozen=True)
+class KdotPlan:
+    """One launch of the probes: ``cl`` CTAs of ``rows`` rows a cluster
+    (``rows // 16`` warps of 16 rows), one cluster per batch (per G batches
+    for the zero body); kdot's CTAs run a ring of ``stages`` slots,
+    ``smem`` bytes of dynamic shared memory."""
+
+    rows: int
+    cl: int
+    stages: int
+    smem: int
+
+
+def kdot_smem(rows: int, stages: int) -> int:
+    """kdot's shared memory: ``stages`` slots of S's [rows][64] tile and
+    x's 64 K rows (144 bytes apart), then two transposed x tiles
+    (``KdotLayout``)."""
+    return stages * (rows * _TLD + K_STEP * (XCOLS + 16)) + 2 * XCOLS * _TLD
+
+
+def kdot_plan(pn: int, oc: int, K: int, rows: Optional[int] = None, cl: Optional[int] = None,
+              stages: Optional[int] = None) -> KdotPlan:
+    """K1's geometry for the probes at ``pn`` (``fused_model_plan``'s
+    default rule): 128 rows a CTA where they divide pn, else 64 (the shared
+    memory holds either: at most 96 KB); the cluster that gives each CTA
+    the fewest row tiles, the smallest such; 4 ring slots; K1's warps of 16
+    rows. Each argument given forces that choice; raises ``ValueError`` on
+    a plan the kernels cannot run (the C entries refuse the same). At pn
+    2048: 8 CTAs of 128 rows, 2 row tiles each.
+
+    Measured (``benchmarks/gemm_times.py --probes-only --plans``, one H100
+    80GB HBM3 at 700 W, pn 2048 x 50 batches, oc 48): K 0 / 1 / 2 took
+    90.8 / 116.7 / 153.4 us on 128-row CTAs (cl 8, 4 slots; K 2 over
+    clusters of 4 or 8 and 3 or 4 slots: 151.7-154.1), 128.1 / 174.0 /
+    218.0 on 64-row CTAs (x read again by twice the row tiles)."""
+    return _cached_kdot_plan(pn, oc, K, rows, cl, stages)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_kdot_plan(pn, oc, K, rows, cl, stages) -> KdotPlan:
+    if not 0 < oc <= XCOLS or K < 0:
+        raise ValueError(f"need 0 < oc <= {XCOLS} and K >= 0, got oc={oc} K={K}")
+    if stages is not None and stages not in STAGES:
+        raise ValueError(f"ring depth {stages}: kdot takes {STAGES}")
+    rows, cl = _geometry(pn, rows, cl)
+    stages = stages or STAGES[0]
+    return KdotPlan(rows, cl, stages, kdot_smem(rows, stages))
+
+
+def _geometry(pn: int, rows: Optional[int], cl: Optional[int]) -> tuple:
+    """(rows a CTA, CTAs a cluster): K1's default rule, or the forced ones."""
+    if pn <= 0 or pn % K_STEP:
+        raise ValueError(f"pn={pn}: the probes need a positive multiple of {K_STEP}")
+    if rows is None:
+        rows = ROWS[0] if pn % ROWS[0] == 0 else ROWS[1]
+    if rows not in ROWS or pn % rows:
+        raise ValueError(f"rows per CTA {rows}: the kernels take {ROWS} dividing pn={pn}")
+    tiles = pn // rows
+    if cl is None:
+        cl = cluster_size(pn, rows)
+    if not 1 <= cl <= min(MAX_CLUSTER, tiles):
+        raise ValueError(f"{cl} CTAs per batch: the kernels take 1..{min(MAX_CLUSTER, tiles)} over {tiles} "
+                         f"row tiles")
+    return rows, cl
+
+
+def roll_column(j, k):
+    """The column of x that pass k reads for output column j: ``roll(x,
+    k)[:, j] == x[:, (j - k) mod 128]`` (the kernel's per-lane row address
+    into the transposed x)."""
+    return (j - k) % XCOLS
+
+
+def xt_window(oc: int, K: int) -> tuple:
+    """(first block, blocks): the 4-column blocks of x, taken mod 32 from
+    the first, that kdot stages and transposes each step (the C entry
+    computes them, ``window`` in csrc/grid_overhead.cu; this mirrors it
+    for the tests): output columns
+    [0, round_up(oc, 8)) of passes k < K read columns ``j - k`` mod 128, so
+    the window runs from column -(K - 1) to round_up(oc, 8) - 1 (all 32
+    blocks where that is 128 columns or more). At K = 0 it is one pass's,
+    so that a step's fixed cost is the same at every K."""
+    first, last = -((max(K, 1) - 1 + 3) // 4), (-(-oc // 8) * 8 - 1) // 4
+    n = last - first + 1
+    return (0, XCOLS // 4) if n >= XCOLS // 4 else (first % (XCOLS // 4), n)
 
 
 def _x_shape(x: torch.Tensor, width=None) -> None:
@@ -84,19 +185,22 @@ def zero_body_plain(x: torch.Tensor, oc: int, G: int = 1) -> torch.Tensor:
     return torch.zeros((x.shape[0], x.shape[1], oc), dtype=torch.float32, device=x.device)
 
 
-def zero_body(x: torch.Tensor, oc: int, G: int = 1) -> torch.Tensor:
-    """X int8 [B, pn, xp] read in clusters of G batches -> zeros [B, pn, oc]."""
+def zero_body(x: torch.Tensor, oc: int, G: int = 1, rows: Optional[int] = None,
+              cl: Optional[int] = None) -> torch.Tensor:
+    """X int8 [B, pn, xp] read in clusters of G batches -> zeros [B, pn, oc],
+    on :func:`kdot_plan`'s rows and cluster (``rows`` and ``cl`` force them)."""
     global ZERO_BODY_LAUNCHES
     if not x.is_cuda:
         return zero_body_plain(x, oc, G)
     _x_shape(x)
     B, pn, xp = x.shape
-    if G <= 0 or B % G or pn % 64 or xp % 16 or xp > XCOLS:
-        raise ValueError(f"zero_body needs G | B, pn % 64 == 0 and xp a multiple of 16 up to {XCOLS}")
+    if G <= 0 or B % G or pn % 64 or xp % 16 or xp > XCOLS or oc <= 0:
+        raise ValueError(f"zero_body needs G | B, pn % 64 == 0, xp a multiple of 16 up to {XCOLS} and oc > 0")
+    rows, cl = _geometry(pn, rows, cl)
     out = torch.empty((B, pn, oc), dtype=torch.float32, device=x.device)  # written whole
     with torch.cuda.device(x.device):
         err = library().qgtc_zero_body(out.data_ptr(), _gemm._operand(x, torch.int8, "x"), B, pn, xp,
-                                       oc, G, torch.cuda.current_stream(x.device).cuda_stream)
+                                       oc, G, rows, cl, torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "qgtc_zero_body")
     ZERO_BODY_LAUNCHES += 1
     return out
@@ -123,21 +227,21 @@ def kdot_plain(x: torch.Tensor, s: torch.Tensor, oc: int, K: int) -> torch.Tenso
     return u32_to_i32(acc[:, :, :oc] & 0xFFFFFFFF).to(torch.float32)
 
 
-def kdot(x: torch.Tensor, s: torch.Tensor, oc: int, K: int) -> torch.Tensor:
+def kdot(x: torch.Tensor, s: torch.Tensor, oc: int, K: int, _plan: Optional[KdotPlan] = None) -> torch.Tensor:
     """x int8 [B, pn, 128], s int8 [pn, pn] -> :func:`kdot_plain`'s float32
-    [B, pn, oc], one cluster per batch."""
+    [B, pn, oc], one cluster per batch on :func:`kdot_plan` (``_plan``
+    forces one)."""
     global KDOT_LAUNCHES
     if not x.is_cuda:
         return kdot_plain(x, s, oc, K)
     _kdot_shapes(x, s, oc, K)
     B, pn, _ = x.shape
-    if pn % 64:
-        raise ValueError(f"kdot needs pn % 64 == 0, got {pn}")
+    plan = _plan or kdot_plan(pn, oc, K)
     out = torch.empty((B, pn, oc), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = library().qgtc_kdot(out.data_ptr(), _gemm._operand(x, torch.int8, "x"),
-                                  _gemm._operand(s, torch.int8, "s"), B, pn, oc, K,
-                                  torch.cuda.current_stream(x.device).cuda_stream)
+                                  _gemm._operand(s, torch.int8, "s"), B, pn, oc, K, plan.rows, plan.cl,
+                                  plan.stages, torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "qgtc_kdot")
     KDOT_LAUNCHES += 1
     return out

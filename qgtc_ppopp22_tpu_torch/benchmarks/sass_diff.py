@@ -38,8 +38,9 @@ def functions(lib: str) -> dict:
             # an anonymous namespace's name carries a hash of its file's path
             name, body = (re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", m[1]) if m else None), []
         elif name:
-            line = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)  # instruction offsets
-            body.append(line.strip())
+            line = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip()  # instruction offsets
+            if line:  # blank lines are layout (one follows an object file's last function)
+                body.append(line)
     if name:
         funcs[name] = "\n".join(body)
     return funcs

@@ -2,15 +2,14 @@
 // an M-packed A can reach the tensor cores (benchmarks/exp_packmm.py).
 //
 // Replaces the TPU experiment benchmarks/exp_packmm.py::make_packmm
-// (pallas_call at :236) and make_packmm_packedout (:135): A arrives as
-// int32 words [mp / rpw][kp] of f-bit fields (rpw = 32 / f rows per
-// word), permuted within each layout tile of tm rows so that row
-// q*4*ms + 4*i + k of a tile sits in bits [8k + f*q, 8k + f*(q+1)) of the
-// tile's word row i (ms = tm / rpw word rows per tile; 4*ms rows form one
-// "slab", the rows of one field q). B is int8 [kp][np]. out = A.B exactly
-// in int32, stored as float32 [mp][np]; or (packed out) requantized, as
-// gemm_core.cuh's requant with shift 0, and repacked in A's layout into
-// int32 words [mp / rpw][np].
+// (pallas_call at :236): A arrives as int32 words [mp / rpw][kp] of f-bit
+// fields (rpw = 32 / f rows per word), permuted within each layout tile of
+// tm rows so that row q*4*ms + 4*i + k of a tile sits in bits [8k + f*q,
+// 8k + f*(q+1)) of the tile's word row i (ms = tm / rpw word rows per
+// tile; 4*ms rows form one "slab", the rows of one field q). B is int8
+// [kp][np]. out = A.B exactly in int32, stored as float32 [mp][np]. The
+// packed output (make_packmm_packedout) has a kernel of its own,
+// exp_packmm_packed.cu.
 //
 // Variants (the same product, but noextract):
 //   concat      unpack each 64 x 64 A tile into a shared-memory int8 tile,
@@ -44,10 +43,7 @@
 // so each CTA's 40 single-stage K steps, each a load, unpack, barrier and
 // 2-16 MMAs a warp, are the time: the probe splits that step.
 // Design: 64 x BN tiles (BN = 16 or 64: 4 warps as 2 x 2, each 32 x BN/2),
-// BK = 64, int8 mma.sync.m16n8k32 as in gemm_core.cuh; packed output
-// ORs each 4-row quad's fields into its word with atomicOr (the words
-// start at zero), exact in any CTA order for any tm, since a word gathers
-// rows from P slabs that different CTAs own.
+// BK = 64, int8 mma.sync.m16n8k32 as in gemm_core.cuh.
 #pragma once
 
 #include "gemm_core.cuh"
@@ -68,10 +64,9 @@ enum Variant {
 struct ExpArgs {
   const void* a;    // int32 words [mp / rpw][kp]; V_INT8: int8 [mp][kp]
   const int8_t* b;  // int8 [kp][np]
-  void* out;        // float [mp][np]; packed: int32 [mp / rpw][np], zeroed
+  float* out;       // [mp][np]
   int mp, kp, np;
-  int tm;        // layout tile (rows)
-  int out_bits;  // > 0: requantize to out_bits and repack (V_CONCAT only)
+  int tm;  // layout tile (rows)
 };
 
 // Word row and bit offset of packed row m (F-bit fields, layout tile tm).
@@ -151,18 +146,19 @@ template <int V, int NT>
 inline size_t smem_bytes(int kp) {
   constexpr bool RES = V == V_BRES || V == V_BRES_CHUNK;
   constexpr int A = a_tiles<V, V == V_BRES_CHUNK>() * BM * LDS;
-  const size_t b = (size_t)16 * NT * (RES ? kp + 16 : LDS);
-  const size_t stage = (size_t)BM * 16 * NT;  // packed out's levels
-  return (size_t)A + b > stage ? (size_t)A + b : stage;
+  return (size_t)A + (size_t)16 * NT * (RES ? kp + 16 : LDS);
 }
 
+// PACK is false in every instantiation: the packed output has a kernel of
+// its own (exp_packmm_packed.cu). The parameter keeps the kernels' names,
+// by which benchmarks/sass_diff.py matches two builds' functions.
 template <int V, int F, int NT, bool PACK>
 __global__ void __launch_bounds__(THREADS) exp_packmm_kernel(const ExpArgs p) {
   constexpr int BNT = 16 * NT;
   constexpr bool RES = V == V_BRES || V == V_BRES_CHUNK;
   constexpr bool PIPE = V == V_BRES_CHUNK;
   constexpr bool SLABS = V == V_SLABS;
-  static_assert(!PACK || V == V_CONCAT, "packed out runs the concat path");
+  static_assert(!PACK, "the packed output is exp_packmm_packed.cu");
   extern __shared__ __align__(16) int8_t smem[];
   int8_t(*As)[BM][LDS] = reinterpret_cast<int8_t(*)[BM][LDS]>(smem);
   int8_t* const Bs = smem + a_tiles<V, PIPE>() * BM * LDS;
@@ -263,50 +259,21 @@ __global__ void __launch_bounds__(THREADS) exp_packmm_kernel(const ExpArgs p) {
   auto row_of = [&](int mt, int h) {
     return SLABS ? wm + 4 * g + 2 * mt + h : wm + mt * 16 + g + 8 * h;
   };
-  if (!PACK) {
-    float* const out = static_cast<float*>(p.out);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + row_of(mt, h), col = n0 + wn + nt * 8 + 2 * t4;
-          *reinterpret_cast<float2*>(out + (size_t)row * p.np + col) =
-              make_float2((float)acc[mt][nt][2 * h], (float)acc[mt][nt][2 * h + 1]);
-        }
-    return;
-  }
-  // packed out: levels [BM][BNT] in shared memory (free after the loop's
-  // last barrier), then each quad of rows 4i .. 4i + 3 (one word row,
-  // bytes 0-3, one field) ORed into its words
-  uint8_t* const stage = reinterpret_cast<uint8_t*>(smem);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          stage[row_of(mt, h) * BNT + wn + nt * 8 + 2 * t4 + j] =
-              (uint8_t)requant(acc[mt][nt][2 * h + j], p.out_bits, 0);
-  __syncthreads();
-  int32_t* const out = static_cast<int32_t*>(p.out);
-  for (int it = tid; it < (BM / 4) * BNT; it += THREADS) {
-    const int quad = it / BNT, n = it % BNT;
-    int wrow, sh;
-    row_slot<F>(m0 + 4 * quad, p.tm, wrow, sh);
-    uint32_t word = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) word |= (uint32_t)stage[(4 * quad + k) * BNT + n] << (8 * k + sh);
-    atomicOr(reinterpret_cast<unsigned int*>(out + (size_t)wrow * p.np + n0 + n), word);
-  }
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + row_of(mt, h), col = n0 + wn + nt * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(p.out + (size_t)row * p.np + col) =
+            make_float2((float)acc[mt][nt][2 * h], (float)acc[mt][nt][2 * h + 1]);
+      }
 }
 
-template <int V, int F, int NT, bool PACK>
+template <int V, int F, int NT>
 int launch_exp(const ExpArgs& p, cudaStream_t s) {
-  auto kern = exp_packmm_kernel<V, F, NT, PACK>;
+  auto kern = exp_packmm_kernel<V, F, NT, false>;
   const size_t smem = smem_bytes<V, NT>(p.kp);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -318,16 +285,16 @@ int launch_exp(const ExpArgs& p, cudaStream_t s) {
 }
 
 // One variant at field width f (V_INT8: any) and column tile 16 * nt.
-template <int V, bool PACK = false>
+template <int V>
 int launch_fields(const ExpArgs& p, int f, int nt, cudaStream_t s) {
   if (nt != 1 && nt != 4) return (int)cudaErrorInvalidValue;
   if constexpr (V == V_INT8) {
-    return nt == 1 ? launch_exp<V, 8, 1, PACK>(p, s) : launch_exp<V, 8, 4, PACK>(p, s);
+    return nt == 1 ? launch_exp<V, 8, 1>(p, s) : launch_exp<V, 8, 4>(p, s);
   } else {
     switch (f) {
-      case 1: return nt == 1 ? launch_exp<V, 1, 1, PACK>(p, s) : launch_exp<V, 1, 4, PACK>(p, s);
-      case 2: return nt == 1 ? launch_exp<V, 2, 1, PACK>(p, s) : launch_exp<V, 2, 4, PACK>(p, s);
-      case 4: return nt == 1 ? launch_exp<V, 4, 1, PACK>(p, s) : launch_exp<V, 4, 4, PACK>(p, s);
+      case 1: return nt == 1 ? launch_exp<V, 1, 1>(p, s) : launch_exp<V, 1, 4>(p, s);
+      case 2: return nt == 1 ? launch_exp<V, 2, 1>(p, s) : launch_exp<V, 2, 4>(p, s);
+      case 4: return nt == 1 ? launch_exp<V, 4, 1>(p, s) : launch_exp<V, 4, 4>(p, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -138,18 +138,6 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
                : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ void ldsm4_u(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 16 bytes global -> shared address `dst`, bypassing L1.
-__device__ __forceinline__ void cp_async16_u(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-
 __device__ __forceinline__ uint32_t dp4(uint32_t v, uint32_t acc) {
   return (uint32_t)__dp4a((int)v, 0x01010101, (int)acc);
 }
@@ -254,18 +242,6 @@ struct Chain {
       const uint32_t x3 = __ldg(reinterpret_cast<const uint32_t*>(src + 3 * np));
       transpose4(wt + (size_t)e * nw * ld + (4 * nq) * ld + 4 * kq, ld, x0, x1, x2, x3);
     }
-  }
-
-  // Rows x0..x3 of a 4 x 4 byte block -> its columns, 4 bytes each, at dst,
-  // dst + ld, ... (the block transposed).
-  static __device__ __forceinline__ void transpose4(int8_t* dst, int ld, uint32_t x0, uint32_t x1,
-                                                    uint32_t x2, uint32_t x3) {
-    const uint32_t lo01 = __byte_perm(x0, x1, 0x5140), hi01 = __byte_perm(x0, x1, 0x7362);
-    const uint32_t lo23 = __byte_perm(x2, x3, 0x5140), hi23 = __byte_perm(x2, x3, 0x7362);
-    *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-    *reinterpret_cast<uint32_t*>(dst + ld) = __byte_perm(lo01, lo23, 0x7632);
-    *reinterpret_cast<uint32_t*>(dst + 2 * ld) = __byte_perm(hi01, hi23, 0x5410);
-    *reinterpret_cast<uint32_t*>(dst + 3 * ld) = __byte_perm(hi01, hi23, 0x7632);
   }
 
   // 4 bytes of X as the ND_X planes the chain multiplies.

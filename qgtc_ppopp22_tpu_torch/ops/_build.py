@@ -127,15 +127,18 @@ def library() -> ctypes.CDLL:
         lib.qgtc_bitmm.argtypes = [p] * 7
         lib.qgtc_bitmm.restype = i
         # The kernel-study probes (benchmarks/): (out, a, b, variant,
-        # field_bits, mp, kp, np, tm, out_bits, stream), csrc/exp_packmm.cu;
-        # (out, x, m, n, stream) and (a_regs, b_regs, a, b, stream),
-        # csrc/exp_bitcast_probe.cu; (out, x, B, pn, xp, oc, G, stream) and
-        # (out, x, s, B, pn, oc, K, stream), csrc/grid_overhead.cu.
-        probes = {"qgtc_exp_packmm": [p, p, p, i, i, i, i, i, i, i, p],
+        # field_bits, mp, kp, np, tm, stream), csrc/exp_packmm.cu; (out, a,
+        # b, field_bits, out_bits, mp, kp, np, g, bnt, splits, stages,
+        # depth, stream), csrc/exp_packmm_packed.cu; (out, x, m, n, stream) and
+        # (a_regs, b_regs, a, b, stream), csrc/exp_bitcast_probe.cu; (out, x,
+        # B, pn, xp, oc, G, rows, cl, stream) and (out, x, s, B, pn, oc, K,
+        # rows, cl, stages, stream), csrc/grid_overhead.cu.
+        probes = {"qgtc_exp_packmm": [p, p, p] + [i] * 6 + [p],
+                  "qgtc_exp_packedout": [p, p, p] + [i] * 10 + [p],
                   "qgtc_bitcast32to8": [p, p, i, i, p], "qgtc_bitcast8to32": [p, p, i, i, p],
                   "qgtc_fragment_probe": [p, p, p, p, p],
-                  "qgtc_zero_body": [p, p, i, i, i, i, i, p],
-                  "qgtc_kdot": [p, p, p, i, i, i, i, p]}
+                  "qgtc_zero_body": [p, p] + [i] * 7 + [p],
+                  "qgtc_kdot": [p, p, p] + [i] * 7 + [p]}
         for entry, args in probes.items():
             getattr(lib, entry).argtypes = args
             getattr(lib, entry).restype = i
