@@ -105,11 +105,14 @@ Runs, and stops with a non-zero exit at the first failure:
    builders' maps (equal to dense) and hand-made ones (occupied tiles left
    out, a tile listed twice, kcnt 0, -1 and past the grid, entries outside
    it); each call must launch once with its map. Then the kernel-study
-   probes (``qgtc_ppopp22_tpu_torch/benchmarks``): P1's packed-A template
-   (``exp_packmm``) in every variant at 1/2/4 bits, tm 256 and 512, 16-,
-   48- and 64-column B and C1's 2560 x 2560 (noextract against its own
-   plain version, the int8 A and, at tm 256, K2's own loader against the
-   packed product); P1b's packed out (``exp_packmm_packed.cu``, CTAs
+   probes (``qgtc_ppopp22_tpu_torch/benchmarks``): P1a's ring loop
+   (``exp_packmm``: word-row CTAs, split-K) in every variant at 1/2/4
+   bits, tm 256 and 512, 16-, 48- and 64-column B and C1's 2560 x 2560
+   (noextract against its own plain version, the int8 A and, at tm 256,
+   concat on K2's row ranges against the packed product), at its default
+   plan and on each K step with 3 slots; concat, slabs and int8 under
+   every forced plan of ``exp_packmm_plan`` at C1's shape and at 4096^2 x
+   64, each output twice after filling its block with -1, then NaN; P1b's packed out (``exp_packmm_packed.cu``, CTAs
    that own whole word rows) under every forced plan of
    ``packedout_plan`` (column tile, K step, split, ring) at 1/2/4 bits,
    layout tiles of 256, 512, 768, 1024 and 4096 rows, Np 16, 48 and 64,
@@ -223,9 +226,9 @@ Runs, and stops with a non-zero exit at the first failure:
    counts reset just before and each probe kernel launched: P2's three
    tables (bytes in the TPU's interpret-mode order, the fragments in the
    PTX ISA's layout), JAX's ten ``run_packedout`` rows (each exact), the
-   per-K-step ladder at C1's aggregation (every variant, the int8 A, the
-   64-column tile, concat with K2's loader, K2 and ``torch._int_mm``, each
-   equal to plain first) and P3's zero-body and K-dot rows (random
+   per-K-step ladder at C1's aggregation (every variant, the int8 A,
+   concat on K2's row ranges, K2 and ``torch._int_mm``, each equal to
+   plain first, each P1a row with its plan's K step) and P3's zero-body and K-dot rows (random
    operands, each call equal to plain first) and layer-fit rows (K1 at
    1/3/5 layers).
    Timing: ms/epoch of the step engine (host clock around all epochs
@@ -275,7 +278,8 @@ Runs, and stops with a non-zero exit at the first failure:
    each probe kernel at its study's shape beside plain, bound and a
    library yardstick where one PyTorch call computes the same function:
    for P1 ``torch._int_mm`` on the unpacked levels, for P2's bitcasts a
-   strided copy of the bytes, for P3b K ``torch._int_mm`` calls of S by
+   strided copy of the bytes (and P2a beside the launch floor, the device
+   time of ``torch.zeros(1)``'s fill in the same session), for P3b K ``torch._int_mm`` calls of S by
    the 50 batches' rolled columns side by side, only the round_up(oc, 8)
    that the function keeps, none for the zero body
    (taking turns over copies of X, so each call reads X from HBM); K2's
@@ -789,9 +793,16 @@ def main() -> int:
     # K1-K6: one line each for all their instantiations
     k2_regs, k2_spill, k6_regs, k6_spill, k1_regs, k1_spill, k3_regs, k3_spill = {}, {}, {}, {}, {}, {}, {}, {}
     k5_regs, k5_spill, k4_regs, k4_spill, serialized = {}, {}, {}, {}, []
+    p1_regs, p1_spill = {}, {}  # P1a's kernel, likewise
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
+            k = re.search(r"exp_packmm_kernelILi(\d)ELi(\d)ELi(\d+)E", entry)
+            if k:
+                variant = ("concat", "slabs", "noextract", "bres", "bres_chunk", "int8", "rowrange")[int(k[1])]
+                entry = f"exp_packmm_kernel<{variant}, f {k[2]}, {k[3]} columns>"
+                p1_spill[entry] = 0
+                continue
             k = re.search(r"k2_kernelILi(\d)ELi(\d)ELi(\d+)ELb(\d)ELb(\d)E", entry)
             if k:
                 entry = (f"k2_kernel<{k[1]}-bit A, {k[2]} B plane(s), {k[3]} columns"
@@ -825,16 +836,16 @@ def main() -> int:
                          f"H x{k[4]}, {k[5]} rows>")
                 k1_spill[entry] = 0
                 continue
-            entry = next((entry[entry.find(k):][:60] for k in ("exp_packmm_kernel",
-                                                                  "packedout_kernel", "bitcast",
+            entry = next((entry[entry.find(k):][:60] for k in ("packedout_kernel", "bitcast",
                                                                   "fragment_probe", "zero_body_kernel",
                                                                   "kdot_kernel")
                           if k in entry), entry[-60:])
         elif "wgmma" in line and "serialized" in line:  # ptxas C7512 / C7520
             serialized.append((entry, line.strip()))
         elif entry in k2_spill or entry in k6_spill or entry in k1_spill or entry in k3_spill or entry in k5_spill \
-                or entry in k4_spill:
+                or entry in k4_spill or entry in p1_spill:
             regs, spill = ((k2_regs, k2_spill) if entry in k2_spill else
+                           (p1_regs, p1_spill) if entry in p1_spill else
                            (k4_regs, k4_spill) if entry in k4_spill else
                            (k6_regs, k6_spill) if entry in k6_spill else
                            (k3_regs, k3_spill) if entry in k3_spill else
@@ -882,6 +893,12 @@ def main() -> int:
     print(f"  ptxas: k1_kernel, {len(k1_regs)} instantiations (X digits x1/x2, split x1/x2, signed x W "
           f"planes x H planes x 64/128 rows): {min(k1_regs.values())}-{max(k1_regs.values())} registers, "
           f"0 bytes of spill; " + ", ".join(f"{k} {v}" for k, v in k1_regs.items() if "x1, W x1, H x1" in k))
+    if len(p1_regs) != 57 or any(p1_spill.values()):
+        raise AssertionError(f"exp_packmm_kernel: {len(p1_regs)} instantiations (want 57), spills "
+                             f"{ {k: v for k, v in p1_spill.items() if v} }")
+    print(f"  ptxas: exp_packmm_kernel (P1a), {len(p1_regs)} instantiations (6 packed variants x f 1/2/4 x "
+          f"columns 16/32/64, int8 x columns): {min(p1_regs.values())}-{max(p1_regs.values())} registers, "
+          f"0 bytes of spill; " + ", ".join(f"{k} {v}" for k, v in p1_regs.items() if "f 1, 16 columns" in k))
 
     # -- phase 1: kernel vs plain --------------------------------------
     err = {"packmm": 0.0, "digitmm": 0.0, "fused_model": 0.0, "fused_baseline": 0.0, "bitmm": 0.0,
@@ -1327,20 +1344,6 @@ def main() -> int:
         return (qa, torch.from_numpy(exp_packmm.pack_rows_np(qa, bits, tm)[None]).to(dev),
                 torch.from_numpy(qb.astype(np.int8)[None]).to(dev))
 
-    for bits in (1, 2, 4):
-        for (M, K, Np, tm) in ((512, 256, 16, 256), (768, 640, 64, 256), (1024, 512, 48, 512), (2560, 2560, 16, 256)):
-            qa, words, b = probe_words(SEED + bits + M + Np, M, K, Np, bits, tm)
-            tag = f"bits={bits} M={M} K={K} Np={Np} tm={tm}"
-            for v in exp_packmm.VARIANTS:
-                if not v.startswith("bres") or exp_packmm.bres_fits(K, Np):
-                    compare("exp_packmm", exp_packmm.packmm_exp(words, b, bits, tm, v),
-                            exp_packmm.packmm_exp_plain(words, b, bits, tm, v), f"packmm_exp {v} {tag}")
-            compare("exp_packmm", exp_packmm.packmm_exp_int8(torch.from_numpy(qa.astype(np.int8)[None]).to(dev), b),
-                    exp_packmm.packmm_exp_plain(words, b, bits, tm), f"packmm_exp int8 A {tag}")
-            if tm == 256:
-                compare("exp_packmm", exp_packmm.packmm_exp_k2loader(words, b, bits),
-                        exp_packmm.packmm_exp_plain(words, b, bits, tm), f"packmm_exp k2loader {tag}")
-
     # each output of a forced plan twice, its block first filled with each
     # of `fills` (freed: the output may take it), so that an element the
     # kernel leaves unwritten shows
@@ -1348,6 +1351,57 @@ def main() -> int:
         for i, fill in enumerate(fills):
             torch.full_like(want, fill)
             compare(kind, run(), want, what if i == 0 else f"{what}, computed again")
+
+    # P1a (csrc/exp_packmm.cuh: the probes' ring, word-row CTAs, split-K):
+    # every variant at its default plan at 1, 2 and 4 bits over tm 256 and
+    # 512, 16-64 columns, K of 2-10 deep steps; each variant also on each
+    # K step that divides K with 3 slots; then concat, slabs and int8 under
+    # every forced plan (column tile x split 1-8 x slots x K step) at C1's
+    # shape and at 4096^2 x 64, each output twice
+    t1, p1_before, p1_calls = time.perf_counter(), exp_packmm.LAUNCHES, 0
+    for bits in (1, 2, 4):
+        for (M, K, Np, tm) in ((512, 256, 16, 256), (768, 640, 64, 256), (1024, 512, 48, 512), (2560, 2560, 16, 256)):
+            qa, words, b = probe_words(SEED + bits + M + Np, M, K, Np, bits, tm)
+            a8 = torch.from_numpy(qa.astype(np.int8)[None]).to(dev)
+            tag = f"bits={bits} M={M} K={K} Np={Np} tm={tm}"
+            ref = exp_packmm.packmm_exp_plain(words, b, bits, tm)
+            runs = {v: (lambda pl=None, v=v: exp_packmm.packmm_exp(words, b, bits, tm, v, _plan=pl),
+                        exp_packmm.packmm_exp_plain(words, b, bits, tm, v) if v == "noextract" else ref)
+                    for v in exp_packmm.VARIANTS if not v.startswith("bres") or exp_packmm.bres_fits(M, K, Np, bits, tm)}
+            runs["int8"] = (lambda pl=None: exp_packmm.packmm_exp_int8(a8, b, _plan=pl), ref)
+            if tm == 256:
+                runs["rowrange"] = (lambda pl=None: exp_packmm.packmm_exp_rowrange(words, b, bits, _plan=pl), ref)
+            for v, (run, want) in runs.items():
+                compare("exp_packmm", run(), want, f"packmm_exp {v} {tag}")
+                p1_calls += 1
+                for depth in (d for d in exp_packmm.DEPTHS if K % d == 0):
+                    plan = exp_packmm.exp_packmm_plan(M, K, Np, bits, tm, v, stages=3, depth=depth)
+                    compare("exp_packmm", run(plan), want, f"packmm_exp {v} {tag} plan {plan}")
+                    p1_calls += 1
+    for M, K, Np, bits in ((2560, 2560, 16, 1), (4096, 4096, 64, 1), (4096, 4096, 64, 2), (4096, 4096, 64, 4)):
+        qa, words, b = probe_words(SEED + bits + M + Np, M, K, Np, bits, 256)
+        a8 = torch.from_numpy(qa.astype(np.int8)[None]).to(dev)
+        ref = exp_packmm.packmm_exp_plain(words, b, bits, 256)
+        for v, run in (("concat", lambda pl: exp_packmm.packmm_exp(words, b, bits, 256, "concat", _plan=pl)),
+                       ("slabs", lambda pl: exp_packmm.packmm_exp(words, b, bits, 256, "slabs", _plan=pl)),
+                       ("int8", lambda pl: exp_packmm.packmm_exp_int8(a8, b, _plan=pl))):
+            if v == "int8" and bits != 1:
+                continue  # one int8 A a shape
+            for bnt, splits, stages, depth in itertools.product(
+                    exp_packmm.TILES, range(1, exp_packmm.MAX_SPLIT + 1), exp_packmm.STAGES,
+                    exp_packmm.DEPTHS):
+                try:
+                    plan = exp_packmm.exp_packmm_plan(M, K, Np, bits, 256, v, bnt, splits, stages, depth)
+                except ValueError:
+                    continue
+                twice("exp_packmm", lambda: run(plan), ref,
+                      f"packmm_exp {v} bits={bits} M=K={M} Np={Np} plan {plan}", (-1.0, float("nan")))
+                p1_calls += 2
+    if exp_packmm.LAUNCHES - p1_before != p1_calls:
+        raise AssertionError("P1a: a case did not launch the kernel once")
+    print(f"phase 1: P1a every variant at its default plan and each K step, then concat, slabs and int8 under "
+          f"every forced plan, {p1_calls} launches (forced plans twice), == plain "
+          f"({time.perf_counter() - t1:.1f} s)")
 
     # P1b's packed output (csrc/exp_packmm_packed.cu: CTAs that own whole
     # word rows) under every forced plan of packedout_plan (column tile; K
@@ -1364,8 +1418,8 @@ def main() -> int:
                 group = 0 if g == M else g  # layout tile g: as tm, or as the group of a tm of M
                 want = exp_packmm.packmm_exp_packedout_plain(words, b, bits, M, group)
                 for bnt, splits, stages, depth in itertools.product(
-                        exp_packmm.PACKEDOUT_TILES, range(1, exp_packmm.PACKEDOUT_MAX_SPLIT + 1),
-                        exp_packmm.PACKEDOUT_STAGES, exp_packmm.PACKEDOUT_DEPTHS):
+                        exp_packmm.TILES, range(1, exp_packmm.MAX_SPLIT + 1),
+                        exp_packmm.STAGES, exp_packmm.DEPTHS):
                     try:
                         plan = exp_packmm.packedout_plan(M, K, Np, bits, g, bnt, splits, stages, depth)
                     except ValueError:
@@ -2142,7 +2196,7 @@ def main() -> int:
               f"{r['us']:.2f} us, {r['tflops']:.3f} TFLOP/s, exact [{card}]")
     for r in ladder_rows:
         print(f"phase 3: P1 ladder bits={r['bits']} M=K={r['M']} N={r['N']} {r['row']}: {r['us']:.2f} us, "
-              f"{r['us_per_step']:.3f} us per 64-deep K step, {r['tflops']:.3f} TFLOP/s [{card}]")
+              f"{exp_packmm.ladder_step(r)}, {r['tflops']:.3f} TFLOP/s [{card}]")
     for r in study_rows:
         print("phase 3: P3 " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
                                          for k, v in r.items()) + f" [{card}]")
@@ -2548,6 +2602,10 @@ def main() -> int:
     for kind, fn in lib_calls.items():
         for rep in (0, 1):
             fns[(kind, "library", rep)] = fn
+    # P2a's floor, in the probes' session: the device time of the smallest
+    # kernel PyTorch launches (torch.zeros(1)'s fill)
+    for rep in (0, 1):
+        fns[("launch floor", "floor", rep)] = lambda: torch.zeros(1, device=dev)
     # every kernel-sweep row, in the same session
     for fig, cases in sweep.items():
         for i, c in enumerate(cases):
@@ -2566,7 +2624,7 @@ def main() -> int:
     bucket_idx = {i for i, t in enumerate(timed) if t[0] in other_buckets}
 
     def session(k):
-        return (1 if k[0] in probe_idx or k[0] in probe_kinds else 2 if k[0] in captured_idx
+        return (1 if k[0] in probe_idx or k[0] in probe_kinds or k[0] == "launch floor" else 2 if k[0] in captured_idx
                 else 3 if k[0] in bucket_idx else 0)
 
     dt = {}
@@ -2797,6 +2855,9 @@ def main() -> int:
         lib = f", library {lib_ms[k] * 1e3:.1f} us" if k in lib_ms else ""
         print(f"phase 3: {k} bound {b_ms * 1e3:.2f} us ({by}); kernel {times[k][0] * 1e3:.1f} us, "
               f"plain {times[k][1] * 1e3:.1f} us{lib} [{card}]")
+    floor_ms = min(dt[("launch floor", "floor", 0)], dt[("launch floor", "floor", 1)])
+    print(f"phase 3: bitcast32to8 kernel {times['bitcast32to8'][0] * 1e3:.2f} us against the launch floor "
+          f"{floor_ms * 1e3:.2f} us (torch.zeros(1)'s fill, the same profiler session) [{card}]")
 
     sources = {"packmm": ("packmm_k2.cuh", "qgtc_ppopp22_tpu/ops/packmm.py:664", launches),
                "digitmm": ("digitmm_k3.cuh", "qgtc_ppopp22_tpu/ops/digitmm.py:193", launches),

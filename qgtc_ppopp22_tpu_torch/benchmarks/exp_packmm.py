@@ -12,7 +12,9 @@ PyTorch version:
   (``VARIANTS``: concat, slabs, noextract, bres, bres_chunk; the JAX
   script's names, the card's mechanisms, in the kernel's source),
   :func:`packmm_exp_int8`, the same product with an int8 A, and
-  :func:`packmm_exp_k2loader`, concat with K2's own A loader;
+  :func:`packmm_exp_rowrange`, concat on K2's 64-row ranges: one ring
+  loop whose CTAs own whole word rows (as the packed output's), split-K
+  over a cluster, sized by :func:`exp_packmm_plan`;
 * :func:`packmm_exp_packedout`: the requantized product repacked in A's
   layout, per ``group`` rows (the reference's ``bitMM2Bit_profile`` op), by
   a kernel of its own (``csrc/exp_packmm_packed.cu``) whose CTAs own whole
@@ -20,15 +22,16 @@ PyTorch version:
   :func:`word_row_ctas`): timed beside K2's packed route at the same
   shapes, it reads what K2's row ranges of a 256-row group cost.
 
-The card's question: what one 64-deep K step of ``gemm_core.cuh``'s loop
-spends on the unpack of A, on staging it in shared memory and on the
-MMAs. :func:`ladder` times every variant on one K loop beside K2
-(``packmm_to_f32``) and ``torch._int_mm`` on the unpacked operands, and
-reports us per call, us per K step and TFLOP/s (``2*M*N*K``).
+The card's question: what a K step of the probes' ring loop
+(``csrc/probe_ring.cuh``) spends on the unpack of A, on staging it in
+shared memory and on the MMAs. :func:`ladder` times every variant on that
+loop beside K2 (``packmm_to_f32``) and ``torch._int_mm`` on the unpacked
+operands, and reports us per call, us per K step (of the plan's depth)
+and TFLOP/s (``2*M*N*K``).
 
 Dispatch: CPU tensors run the plain versions; CUDA tensors launch the
 kernel (``LAUNCHES``, ``PACKEDOUT_LAUNCHES``) or raise. ``tk`` (a TPU
-block size) is accepted and unused: the kernel's K step is 64.
+block size) is accepted and unused: the plan sets the K step.
 
 Usage (needs a CUDA device)::
 
@@ -55,8 +58,8 @@ from qgtc_ppopp22_tpu_torch.ops.quantize import requantize_wrapped
 
 VARIANTS = ("concat", "slabs", "noextract", "bres", "bres_chunk")
 _CODE = {"concat": 0, "slabs": 1, "noextract": 2, "bres": 3, "bres_chunk": 4, "int8": 5,
-         "k2loader": 6}  # csrc Variant
-K_STEP = 64  # the kernel's K step (csrc/gemm_core.cuh BK)
+         "rowrange": 6}  # csrc Variant
+K_STEP = 64  # the shallowest K step of the probes' ring (a multiple of it divides Kp)
 _SMEM_LIMIT = 227 * 1024  # an H100 CTA's shared memory
 # The per-K-step ladder: (M = K, N, bits); C1's aggregation first
 C1_SHAPE = (2560, 16, 1)
@@ -70,12 +73,13 @@ PACKEDOUT_ROWS = (
     (4096, 4096, 16, 2, 4096, 4096, 256), (4096, 4096, 64, 1, 4096, 4096, 256),
 )
 
-# the packed output's kernel (csrc/exp_packmm_packed.cu)
-PACKEDOUT_TILES = (16, 32, 64)  # column tiles
-PACKEDOUT_STAGES = (4, 3)  # ring depths, K1's
-PACKEDOUT_DEPTHS = (64, 128, 256)  # columns of the contraction a K step holds
-PACKEDOUT_MAX_SPLIT = 8  # CTAs of a split-K cluster: a portable cluster
-PACKEDOUT_RESIDENT = 2 * SMS  # the CTAs the default split fills: two an SM
+# the launch choices of the two ring kernels, P1a's f32 product
+# (csrc/exp_packmm.cuh) and P1b's packed output (csrc/exp_packmm_packed.cu)
+TILES = (16, 32, 64)  # column tiles
+STAGES = (4, 3)  # ring depths, K1's
+DEPTHS = (64, 128, 256)  # columns of the contraction a K step holds
+MAX_SPLIT = 8  # CTAs of a split-K cluster: a portable cluster
+RESIDENT = 2 * SMS  # the CTAs the default split fills: two an SM
 CTA_ROWS = 64  # logical rows a CTA owns
 
 LAUNCHES = 0  # csrc/exp_packmm.cu launches since the count was last reset to 0
@@ -244,67 +248,199 @@ def _int8_shapes(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"operands on {a.device} and {b.device}")
 
 
-def _kernel_shapes(Mp: int, Kp: int, Np: int, tm: Optional[int], variant: str) -> None:
-    """What the kernel indexes beyond JAX's contract: a K step of 64, a
-    column tile of 16 or 64, 64-row CTAs inside one layout tile, and a
-    resident B that fits in shared memory."""
+def _kernel_shapes(Mp: int, Kp: int, Np: int, tm: Optional[int]) -> None:
+    """What the kernels index beyond JAX's contract: 64-row CTAs, a K step
+    of a multiple of 64, a column tile of 16 or more, and layout tiles of
+    a multiple of 256 rows."""
     if Mp % 64 or Kp % K_STEP or Np % 16 or (tm is not None and tm % 256):
         raise ValueError(f"the kernel needs Mp % 64, Kp % {K_STEP}, Np % 16 and tm % 256 to be 0, "
                          f"got Mp={Mp} Kp={Kp} Np={Np} tm={tm}")
-    if variant.startswith("bres") and not bres_fits(Kp, Np):
-        raise ValueError(f"{variant}: B [{Kp} x {bres_tile(Np)}] does not fit in shared memory")
 
 
-def bres_tile(np_: int) -> int:
-    """The kernel's column tile for a B of ``np_`` columns."""
-    return 64 if np_ % 64 == 0 else 16
+def _ring_choices(Mp: int, Kp: int, Np: int, bnt: Optional[int], stages: Optional[int],
+                  depth: Optional[int]) -> tuple:
+    """The column tile, ring depth and K step of a ring kernel's launch
+    (each given one checked, each missing one chosen): the deepest K step
+    that divides Kp; the narrowest tile that holds Np, else the widest that
+    divides it, and where the row CTAs number fewer than 2 an SM, 64
+    columns as two tiles of 32 (as K2's ``packmm_plan``); 4 slots."""
+    if depth is None:
+        depth = next(d for d in reversed(DEPTHS) if Kp % d == 0)
+    if depth not in DEPTHS or Kp % depth:
+        raise ValueError(f"K step {depth}: the kernel takes one of {DEPTHS} dividing Kp={Kp}")
+    if bnt is None:
+        bnt = next((t for t in TILES if t >= Np and Np % t == 0), None) \
+            or next((t for t in reversed(TILES) if Np % t == 0), None)
+        if bnt == 64 and Mp // CTA_ROWS < 2 * SMS:
+            bnt = 32
+    if bnt not in TILES or Np % bnt:
+        raise ValueError(f"column tile {bnt}: the kernel takes one of {TILES} dividing Np={Np}")
+    if stages is not None and stages not in STAGES:
+        raise ValueError(f"ring depth {stages}: the kernel takes {STAGES}")
+    return bnt, stages or STAGES[0], depth
 
 
-def bres_fits(kp: int, np_: int) -> bool:
-    """Whether a CTA's columns of B fit in shared memory whole (bres)."""
-    return bres_tile(np_) * (kp + 16) + 2 * 64 * 80 <= _SMEM_LIMIT
+def _split_cap(tiles: tuple, steps: int) -> int:
+    """The CTAs an output tile may take: two CTAs an SM over the grid's
+    column and row tiles, at most 8 and the K steps."""
+    return max(1, min(MAX_SPLIT, RESIDENT // (tiles[0] * tiles[1]), steps))
 
 
-def _launch(out, a, b, variant: str, f: int, Mp: int, Kp: int, Np: int, tm: int):
-    lib = library()
+@dataclasses.dataclass(frozen=True)
+class ExpPlan:
+    """One launch of P1a's kernel: a grid of ``grid`` = (column tiles, row
+    CTAs, ``splits``) CTAs of 64 rows x ``bnt`` columns, the ``splits`` CTAs
+    of an output tile one cluster, a ring of ``stages`` slots of K steps
+    ``depth`` columns deep, ``smem`` bytes of dynamic shared memory."""
+
+    variant: str
+    bnt: int
+    splits: int
+    stages: int
+    depth: int
+    grid: tuple
+    smem: int
+
+
+def exp_staged_rows(variant: str, f: int) -> int:
+    """The rows of A a CTA stages a K step: its 2 f word rows, K2's 8 (1-bit)
+    or 16 word rows (``rowrange``), or 64 int8 rows."""
+    return CTA_ROWS if variant == "int8" else ((8 if f == 1 else 16) if variant == "rowrange" else 2 * f)
+
+
+def exp_packmm_smem(variant: str, f: int, bnt: int, stages: int, depth: int, share: int) -> int:
+    """P1a's shared memory (``ExpLayout`` in the source) at a K share of
+    ``share`` steps: two int8 A tiles [64][depth + 16] (not slabs, not
+    int8), B's two transposed tiles [bnt][depth + 16] (bres and
+    bres_chunk: the whole share, [bnt][share * depth + 16]), then the ring
+    (the staged rows at a stride of 4 depth + 64 bytes, int8's of depth +
+    16, and unless B is resident B's [depth][bnt] a slot) or, after the
+    loop, the split's int32 sums [64][bnt + 4], whichever is larger."""
+    res = variant in ("bres", "bres_chunk")
+    ald = depth + 16
+    a_tiles = 0 if variant in ("slabs", "int8") else 2 * CTA_ROWS * ald
+    a_ld = depth + 16 if variant == "int8" else 4 * depth + 64
+    slot = exp_staged_rows(variant, f) * a_ld + (0 if res else depth * bnt)
+    b_tiles = bnt * (share * depth + 16) if res else 2 * bnt * ald
+    return a_tiles + b_tiles + max(stages * slot, CTA_ROWS * (bnt + 4) * 4)
+
+
+def exp_packmm_plan(Mp: int, Kp: int, Np: int, bits: int, tm: int, variant: str, bnt: Optional[int] = None,
+                    splits: Optional[int] = None, stages: Optional[int] = None,
+                    depth: Optional[int] = None) -> ExpPlan:
+    """P1a's launch for ``variant`` (one of ``VARIANTS``, ``int8`` or
+    ``rowrange``) at ``Mp`` x ``Kp`` levels, B of ``Np`` columns,
+    ``bits``-bit levels in the layout of tile ``tm`` (int8: both unused). A
+    CTA owns 64 rows (the word-row map of :func:`word_row_ctas`; int8 and
+    rowrange: consecutive rows) and ``bnt`` columns, chosen as
+    :func:`packedout_plan` chooses them; K steps of the deepest of 256, 128
+    and 64 columns that divides Kp; a cap of ``RESIDENT //
+    (column tiles x row CTAs)`` CTAs an output tile, at most 8 and the K
+    steps, and the fewest CTAs that give each the cap's share of the steps
+    (C1: 10 steps, cap 6, split 5 of 2 steps each), raised where bres's
+    resident B share would not fit; 4 ring slots. Each argument given
+    forces that choice (a split of 1 to 8, no more than the K steps; 3 or
+    4 slots); raises ``ValueError`` on a plan the kernel cannot run (more
+    than 227 KB of shared memory included; its C entry refuses the same).
+
+    Measured (an H100 80GB HBM3 at 700 W, ``benchmarks/gemm_times.py
+    --probes-only --plans``; ``PERF.md`` §6): 256-deep steps were
+    the fastest at C1's 1-bit 2560² x 16 and at 4096² x 64 for concat,
+    slabs and int8; at C1 the even split of 5 beat 6 (one CTA of the 6 had
+    no step, the rest 2) by ~1 us; 3 or 4 slots read the same."""
+    return _cached_exp_plan(Mp, Kp, Np, bits, tm, variant, bnt, splits, stages, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_exp_plan(Mp, Kp, Np, bits, tm, variant, bnt, splits, stages, depth) -> ExpPlan:
+    if variant not in _CODE:
+        raise ValueError(f"unknown variant {variant!r}; choose from {tuple(_CODE)}")
+    packed = variant != "int8"
+    if packed and not 1 <= bits <= 4:
+        raise ValueError(f"the packed probe takes 1-4 bit levels, got {bits}")
+    if Mp <= 0 or Kp <= 0 or Np <= 0 or Mp % CTA_ROWS or Kp % K_STEP:
+        raise ValueError(f"the kernel needs Mp % 64 and Kp % {K_STEP} to be 0, got Mp={Mp} Kp={Kp} Np={Np}")
+    if packed and (tm <= 0 or tm % 256 or Mp % tm):
+        raise ValueError(f"layout tile tm={tm}: the kernel needs tm % 256 and Mp % tm to be 0 (Mp={Mp})")
+    if variant == "rowrange" and tm != 256:
+        raise ValueError(f"rowrange reads K2's layout, tm 256, not {tm}")
+    bnt, stages, depth = _ring_choices(Mp, Kp, Np, bnt, stages, depth)
+    steps = Kp // depth
+    tiles = (Np // bnt, Mp // CTA_ROWS)
+    f = field_bits(bits) if packed else 8
+
+    def smem(s):
+        return exp_packmm_smem(variant, f, bnt, stages, depth, -(-steps // s))
+
+    if splits is None:
+        cap = _split_cap(tiles, steps)
+        splits = -(-steps // -(-steps // cap))  # the fewest CTAs that give cap's share
+        while smem(splits) > _SMEM_LIMIT and splits < min(MAX_SPLIT, steps):
+            splits += 1  # bres: a smaller share of B
+    if not 1 <= splits <= min(MAX_SPLIT, steps):
+        raise ValueError(f"split {splits}: the kernel takes 1..{min(MAX_SPLIT, steps)}")
+    if smem(splits) > _SMEM_LIMIT:
+        raise ValueError(f"{variant}: {smem(splits)} bytes of shared memory (bnt {bnt}, split {splits}, "
+                         f"{stages} slots of {depth} columns) pass the {_SMEM_LIMIT} a CTA has")
+    return ExpPlan(variant, bnt, splits, stages, depth, (*tiles, splits), smem(splits))
+
+
+def bres_fits(Mp: int, Kp: int, Np: int, bits: int, tm: int = 256) -> bool:
+    """Whether bres and bres_chunk have a plan at this shape: each CTA's K
+    share of B's column tile fits in shared memory whole, at some split."""
+    try:
+        exp_packmm_plan(Mp, Kp, Np, bits, tm, "bres")
+        exp_packmm_plan(Mp, Kp, Np, bits, tm, "bres_chunk")
+    except ValueError:
+        return False
+    return True
+
+
+def _launch(out, a, b, variant: str, f: int, Mp: int, Kp: int, Np: int, tm: int, plan: ExpPlan):
+    if plan.variant != variant:
+        raise ValueError(f"a {plan.variant} plan for a {variant} launch")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.qgtc_exp_packmm(out.data_ptr(), _gemm._operand(a, a.dtype, "A"),
-                                  _gemm._operand(b, torch.int8, "B"), _CODE[variant], f, Mp, Kp, Np,
-                                  tm, stream)
+        err = library().qgtc_exp_packmm(out.data_ptr(), _gemm._operand(a, a.dtype, "A"),
+                                        _gemm._operand(b, torch.int8, "B"), _CODE[variant], f, Mp, Kp, Np, tm,
+                                        plan.bnt, plan.splits, plan.stages, plan.depth, stream)
     check(err, f"qgtc_exp_packmm({variant})")
     return out
 
 
 def packmm_exp(words: torch.Tensor, b: torch.Tensor, bits: int, tm: int, variant: str = "concat",
-               tk: Optional[int] = None) -> torch.Tensor:
+               tk: Optional[int] = None, _plan: Optional[ExpPlan] = None) -> torch.Tensor:
     """words int32 [1, Mp/rpw, Kp] (layout tile ``tm``) x B int8 [1, Kp,
     Np] -> float32 [Mp, Np] = A.B exactly (``noextract``: its ablation's
-    product, see :func:`noextract_levels`)."""
+    product, see :func:`noextract_levels`). On the card
+    :func:`exp_packmm_plan` sets the launch (``_plan`` forces one)."""
     global LAUNCHES
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; choose from {VARIANTS}")
     if not words.is_cuda:
         return packmm_exp_plain(words, b, bits, tm, variant)
     f, Mp, Kp, Np = _shapes(words, b, bits, tm)
-    _kernel_shapes(Mp, Kp, Np, tm, variant)
-    out = torch.empty((Mp, Np), dtype=torch.float32, device=words.device)
-    _launch(out, words, b, variant, f, Mp, Kp, Np, tm)
+    _kernel_shapes(Mp, Kp, Np, tm)
+    plan = _plan or exp_packmm_plan(Mp, Kp, Np, bits, tm, variant)
+    out = torch.empty((Mp, Np), dtype=torch.float32, device=words.device)  # written whole
+    _launch(out, words, b, variant, f, Mp, Kp, Np, tm, plan)
     LAUNCHES += 1
     return out
 
 
-def packmm_exp_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def packmm_exp_int8(a: torch.Tensor, b: torch.Tensor, _plan: Optional[ExpPlan] = None) -> torch.Tensor:
     """An int8 A [1, Mp, Kp] x B int8 [1, Kp, Np] -> float32 [Mp, Np]: the
-    probe's K loop with A staged by ``gemm_core.cuh``'s ``Int8Loader``."""
+    probe's ring loop with A's 64 rows staged as they are (8 / f times the
+    packed bytes); ``_plan`` forces a launch."""
     global LAUNCHES
     if not a.is_cuda:
         return packmm_exp_int8_plain(a, b)
     _int8_shapes(a, b)
     Mp, Kp, Np = a.shape[1], a.shape[2], b.shape[2]
-    _kernel_shapes(Mp, Kp, Np, None, "int8")
+    _kernel_shapes(Mp, Kp, Np, None)
+    plan = _plan or exp_packmm_plan(Mp, Kp, Np, 8, 0, "int8")
     out = torch.empty((Mp, Np), dtype=torch.float32, device=a.device)
-    _launch(out, a, b, "int8", 8, Mp, Kp, Np, 0)
+    _launch(out, a, b, "int8", 8, Mp, Kp, Np, 0, plan)
     LAUNCHES += 1
     return out
 
@@ -346,7 +482,7 @@ def packedout_plan(Mp: int, Kp: int, Np: int, bits: int, g: int, bnt: Optional[i
     CTAs number fewer than 2 an SM, 64 columns are two tiles of 32 (as K2's
     ``packmm_plan``). K steps of the deepest of 256, 128 and 64 columns
     that divides Kp (a step's barrier and chain of loads cost more than
-    its MMAs). The split makes two CTAs an SM, ``PACKEDOUT_RESIDENT //
+    its MMAs). The split makes two CTAs an SM, ``RESIDENT //
     (column tiles x row CTAs)``, at most 8 and the K steps; 4 ring slots.
     Each argument given forces that choice (a split of 1 to 8, no more
     than the K steps; 3 or 4 slots); raises ``ValueError`` on a plan the
@@ -367,26 +503,13 @@ def _cached_packedout_plan(Mp, Kp, Np, bits, g, bnt, splits, stages, depth) -> P
     if Mp <= 0 or Kp <= 0 or Np <= 0 or g <= 0 or g % 256 or Mp % g or Kp % K_STEP:
         raise ValueError(f"the kernel needs g % 256, Mp % g and Kp % {K_STEP} to be 0, got Mp={Mp} Kp={Kp} "
                          f"Np={Np} g={g}")
-    if depth is None:
-        depth = next(d for d in reversed(PACKEDOUT_DEPTHS) if Kp % d == 0)
-    if depth not in PACKEDOUT_DEPTHS or Kp % depth:
-        raise ValueError(f"K step {depth}: the kernel takes one of {PACKEDOUT_DEPTHS} dividing Kp={Kp}")
-    if bnt is None:
-        bnt = next((t for t in PACKEDOUT_TILES if t >= Np and Np % t == 0), None) \
-            or next((t for t in reversed(PACKEDOUT_TILES) if Np % t == 0), None)
-        if bnt == 64 and Mp // CTA_ROWS < 2 * SMS:
-            bnt = 32
-    if bnt not in PACKEDOUT_TILES or Np % bnt:
-        raise ValueError(f"column tile {bnt}: the kernel takes one of {PACKEDOUT_TILES} dividing Np={Np}")
+    bnt, stages, depth = _ring_choices(Mp, Kp, Np, bnt, stages, depth)
     steps = Kp // depth
     tiles = (Np // bnt, Mp // CTA_ROWS)
     if splits is None:
-        splits = max(1, min(PACKEDOUT_MAX_SPLIT, PACKEDOUT_RESIDENT // (tiles[0] * tiles[1]), steps))
-    if not 1 <= splits <= min(PACKEDOUT_MAX_SPLIT, steps):
-        raise ValueError(f"split {splits}: the kernel takes 1..{min(PACKEDOUT_MAX_SPLIT, steps)}")
-    if stages is not None and stages not in PACKEDOUT_STAGES:
-        raise ValueError(f"ring depth {stages}: the kernel takes {PACKEDOUT_STAGES}")
-    stages = stages or PACKEDOUT_STAGES[0]
+        splits = _split_cap(tiles, steps)
+    if not 1 <= splits <= min(MAX_SPLIT, steps):
+        raise ValueError(f"split {splits}: the kernel takes 1..{min(MAX_SPLIT, steps)}")
     return PackedOutPlan(bnt, splits, stages, depth, (*tiles, splits),
                          packedout_smem(field_bits(bits), bnt, stages, depth))
 
@@ -418,7 +541,7 @@ def packmm_exp_packedout(words: torch.Tensor, b: torch.Tensor, bits: int, tm: in
         return packmm_exp_packedout_plain(words, b, bits, tm, group)
     g = group or tm
     f, Mp, Kp, Np = _shapes(words, b, bits, g)
-    _kernel_shapes(Mp, Kp, Np, g, "concat")
+    _kernel_shapes(Mp, Kp, Np, g)
     plan = _plan or packedout_plan(Mp, Kp, Np, bits, g)
     out = torch.empty((1, Mp // (32 // f), Np), dtype=torch.int32, device=words.device)  # written whole
     with torch.cuda.device(words.device):
@@ -431,19 +554,21 @@ def packmm_exp_packedout(words: torch.Tensor, b: torch.Tensor, bits: int, tm: in
     return out
 
 
-def packmm_exp_k2loader(words: torch.Tensor, b: torch.Tensor, bits: int) -> torch.Tensor:
-    """:func:`packmm_exp`'s concat with A staged by ``gemm_core.cuh``'s
-    ``PackedLoader``, which computes each row's word address and shift
-    every K step where concat computes them once: the port's ``tm = 256``
-    layout only. The same product (plain: ``packmm_exp_plain(words, b,
-    bits, 256)``)."""
+def packmm_exp_rowrange(words: torch.Tensor, b: torch.Tensor, bits: int,
+                        _plan: Optional[ExpPlan] = None) -> torch.Tensor:
+    """:func:`packmm_exp`'s concat on K2's rows: CTAs of 64 consecutive
+    logical rows, each staging the 8 (1-bit) or 16 word rows that hold them
+    (``packmm_k2.cuh``), where concat's CTAs own whole word rows; the port's
+    ``tm = 256`` layout only. The same product (plain:
+    ``packmm_exp_plain(words, b, bits, 256)``)."""
     global LAUNCHES
     if not words.is_cuda:
         return packmm_exp_plain(words, b, bits, 256)
     f, Mp, Kp, Np = _shapes(words, b, bits, 256)
-    _kernel_shapes(Mp, Kp, Np, 256, "k2loader")
+    _kernel_shapes(Mp, Kp, Np, 256)
+    plan = _plan or exp_packmm_plan(Mp, Kp, Np, bits, 256, "rowrange")
     out = torch.empty((Mp, Np), dtype=torch.float32, device=words.device)
-    _launch(out, words, b, "k2loader", f, Mp, Kp, Np, 256)
+    _launch(out, words, b, "rowrange", f, Mp, Kp, Np, 256, plan)
     LAUNCHES += 1
     return out
 
@@ -487,56 +612,64 @@ def run_packedout(M: int, K: int, N: int, bits: int, tm: int, tk: int, rng, grou
 
 
 def ladder_calls(mk: int, n: int, bits: int, rng, device) -> List[tuple]:
-    """The ladder's rows at M = K = ``mk``: (name, call, want), ``want``
-    the output the call must equal. ``bres`` and ``bres_chunk`` run where
-    a CTA's columns of B fit in shared memory (not at 4096 x 64)."""
+    """The ladder's rows at M = K = ``mk``: (name, call, want, depth),
+    ``want`` the output the call must equal and ``depth`` the K step the
+    row's kernel takes (P1a's: its default plan's; K2's 64; None for
+    ``torch._int_mm``). ``bres`` and ``bres_chunk`` run where their plan
+    fits (:func:`bres_fits`)."""
     from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack
     from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, packmm_to_f32
 
     qa, qb, b = operands(mk, mk, n, bits, rng, device)
     tm = 256  # the port's packmm layout
+    np_ = b.shape[2]
     words = torch.from_numpy(pack_rows_np(qa, bits, tm)[None]).to(device)
     a8 = torch.from_numpy(qa.astype(np.int8)[None]).to(device)
     ref = packmm_exp_plain(words, b, bits, tm)
+
+    def depth(v):
+        return exp_packmm_plan(mk, mk, np_, bits, tm, v).depth
+
     rows = [(v, lambda v=v: packmm_exp(words, b, bits, tm, v),
-             packmm_exp_plain(words, b, bits, tm, v) if v == "noextract" else ref)
-            for v in VARIANTS if not v.startswith("bres") or bres_fits(mk, b.shape[2])]
-    rows.append(("int8", lambda: packmm_exp_int8(a8, b), ref))
-    # on the 64-column tile K2 uses: concat, then concat with K2's loader
-    # (the address math of every step, alone)
-    b64, ref64 = b, ref
-    if b.shape[2] % 64:
-        b64 = torch.zeros((1, mk, 64), dtype=torch.int8, device=device)
-        b64[..., :b.shape[2]] = b
-        ref64 = torch.nn.functional.pad(ref, (0, 64 - b.shape[2]))
-        rows.append(("concat, 64-column tile", lambda: packmm_exp(words, b64, bits, tm), ref64))
-    rows.append(("concat with K2's loader, 64-column tile", lambda: packmm_exp_k2loader(words, b64, bits), ref64))
+             packmm_exp_plain(words, b, bits, tm, v) if v == "noextract" else ref, depth(v))
+            for v in VARIANTS if not v.startswith("bres") or bres_fits(mk, mk, np_, bits, tm)]
+    rows.append(("int8", lambda: packmm_exp_int8(a8, b), ref, depth("int8")))
+    # concat on K2's 64-row ranges, where concat's CTAs own whole word rows
+    rows.append(("concat on K2's row ranges", lambda: packmm_exp_rowrange(words, b, bits), ref, depth("rowrange")))
     k2a = PackedTensor(words=words, shape=(mk, mk), bits=bits)
     k2b = digit_pack(torch.from_numpy(qb).to(device), bits)
-    rows.append(("K2 packmm_to_f32", lambda: packmm_to_f32(k2a, k2b), ref[:, :n]))
+    rows.append(("K2 packmm_to_f32", lambda: packmm_to_f32(k2a, k2b), ref[:, :n], K_STEP))
     ia, ib = torch.from_numpy(qa.astype(np.int8)).to(device), torch.from_numpy(qb.astype(np.int8)).to(device)
-    rows.append(("torch._int_mm", lambda: torch._int_mm(ia, ib), ref[:, :n].to(torch.int32)))
+    rows.append(("torch._int_mm", lambda: torch._int_mm(ia, ib), ref[:, :n].to(torch.int32), None))
     return rows
 
 
 def ladder(shapes=LADDER_SHAPES, iters: int = 20, rng=None, device="cuda") -> List[Dict]:
     """The per-K-step ladder on the card: each row's output checked
     against its plain version first (``AssertionError`` if not equal),
-    then every row of a shape timed in one profiler session."""
+    then every row of a shape timed in one profiler session; ``us_per_step``
+    is the call's time over the contraction's steps of the row's depth."""
     rng = np.random.default_rng(0) if rng is None else rng
     out = []
     for mk, n, bits in shapes:
         calls = ladder_calls(mk, n, bits, rng, device)
-        for name, run, want in calls:
+        for name, run, want, _ in calls:
             if not torch.equal(run(), want):
                 raise AssertionError(f"ladder M=K={mk} N={n} bits={bits} {name}: != plain")
-        ms = _time_ms({name: run for name, run, _ in calls}, iters)
-        for name, _, _ in calls:
+        ms = _time_ms({name: run for name, run, _, _ in calls}, iters)
+        for name, _, _, depth in calls:
             t = ms[name] * 1e-3
-            out.append(dict(probe="ladder", bits=bits, M=mk, K=mk, N=n, row=name, us=t * 1e6,
-                            us_per_step=t * 1e6 / (mk // K_STEP),
+            out.append(dict(probe="ladder", bits=bits, M=mk, K=mk, N=n, row=name, us=t * 1e6, depth=depth,
+                            us_per_step=t * 1e6 / (mk // depth) if depth else None,
                             tflops=flops_convention(mk, n, mk) / t / 1e12))
     return out
+
+
+def ladder_step(r: Dict) -> str:
+    """A ladder row's time per K step, with the step's depth."""
+    if r["depth"] is None:
+        return "no K step"
+    return f"{r['us_per_step']:.3f} us per {r['depth']}-deep K step"
 
 
 def main(argv=None) -> int:
@@ -558,7 +691,7 @@ def main(argv=None) -> int:
         rows.append(r)
     for r in ladder(iters=args.iters):
         print(f"ladder bits={r['bits']} M=K={r['M']} N={r['N']} {r['row']}: {r['us']:.2f} us, "
-              f"{r['us_per_step']:.3f} us per {K_STEP}-deep K step, {r['tflops']:.3f} TFLOP/s", flush=True)
+              f"{ladder_step(r)}, {r['tflops']:.3f} TFLOP/s", flush=True)
         rows.append(r)
     if args.csv:
         from qgtc_ppopp22_tpu_torch.utils.metrics import write_csv

@@ -15,9 +15,12 @@ baseline's K5 ``fused_baseline_epoch`` over the same 75 batches as the
 baseline mega engine stages them (C1-baseline: sage, 128 -> 16 -> 16 ->
 40), its first layer alone (128 -> 40) and the gin widths (hidden 64);
 and the kernel-study probes at their studies' rows (P3b ``kdot``, P3a's
-zero body, P1b's packed output on JAX's ten rows) beside K2's packed
-route at P1b's 4096² x 16 and x 64 (``--probes-only``: these alone;
-with ``--plans``, P1b and P3b also on each of their plans).
+zero body, P1b's packed output on JAX's ten rows, P1a's variants, int8 A
+and K2's rows at C1's aggregation, 1-bit A[2560²] x B[2560 x 16]; P2a beside
+the launch floor) beside K2's
+packed route at P1b's 4096² x 16 and x 64 and K2's ``packmm_to_f32`` at
+P1a's shape (``--probes-only``: these alone; with ``--plans``, P1a, P1b
+and P3b also on each of their plans).
 
 The script calls only what the port has offered since zero-tile jumping
 (``packmm_to_digits`` with and without a map, ``packmm_to_f32``,
@@ -25,8 +28,8 @@ The script calls only what the port has offered since zero-tile jumping
 ``kernel_sweep.figure_cases``, a batch's ``a_words`` and ``tile_kidx`` /
 ``tile_kcnt``, ``QGTCEngine(fmt="bits")``, ``fused_model_epoch``,
 ``run_epochs_mega``, ``BaselineEngine._stage_mega`` and
-``fused_baseline_epoch``; the probes' ``kdot``, ``zero_body`` and
-``packmm_exp_packedout``), so two checkouts can be
+``fused_baseline_epoch``; the probes' ``kdot``, ``zero_body``,
+``packmm_exp_packedout``, ``packmm_exp`` and ``packmm_exp_int8``), so two checkouts can be
 timed on one card in one command: copy it into the other checkout's
 ``benchmarks/`` folder and run it from each checkout's root in turns (A,
 B, B, A), each run on the kernels that its checkout builds. Operands come
@@ -210,9 +213,15 @@ def probe_calls(seed: int, device) -> dict:
     """The kernel-study probes at their studies' rows: P3b ``kdot`` at pn
     2048 x 50 batches on each (K, oc) of ``KDOT_ROWS``, P3a's zero body
     (G 1, oc 48, in turns over enough copies of X that each call reads
-    HBM), P1b's packed output on each of JAX's ten ``PACKEDOUT_ROWS``, and
+    HBM), P1b's packed output on each of JAX's ten ``PACKEDOUT_ROWS``,
     K2's packed route (``packmm_to_packed`` to 1-bit words) at P1b's
-    4096² x 16 and x 64 shapes."""
+    4096² x 16 and x 64 shapes, and P1a's variants, its int8 A and K2's
+    rows at C1's 1-bit 2560² x 16 beside K2's ``packmm_to_f32`` there (each
+    checkout's default launch; K2's rows are ``packmm_exp_rowrange`` where
+    the checkout has it, else ``packmm_exp_k2loader``), and P2a's
+    ``bitcast32to8`` at int32 [8 x 128] beside the launch floor, the device
+    time of ``torch.zeros(1)``'s fill."""
+    from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe as bp
     from qgtc_ppopp22_tpu_torch.benchmarks import exp_packmm as ep
     from qgtc_ppopp22_tpu_torch.benchmarks import grid_overhead_study as go
 
@@ -239,15 +248,38 @@ def probe_calls(seed: int, device) -> dict:
         bd = digit_pack(torch.from_numpy(qb.astype(np.int32)).to(device), 1)
         rows[f"K2 packmm_to_packed 1-bit A[4096x4096] x B[4096x{n}] to 1-bit words"] = (
             lambda a=a, bd=bd: packmm.packmm_to_packed(a, bd, 1))
+    mk, n, bits = ep.C1_SHAPE
+    qa, qb, b = ep.operands(mk, mk, n, bits, rng, device)
+    words = torch.from_numpy(ep.pack_rows_np(qa, bits, 256)[None]).to(device)
+    a8 = torch.from_numpy(qa.astype(np.int8)[None]).to(device)
+    for v in ep.VARIANTS:
+        rows[f"P1a {v} 1-bit A[{mk}x{mk}] (tm 256) x B[{mk}x{n}] to f32"] = (
+            lambda v=v: ep.packmm_exp(words, b, bits, 256, v))
+    rows[f"P1a int8 A[{mk}x{mk}] x B[{mk}x{n}] to f32"] = lambda: ep.packmm_exp_int8(a8, b)
+    # K2's rows: concat on K2's 64-row ranges (before it, concat through
+    # K2's former per-step loader on the same single-stage loop)
+    k2rows = getattr(ep, "packmm_exp_rowrange", None) or getattr(ep, "packmm_exp_k2loader")
+    rows[f"P1a K2's rows (rowrange; parent k2loader) 1-bit A[{mk}x{mk}] x B[{mk}x{n}] to f32"] = (
+        lambda: k2rows(words, b, bits))
+    k2a = PackedTensor(words=words, shape=(mk, mk), bits=bits)
+    k2b = digit_pack(torch.from_numpy(qb).to(device), bits)
+    rows[f"K2 packmm_to_f32 1-bit A[{mk}x{mk}] x B[{mk}x{n}]"] = lambda: packmm.packmm_to_f32(k2a, k2b)
+    # P2a at its probe's shape, beside the launch floor (torch.zeros(1)'s fill)
+    p2 = torch.from_numpy(rng.integers(-2**31, 2**31, (8, 128)).astype(np.int32)).to(device)
+    rows["P2a bitcast32to8 int32 [8x128]"] = lambda: bp.bitcast32to8(p2)
+    rows["launch floor: torch.zeros(1)'s fill"] = lambda: torch.zeros(1, device=device)
     return rows
 
 
 def probe_plan_calls(seed: int, device) -> dict:
     """P1b at 1-bit 4096² x 16 (tm 4096) and x 64 (group 256) on each column
     tile, K step, split of 1, 2, 4 or 8 and ring depth that
-    ``packedout_plan`` can take, and P3b at pn 2048 x 50 batches, K 0-2, oc
-    48 on each rows a CTA, ring depth and a cluster of 8 or 4
-    (``kdot_plan``); this checkout only."""
+    ``packedout_plan`` can take; P1a's concat, slabs and int8 A at C1's
+    1-bit 2560² x 16 on each split of 1-8 and at 4096² x 64 on tiles of 32
+    and 64 and splits of 1, 2, 4 and 8, each on every K step and ring
+    depth that ``exp_packmm_plan`` can take; and P3b at pn 2048
+    x 50 batches, K 0-2, oc 48 on each rows a CTA, ring depth and a cluster
+    of 8 or 4 (``kdot_plan``); this checkout only."""
     from qgtc_ppopp22_tpu_torch.benchmarks import exp_packmm as ep
     from qgtc_ppopp22_tpu_torch.benchmarks import grid_overhead_study as go
 
@@ -256,8 +288,8 @@ def probe_plan_calls(seed: int, device) -> dict:
     for M, K, N, bits, g in ((4096, 4096, 16, 1, 4096), (4096, 4096, 64, 1, 256)):
         qa, _, b = ep.operands(M, K, N, bits, rng, device)
         words = torch.from_numpy(ep.pack_rows_np(qa, bits, g)[None]).to(device)
-        for bnt, splits, stages, depth in itertools.product(ep.PACKEDOUT_TILES, (1, 2, 4, 8), ep.PACKEDOUT_STAGES,
-                                                            ep.PACKEDOUT_DEPTHS):
+        for bnt, splits, stages, depth in itertools.product(ep.TILES, (1, 2, 4, 8), ep.STAGES,
+                                                            ep.DEPTHS):
             try:
                 plan = ep.packedout_plan(M, K, N, bits, g, bnt, splits, stages, depth)
             except ValueError:
@@ -265,6 +297,21 @@ def probe_plan_calls(seed: int, device) -> dict:
             rows[f"plan P1b {bits}-bit A[{M}x{K}] x B[{K}x{N}] g {g}: bnt {bnt} S {splits} stages {stages} "
                  f"depth {depth}"] = (
                 lambda w=words, b=b, bits=bits, g=g, pl=plan: ep.packmm_exp_packedout(w, b, bits, g, _plan=pl))
+    for mk, n, tiles, splits_of in ((2560, 16, (16,), range(1, ep.MAX_SPLIT + 1)),
+                                    (4096, 64, (32, 64), (1, 2, 4, 8))):
+        qa, _, b = ep.operands(mk, mk, n, 1, rng, device)
+        words = torch.from_numpy(ep.pack_rows_np(qa, 1, 256)[None]).to(device)
+        a8 = torch.from_numpy(qa.astype(np.int8)[None]).to(device)
+        for v, bnt, splits, stages, depth in itertools.product(("concat", "slabs", "int8"), tiles, splits_of,
+                                                                ep.STAGES, ep.DEPTHS):
+            try:
+                plan = ep.exp_packmm_plan(mk, mk, n, 1, 256, v, bnt, splits, stages, depth)
+            except ValueError:
+                continue
+            run = ((lambda a8=a8, b=b, pl=plan: ep.packmm_exp_int8(a8, b, _plan=pl)) if v == "int8" else
+                   (lambda w=words, b=b, v=v, pl=plan: ep.packmm_exp(w, b, 1, 256, v, _plan=pl)))
+            rows[f"plan P1a {v} A[{mk}x{mk}] x B[{mk}x{n}]: bnt {bnt} S {splits} stages {stages} "
+                 f"depth {depth}"] = run
     pn, B = go.KDOT_SHAPE
     gen = torch.Generator(device=device).manual_seed(seed)
     x = go.random_x(B, pn, gen, device)

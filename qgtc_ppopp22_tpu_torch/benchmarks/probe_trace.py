@@ -1,13 +1,18 @@
 """Where a redesigned probe's CTA spends its cycles, on the card: the
 probe's source (``csrc/grid_overhead.cu`` for P3b ``kdot``,
-``csrc/exp_packmm_packed.cu`` for P1b's packed output) built again with
+``csrc/exp_packmm_packed.cu`` for P1b's packed output, ``csrc/exp_packmm.cu``
+for P1a's concat, slabs and int8 A) built again with
 ``-DPROBE_TRACE=1``, so that thread 0 of each CTA adds ``clock64`` spans of
 the shared ring loop (``csrc/probe_ring.cuh``) to a device array: the
 waits for a step's copies, the barriers, the issue of a step's copies,
-the steps' MMAs (body), the transposes (prep) and the whole loop. Runs
-P3b at its study's rows (pn 2048 x 50 batches, oc 48, K 0, 1 and 2) and
-P1b at JAX's first row (1-bit 4096² x 16, tm 4096) and at 4096² x 64
-(group 256), each on its default plan, and prints the card's name and
+the steps' MMAs (body), their preps (P1b's and P3b's transposes; P1a's
+unpack into the A tile, beside B's transpose) and the whole loop. Runs P3b
+at its study's rows (pn 2048 x 50 batches, oc 48, K 0, 1 and 2), P1b at
+JAX's first row (1-bit 4096² x 16, tm 4096) and at 4096² x 64 (group 256),
+P1a's concat, slabs and int8 A at C1's aggregation (1-bit A[2560²], tm
+256, x B[2560 x 16]) and its concat and slabs at 2-bit 4096² x 16 (where
+concat ran 1.9x slabs, at 1 bit 1.1x),
+each on its default plan, and prints the card's name and
 power limit, then per row the mean over the CTAs of each span in
 thousands of cycles and per step in cycles. The traced build is a
 diagnostic: the kernels the port runs are built without the flag, and
@@ -27,7 +32,7 @@ import sys
 import numpy as np
 import torch
 
-SPANS = ("wait for the step's copies", "barrier", "issue", "body (MMAs)", "prep (transpose)", "loop")
+SPANS = ("wait for the step's copies", "barrier", "issue", "body (MMAs)", "prep (transpose, unpack)", "loop")
 TRACE_CTAS, TRACE_SPANS = 8192, 8  # csrc/probe_ring.cuh
 
 
@@ -47,6 +52,9 @@ def traced_library(source: str):
     if source == "grid_overhead.cu":
         lib.qgtc_kdot.argtypes = [p, p, p] + [i] * 7 + [p]
         lib.qgtc_kdot.restype = i
+    elif source == "exp_packmm.cu":
+        lib.qgtc_exp_packmm.argtypes = [p, p, p] + [i] * 10 + [p]
+        lib.qgtc_exp_packmm.restype = i
     else:
         lib.qgtc_exp_packedout.argtypes = [p, p, p] + [i] * 10 + [p]
         lib.qgtc_exp_packedout.restype = i
@@ -110,6 +118,23 @@ def main(argv=None) -> int:
             rows.append((f"P1b {bits}-bit A[{M}x{K}] x B[{K}x{N}] tm {tm} group {group} ({plan})",
                          traced(lib, lambda w=words, b=b: ep.packmm_exp_packedout(w, b, bits, tm, group),
                                 plan.grid[0] * plan.grid[1] * plan.grid[2], steps)))
+    finally:
+        ep.library = untraced
+    lib = traced_library("exp_packmm.cu")
+    ep.library = lambda: lib
+    try:
+        for (mk, n, bits), variants in ((ep.C1_SHAPE, ("concat", "slabs", "int8")),
+                                        ((4096, 16, 2), ("concat", "slabs"))):
+            qa, _, b = ep.operands(mk, mk, n, bits, rng, dev)
+            words = torch.from_numpy(ep.pack_rows_np(qa, bits, 256)[None]).to(dev)
+            a8 = torch.from_numpy(qa.astype(np.int8)[None]).to(dev)
+            for v in variants:
+                plan = ep.exp_packmm_plan(mk, mk, n, bits, 256, v)
+                run = (lambda a8=a8, b=b: ep.packmm_exp_int8(a8, b)) if v == "int8" else (
+                    lambda w=words, b=b, bits=bits, v=v: ep.packmm_exp(w, b, bits, 256, v))
+                rows.append((f"P1a {v} {bits}-bit A[{mk}x{mk}] x B[{mk}x{n}] tm 256 ({plan})",
+                             traced(lib, run, plan.grid[0] * plan.grid[1] * plan.grid[2],
+                                    mk // plan.depth / plan.splits)))
     finally:
         ep.library = untraced
     for what, spans in rows:

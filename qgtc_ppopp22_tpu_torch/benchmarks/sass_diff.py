@@ -1,6 +1,9 @@
 """Compare the machine code (SASS) of two builds of the kernel library,
 function by function: ``cuobjdump -sass`` of each ``libqgtc_kernels.so``,
-instruction offsets and address comments stripped. Prints how many
+instruction offsets and address comments stripped, white space collapsed, branch labels
+numbered afresh in each function (cuobjdump numbers them across a whole
+object file, so a label added to one kernel renames those of the kernels
+after it). Prints how many
 functions both builds hold and are identical, which of those differ, and
 which only one build holds (a kernel added or removed). An edit that
 should leave a kernel alone leaves its SASS identical; timings of
@@ -34,16 +37,23 @@ def functions(lib: str) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m or line.startswith("Fatbin "):  # a function, or the next object file's header
             if name:
-                funcs[name] = "\n".join(body)
+                funcs[name] = _local_labels("\n".join(body))
             # an anonymous namespace's name carries a hash of its file's path
             name, body = (re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", m[1]) if m else None), []
         elif name:
-            line = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip()  # instruction offsets
+            line = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)  # instruction offsets
+            line = " ".join(line.split())  # the encoding comment's column moves with the file's longest line
             if line:  # blank lines are layout (one follows an object file's last function)
                 body.append(line)
     if name:
-        funcs[name] = "\n".join(body)
+        funcs[name] = _local_labels("\n".join(body))
     return funcs
+
+
+def _local_labels(text: str) -> str:
+    """The function's ``.L_x_N`` labels renumbered in order of first use."""
+    seen = {}
+    return re.sub(r"\.L_x_\d+", lambda m: seen.setdefault(m[0], f".L_x_{len(seen)}"), text)
 
 
 def main(argv=None) -> int:
@@ -60,7 +70,8 @@ def main(argv=None) -> int:
     print(f"sass_diff: {len(both)} functions in both builds, {len(both) - len(differ)} identical, "
           f"{len(differ)} differ; {len(alone['old'])} only in {args.old}, {len(alone['new'])} only in {args.new}")
     for n in differ:
-        print(f"  differs: {n}")
+        first = next((a, b) for a, b in zip(old[n].splitlines() + [""], new[n].splitlines() + [""]) if a != b)
+        print(f"  differs: {n}\n    old: {first[0]}\n    new: {first[1]}")
     bad = list(differ)
     for side, names in alone.items():
         for n in names:

@@ -5,36 +5,54 @@
 // which sublane each byte of a word lands on after pltpu.bitcast. Here:
 //   bitcast32to8  int32 [m][n] -> int8 [4m][n], byte k of word (i, j) to
 //                 row 4i + k (the TPU's row order, which is not a view of
-//                 the card's memory: a word's bytes are adjacent there);
+//                 the card's memory: a word's bytes are adjacent there,
+//                 so this is a transpose of each word's 4 bytes);
 //   bitcast8to32  the inverse, word (i, j) = bytes (4i .. 4i + 3, j),
 //                 little-endian;
 //   fragment_probe the registers of the first int8 mma.sync.m16n8k32 of
 //                 warp 0, through gemm_core.cuh's own code (the A tile
 //                 staged by Int8Loader, B transposed to [n][k] by load_b,
 //                 the fragments loaded by frag_a and frag_b, which K2's
-//                 and K4's K loops call), so the caller can hold them to
-//                 the PTX ISA's layout: a change to those loads changes
-//                 this.
-// Both bitcasts read or write a word as a char4, the access the packed
-// loaders' byte order rests on.
-// What bounds it on an H100: nothing measurable; a few KB, one launch.
-// Design: one thread per word; one CTA of gemm_core's 128 threads for
-// the fragments.
+//                 K loop calls), so the caller can hold them to the PTX
+//                 ISA's layout: a change to those loads changes this.
+// What bounds it on an H100: nothing the data sets; a few KB, one launch,
+// whose floor is the device time of the smallest kernel PyTorch launches
+// (chip_smoke.py times torch.zeros(1)'s fill beside it).
+// Design: bitcast32to8 takes four consecutive words of a row a thread (one
+// 16-byte load, four 4-byte stores of byte-permuted words, the gather of
+// exp_packmm's noextract, gemm_core.cuh bytes_at), with a tail path where n
+// is not a multiple of 4; bitcast8to32 one thread per word; one CTA of
+// gemm_core's 128 threads for the fragments.
 #include "gemm_core.cuh"
 
 using namespace qgtc;
 
 namespace {
 
+// Word row blockIdx.y, four consecutive words a thread: one 16-byte load,
+// then output row 4i + k's four bytes as one word, byte k of each
+// (bytes_at). vec is 0 when n % 4 or the operands' alignment rules the
+// vector accesses out: the tail path then reads the (up to) four words
+// one by one and stores bytes.
 __global__ void bitcast32to8_kernel(const int32_t* __restrict__ x, int8_t* __restrict__ out,
-                                    int m, int n) {
-  const int i = blockIdx.y, j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const char4 c = reinterpret_cast<const char4*>(x)[(size_t)i * n + j];
-  out[(size_t)(4 * i) * n + j] = c.x;
-  out[(size_t)(4 * i + 1) * n + j] = c.y;
-  out[(size_t)(4 * i + 2) * n + j] = c.z;
-  out[(size_t)(4 * i + 3) * n + j] = c.w;
+                                    int m, int n, int vec) {
+  const int i = blockIdx.y, j0 = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (j0 >= n) return;
+  const int32_t* const src = x + (size_t)i * n + j0;
+  int8_t* const dst = out + (size_t)(4 * i) * n + j0;
+  if (vec) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(src));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) *reinterpret_cast<uint32_t*>(dst + (size_t)k * n) = bytes_at(v, k);
+    return;
+  }
+  for (int j = 0; j < 4 && j0 + j < n; ++j) {
+    const char4 b = reinterpret_cast<const char4*>(src)[j];
+    dst[j] = b.x;
+    dst[(size_t)n + j] = b.y;
+    dst[(size_t)2 * n + j] = b.z;
+    dst[(size_t)3 * n + j] = b.w;
+  }
 }
 
 __global__ void bitcast8to32_kernel(const int8_t* __restrict__ x, int32_t* __restrict__ out,
@@ -75,12 +93,17 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// m: word rows; n: columns.
+// m: word rows; n: columns. One thread per 4 words of a row: a row's
+// ceil(n / 4) chunks over CTAs of up to 128 threads (whole warps), one
+// grid row per word row, so no thread divides.
 extern "C" int qgtc_bitcast32to8(void* out, const void* x, int m, int n, void* stream) {
   if (m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + 127) / 128, m);
-  bitcast32to8_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<int8_t*>(out), m, n);
+  const int nc = (n + 3) / 4, threads = min(128, (nc + 31) / 32 * 32);
+  const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  const dim3 grid((nc + threads - 1) / threads, m);
+  bitcast32to8_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<int8_t*>(out), m, n, vec);
   return (int)cudaGetLastError();
 }
 

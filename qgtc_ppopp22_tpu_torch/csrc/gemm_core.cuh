@@ -4,7 +4,7 @@
 // packmm_signed and packmm's 8-bit route) and the kernel-study probes:
 // the tile constants, the output kinds and their epilogue stores, the
 // offset corrections, the TileMap K skip, the fragment loads and the mma,
-// and the probes' A-tile loaders.
+// and the int8 A-tile loader.
 //
 // C = sum_{d<ND_A, e<ND_B} dot(A_d, B_e) << 4*(d+e), exact in int32, plus
 // an optional offset correction (CORR), followed by one fused epilogue:
@@ -147,40 +147,6 @@ struct Int8Loader {
   }
 };
 
-// M-packed A (ops/packmm.py layout, above): decodes int32 words
-// [mp / (32 / F)][kp] of F-bit fields into the int8 A tile, each row's
-// word address and shift computed every step (K2's loader before
-// packmm_k2.cuh; the kernel-study probe's k2loader row runs it).
-template <int F>
-struct PackedLoader {
-  const int32_t* __restrict__ w;
-  int kp;
-
-  template <int ND, int ROWS>
-  __device__ __forceinline__ void load(int8_t (*As)[ROWS][LDS], int m0, int k0,
-                                       int tid) const {
-    static_assert(ND == 1, "packed A holds one digit plane");
-    constexpr int GW = 8 * F;  // word rows per 256-row group
-    constexpr uint32_t MASK = (1u << F) - 1;
-    constexpr int CH = BK / 4;  // chunks of 4 columns (one int4 of words)
-    for (int c = tid; c < ROWS * CH; c += 2 * ROWS) {
-      const int r = c / CH, kc = (c % CH) * 4;
-      const int m = m0 + r;
-      const int rr = m & 255;
-      const int q = rr / (4 * GW), rem = rr % (4 * GW);
-      const int wrow = (m >> 8) * GW + (rem >> 2);
-      const int sh = 8 * (rem & 3) + F * q;
-      const int4 v =
-          __ldg(reinterpret_cast<const int4*>(w + (size_t)wrow * kp + k0 + kc));
-      const uint32_t packed = (((uint32_t)v.x >> sh) & MASK) |
-                              ((((uint32_t)v.y >> sh) & MASK) << 8) |
-                              ((((uint32_t)v.z >> sh) & MASK) << 16) |
-                              ((((uint32_t)v.w >> sh) & MASK) << 24);
-      *reinterpret_cast<uint32_t*>(&As[0][r][kc]) = packed;
-    }
-  }
-};
-
 // The F-bit fields at bit sh of four consecutive columns' words, as the
 // four bytes of one register (column j in byte j): an M-packed A's
 // unpack (packmm_k2.cuh, the kernel-study probes).
@@ -189,6 +155,16 @@ __device__ __forceinline__ uint32_t fields(const int4& v, int sh) {
   constexpr uint32_t M = (1u << F) - 1;
   return (((uint32_t)v.x >> sh) & M) | ((((uint32_t)v.y >> sh) & M) << 8) |
          ((((uint32_t)v.z >> sh) & M) << 16) | ((((uint32_t)v.w >> sh) & M) << 24);
+}
+
+// Byte k of four consecutive columns' words, by byte permutes only: the
+// bytes of one register (column j in byte j). The kernel-study probes'
+// byte gathers (exp_packmm.cuh's noextract, exp_bitcast_probe.cu).
+__device__ __forceinline__ uint32_t bytes_at(const int4& v, int k) {
+  const uint32_t sel = (uint32_t)k | ((uint32_t)(k + 4) << 4);
+  const uint32_t lo = __byte_perm((uint32_t)v.x, (uint32_t)v.y, sel);
+  const uint32_t hi = __byte_perm((uint32_t)v.z, (uint32_t)v.w, sel);
+  return __byte_perm(lo, hi, 0x5410);
 }
 
 template <int ND_B, int NT = THREADS>
@@ -216,7 +192,7 @@ __device__ __forceinline__ void load_b(int8_t (*Bs)[BN][LDS],
 // p points at the lane's first byte: (row g, k 4 t4) of the 16-row m-tile
 // of an A tile with rows LDS bytes apart, or (column g, k 4 t4) of the
 // 8-column n-tile of B transposed to [n][k] (any column stride).
-// K2, K4 and the kernel-study probes load their fragments here;
+// K2 and K4 load their fragments here;
 // exp_bitcast_probe.cu's fragment_probe pins on the card what these loads
 // put in each register.
 __device__ __forceinline__ void frag_a(uint32_t (&f)[4], const int8_t* p) {

@@ -38,6 +38,7 @@ from qgtc_ppopp22_tpu_torch.ops.fused_model import (
 from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, EpochStats, QGTCEngine
 from qgtc_ppopp22_tpu_torch.utils import metrics
 from torch_cases import BF16_REL_TOL, baseline_case, bf16_rel_err
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 DIMS = {"sage": [128, 16, 16, 40], "gin": [128, 64, 64, 40]}
 

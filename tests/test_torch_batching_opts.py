@@ -24,6 +24,7 @@ from qgtc_ppopp22_tpu_torch.models.golden import quantize_np
 from qgtc_ppopp22_tpu_torch.ops.bitpack import unpack_bits
 from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine
 from torch_cases import BF16_REL_TOL, bf16_rel_err
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from qgtc_ppopp22_tpu_torch.ops.bitpack import BitTensor, pack_bits, unpack_bits
 from qgtc_ppopp22_tpu_torch.runtime import EpochStats, QGTCEngine
 from tests.golden import bitmm_np
 from torch_cases import edge_operands
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 
 def _levels(rng, shape, bits, density=1.0):

@@ -16,6 +16,7 @@ import pytest
 
 from qgtc_ppopp22_tpu import cli as jcli
 from qgtc_ppopp22_tpu_torch import cli
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 SHARED = ("dataset", "bit_width", "psize", "batch_size", "n_epochs", "zerotile_jump", "resident", "mode",
           "mesh")

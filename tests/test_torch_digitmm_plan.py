@@ -22,6 +22,7 @@ from qgtc_ppopp22_tpu_torch.ops import digitmm, digits
 from qgtc_ppopp22_tpu_torch.ops.digitmm import K3Plan, digitmm_plan
 from qgtc_ppopp22_tpu_torch.ops.bitpack import round_up
 from torch_cases import blocky_levels, k3_groups, k3_plans, operands
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 # (nd_a, nd_b, mp, kp, np, K, N, tile_k): the padded extents as DigitTensors
 # give them (128 multiples)

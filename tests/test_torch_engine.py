@@ -25,6 +25,7 @@ from qgtc_ppopp22_tpu_torch import cli, graph
 from qgtc_ppopp22_tpu_torch.models import qmodels
 from qgtc_ppopp22_tpu_torch.ops import digits, packmm
 from qgtc_ppopp22_tpu_torch.runtime import EpochStats, QGTCEngine
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -34,6 +34,7 @@ from qgtc_ppopp22_tpu_torch import graph
 from qgtc_ppopp22_tpu_torch.models import qmodels
 from qgtc_ppopp22_tpu_torch.ops import digits, fused_model, packmm
 from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 # -- fault 1: run_epochs_mega(resident_a=) ------------------------------------
 

@@ -19,6 +19,7 @@ from qgtc_ppopp22_tpu.ops import digits as jdigits
 from qgtc_ppopp22_tpu.ops import packmm as jpackmm
 from qgtc_ppopp22_tpu_torch.ops import bitpack, digits, packmm, quantize
 from tests.golden import quantize_np, requantize_np
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 # the JAX ops package re-exports a function under the module's name
 jquantize = sys.modules["qgtc_ppopp22_tpu.ops.quantize"]

@@ -8,13 +8,12 @@ over two shape buckets: GCN and GIN, 2 and 8 bits, ``zerotile_jump`` None
 and True, the unscaled requantize and shifts from
 ``torch_cases.chain_shifts``. Then quant-in-loop against JAX's
 ``run_epochs_quant_in_loop`` epoch and the fused logits, a mega bucket
-that the plan refuses against the fused logits, the baseline's fused
-loop, the CLI's new flags and the port's bench script at a small scale.
+that the plan refuses against the fused logits and the baseline's fused
+loop (the CLI's flags and the bench script: ``test_torch_fused_cli.py``).
 
 Tolerance: exact equality over each batch's real nodes and classes.
 """
 
-import json
 import types
 
 import jax.numpy as jnp
@@ -25,13 +24,14 @@ import torch
 from qgtc_ppopp22_tpu import graph as jgraph
 from qgtc_ppopp22_tpu import runtime as jruntime
 from qgtc_ppopp22_tpu.runtime import QGTCEngine as JaxEngine
-from qgtc_ppopp22_tpu_torch import bench, cli, graph
+from qgtc_ppopp22_tpu_torch import graph
 from qgtc_ppopp22_tpu_torch.models import qmodels
 from qgtc_ppopp22_tpu_torch.ops import digits, fused_model
 from qgtc_ppopp22_tpu_torch.ops.bitpack import unpack_bits
 from qgtc_ppopp22_tpu_torch.ops.packmm import packed_levels
 from qgtc_ppopp22_tpu_torch.runtime import BaselineEngine, QGTCEngine
 from torch_cases import chain_shifts
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 _KW = dict(seed=5, bucket_rows=256, partition_method="bfs")
 
@@ -89,6 +89,20 @@ def _pair(buckets, model, bits, shifts, zerotile_jump):
     return ds, it, jit, je, te
 
 
+@pytest.fixture(scope="module")
+def fused_logits():
+    """The port's fused logits of each (model, bits, shifts, zerotile_jump)
+    pair, computed once in the module: ``get(key, te, it)``."""
+    seen = {}
+
+    def get(key, te, it):
+        if key not in seen:
+            seen[key] = te._fused_logits(it)
+        return seen[key]
+
+    return get
+
+
 def _jax_fused_logits(je, jit):
     """Each batch's logits from JAX's scanned epoch, ``_fused_epoch_fn``
     over the stacks ``run_epochs_fused`` stages (runtime.py:303-324)."""
@@ -112,10 +126,10 @@ def _assert_logits(it, ds, got, want):
 @pytest.mark.parametrize("bits,shifts,zerotile_jump", [
     (2, None, None), (2, None, True), (2, "chain", None), (8, "chain", None), (8, "chain", True)])
 @pytest.mark.parametrize("model", ["gcn", "gin"])
-def test_fused_logits_match_jax(buckets, model, bits, shifts, zerotile_jump):
+def test_fused_logits_match_jax(buckets, fused_logits, model, bits, shifts, zerotile_jump):
     ds, it, jit, je, te = _pair(buckets, model, bits, shifts, zerotile_jump)
     assert te.shifts == je.shifts and (shifts is None) == (te.shifts is None)
-    got = te._fused_logits(it)
+    got = fused_logits((model, bits, shifts, zerotile_jump), te, it)
     _assert_logits(it, ds, got, _jax_fused_logits(je, jit))
     for g, s in zip(got, te.forward_all(it)):  # the step engine's chain, bit for bit
         assert torch.equal(g, s)
@@ -144,18 +158,19 @@ def _jax_quant_in_loop_logits(je, jit, monkeypatch):
 
 @pytest.mark.parametrize("model,bits,shifts,zerotile_jump", [
     ("gcn", 2, None, None), ("gin", 8, "chain", True)])
-def test_quant_in_loop_matches_jax_and_fused(buckets, monkeypatch, model, bits, shifts, zerotile_jump):
+def test_quant_in_loop_matches_jax_and_fused(buckets, fused_logits, monkeypatch, model, bits, shifts,
+                                             zerotile_jump):
     ds, it, jit, je, te = _pair(buckets, model, bits, shifts, zerotile_jump)
     got = te._fused_logits(it, quant_in_loop=True)
     _assert_logits(it, ds, got, _jax_quant_in_loop_logits(je, jit, monkeypatch))
-    for g, f in zip(got, te._fused_logits(it)):
+    for g, f in zip(got, fused_logits((model, bits, shifts, zerotile_jump), te, it)):
         assert torch.equal(g, f)
     st = te.run_epochs_quant_in_loop(it, n_epochs=2)
     assert st.n_batches == 4 and st.avg_ms > 0 and st.launch_sync_ms == st.avg_ms
 
 
 @pytest.mark.parametrize("zerotile_jump", [None, True])
-def test_refused_mega_bucket_runs_the_fused_epoch(buckets, monkeypatch, capsys, zerotile_jump):
+def test_refused_mega_bucket_runs_the_fused_epoch(buckets, fused_logits, monkeypatch, capsys, zerotile_jump):
     """The plan refuses pn 512: that bucket runs its fused epoch, loudly,
     and records ``fallback``; pn 256 takes the kernel (its plain version)."""
     ds, it, _, _, te = _pair(buckets, "gcn", 2, None, zerotile_jump)
@@ -171,7 +186,7 @@ def test_refused_mega_bucket_runs_the_fused_epoch(buckets, monkeypatch, capsys, 
     assert "[mega] bucket pn=512: falling back to the captured fused epoch (ValueError: pn=512 refused)" \
         in capsys.readouterr().out
     assert {b["pn"]: b["fallback"] for b in te.mega_buckets} == {512: True, 256: False}
-    _assert_logits(it, ds, got, te._fused_logits(it))
+    _assert_logits(it, ds, got, fused_logits(("gcn", 2, None, zerotile_jump), te, it))
     st = te.run_epochs_mega(it, n_epochs=1, sync_every_epoch=True)
     assert st.n_batches == 4 and len(st.epoch_ms) == 1 and st.launch_sync_ms == 0
 
@@ -199,72 +214,3 @@ def test_baseline_fused_epoch_is_the_fused_loop(buckets, model):
     assert len(got) == 4 and all(torch.equal(g, loop[i]) for i, g in enumerate(got))
     st = te.run_epochs_fused(it, ds, n_epochs=1, sync_every_epoch=True)
     assert st.n_batches == 4 and len(st.epoch_ms) == 1
-
-
-# -- the CLI and the bench script -------------------------------------------------
-
-
-def _toy_npz(path):
-    rng = np.random.default_rng(0)
-    np.savez(path / "toy.npz", src_li=rng.integers(0, 600, 3000), dst_li=rng.integers(0, 600, 3000))
-
-
-@pytest.mark.parametrize("flags,engine", [
-    (["--mode", "fused"], "qgtc-fused"),
-    (["--mode", "fused", "--zerotile_jump", "--sync-every-epoch"], "qgtc-fused"),
-    (["--quant-in-loop", "--timing-split"], "qgtc-quant-in-loop"),
-    (["--timing-split"], "qgtc-step"),
-    (["--mode", "mega", "--timing-split", "--sync-every-epoch"], "qgtc-mega"),
-    (["--regular", "--mode", "fused", "--sync-every-epoch"], "regular-fused"),
-])
-def test_cli_fused_modes_and_timing(tmp_path, monkeypatch, capsys, flags, engine):
-    _toy_npz(tmp_path)
-    monkeypatch.chdir(tmp_path)
-    rc = cli.main(["--dataset", "toy", "--data-dir", str(tmp_path), "--psize", "4", "--batch-size", "2",
-                   "--n-epochs", "2", "--device", "cpu", *flags])
-    assert rc == 0
-    out = capsys.readouterr().out
-    record = json.loads(out.strip().splitlines()[-1])
-    sync = "--sync-every-epoch" in flags
-    assert record["engine"] == engine and record["avg_epoch_ms"] > 0 and record["sync_every_epoch"] == sync
-    assert len(record["epoch_ms"]) == (2 if sync else 1)
-    assert (record["launch_sync_ms"] == 0) == sync
-    if "--timing-split" in flags:
-        assert record["transfer_ms"] >= 0 and record["compute_ms"] > 0
-        assert f"timing split ({engine.split('-', 1)[1]}): transfer" in out
-
-
-@pytest.mark.parametrize("argv,msg", [
-    (["--regular", "--quant-in-loop"], "--quant-in-loop is the quantized engine's option"),
-    (["--regular", "--timing-split"], "--timing-split is the quantized engine's option"),
-    (["--quant-in-loop", "--fmt", "bits"], "quant-in-loop mode requires fmt='digits'"),
-    (["--mode", "fused", "--fmt", "bits"], "fused mode requires fmt='digits'"),
-    (["--quant-in-loop", "--resident"], "--resident"),
-])
-def test_cli_refuses_fused_combinations(capsys, argv, msg):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv)
-    assert exc.value.code == 2 and msg in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("mode", ["mega", "fused", "step"])
-def test_bench_prints_one_record(buckets, capsys, mode):
-    ds = buckets[2][0]
-    batcher = graph.ClusterBatcher(ds, 4, 2, bit_width=2, **_KW)
-    rec = bench.bench(batcher, "cpu", mode, n_epochs=2, repeats=3)
-    (line,) = capsys.readouterr().out.strip().splitlines()
-    assert json.loads(line) == rec
-    assert rec["metric"] == bench.METRIC and rec["unit"] == "ms" and rec["value"] > 0
-    assert rec["vs_baseline"] == pytest.approx(bench.BASELINE_MS / rec["value"])
-    d = rec["detail"]
-    assert len(d["epoch_ms"]) == len(d["launch_sync_ms"]) == 3 and d["median_ms"] == rec["value"]
-    assert d["spread_ms"] == max(d["epoch_ms"]) - min(d["epoch_ms"]) and d["transfer_inclusive_ms"] > 0
-    assert d["mode"] == mode and d["card"] == "cpu" and "PCIe" in d["transfer_note"]
-    assert d["partition_method"] == batcher.partition_method
-    assert "tunnel" not in line
-
-
-def test_bench_refuses_an_unknown_mode(buckets):
-    ds = buckets[2][0]
-    with pytest.raises(ValueError, match="unknown mode"):
-        bench.bench(graph.ClusterBatcher(ds, 4, 2, bit_width=2, **_KW), "cpu", "step-fallback")

@@ -19,6 +19,7 @@ from qgtc_ppopp22_tpu.ops import packmm as jpackmm
 from qgtc_ppopp22_tpu_torch.ops import digitmm, digits, packmm
 from tests.golden import bitmm_np
 from tests.torch_cases import edge_operands, operands
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 BITS = [1, 2, 4, 8]
 

@@ -921,26 +921,26 @@ def _probe_operands(seed, m, k, np_, bits, tm, dev, dense=True):
     return qa, words, torch.from_numpy(qb.astype(np.int8)[None]).to(dev)
 
 
-@pytest.mark.parametrize("variant", exp_packmm.VARIANTS + ("int8", "k2loader"))
+@pytest.mark.parametrize("variant", exp_packmm.VARIANTS + ("int8", "rowrange"))
 @pytest.mark.parametrize("bits", [1, 2, 4])
 @pytest.mark.parametrize("shape", [(512, 256, 16, 256), (768, 640, 64, 256), (1024, 512, 48, 512)])
 def test_packmm_exp_kernel_equals_plain(cuda, variant, bits, shape):
     m, k, np_, tm = shape
-    if variant == "k2loader":
-        tm = 256  # K2's loader reads the port's layout only
+    if variant == "rowrange":
+        tm = 256  # K2's row ranges read the port's layout only
     qa, words, b = _probe_operands(bits + m + np_, m, k, np_, bits, tm, cuda)
     before = exp_packmm.LAUNCHES
     if variant == "int8":
         a8 = torch.from_numpy(qa.astype(np.int8)[None]).to(cuda)
         got, want = exp_packmm.packmm_exp_int8(a8, b), exp_packmm.packmm_exp_int8_plain(a8, b)
-    elif variant == "k2loader":
-        got, want = exp_packmm.packmm_exp_k2loader(words, b, bits), exp_packmm.packmm_exp_plain(words, b, bits, tm)
+    elif variant == "rowrange":
+        got, want = exp_packmm.packmm_exp_rowrange(words, b, bits), exp_packmm.packmm_exp_plain(words, b, bits, tm)
     else:
         got = exp_packmm.packmm_exp(words, b, bits, tm, variant)
         want = exp_packmm.packmm_exp_plain(words, b, bits, tm, variant)
     assert exp_packmm.LAUNCHES == before + 1
     _check(got, want)
-    if variant in ("concat", "int8", "k2loader"):
+    if variant in ("concat", "int8", "rowrange"):
         _check(got, exp_packmm.packmm_exp_plain(words, b, bits, tm, "concat"))
 
 
@@ -958,8 +958,9 @@ def test_packmm_exp_packedout_kernel_equals_plain(cuda, bits, shape):
 
 def test_packmm_exp_refuses_what_the_kernel_cannot_index(cuda):
     _, words, b = _probe_operands(0, 512, 4096, 64, 1, 256, cuda)
-    with pytest.raises(ValueError):  # B [4096 x 64] does not fit in shared memory
-        exp_packmm.packmm_exp(words, b, 1, 256, "bres")
+    with pytest.raises(ValueError):  # B [4096 x 64] on one CTA does not fit in shared memory
+        exp_packmm.packmm_exp(words, b, 1, 256, "bres",
+                              _plan=exp_packmm.exp_packmm_plan(512, 4096, 64, 1, 256, "bres", bnt=64, splits=1))
     _, words, b = _probe_operands(0, 512, 256, 16, 1, 512, cuda)
     with pytest.raises(ValueError):  # tm % 256 != 0 is JAX-legal but not the kernel's
         exp_packmm.packmm_exp(torch.zeros((1, 4, 256), dtype=torch.int32, device=cuda), b, 1, 128)

@@ -25,6 +25,7 @@ from qgtc_ppopp22_tpu_torch.ops.bitpack import BitTensor, pack_bits, unpack_bits
 from qgtc_ppopp22_tpu_torch.ops.digitmm import build_tile_map_digits
 from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack, digit_unpack
 from qgtc_ppopp22_tpu_torch.ops.packmm import build_tile_map_packed, pack_rows
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 N, DIM, HIDDEN, CLASSES = 512, 40, 16, 8
 

@@ -19,6 +19,7 @@ from qgtc_ppopp22_tpu.ops.fused_model import fused_model_epoch as jax_fused_mode
 from qgtc_ppopp22_tpu_torch.ops import digits, fused_model
 from qgtc_ppopp22_tpu_torch.runtime import mega_block_sched
 from torch_cases import levels_plane, mega_case
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 SHIFTS = [1, 2, 1, 2, 1]
 

@@ -2,35 +2,31 @@
 
 ``fused_model_epoch`` (its plain version here, on the CPU) against the
 JAX ``fused_model_epoch`` in Pallas interpret mode and against the NumPy
-golden chains; the occupancy builders, the feature staging and
-``QGTCEngine.run_epochs_mega`` against their JAX counterparts and the
-port's step engine. Inputs come from NumPy seeds; weights are the same
-integer levels in both packages. Tolerance: exact equality.
+golden chains; the occupancy builders and the feature staging against
+their JAX counterparts (the engine, ``QGTCEngine.run_epochs_mega``, and
+its CLI: ``test_torch_mega_engine.py``). Inputs come from NumPy seeds;
+weights are the same integer levels in both packages. Tolerance: exact
+equality.
 """
-
-import json
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from qgtc_ppopp22_tpu import graph as jgraph
 from qgtc_ppopp22_tpu import runtime as jruntime
 from qgtc_ppopp22_tpu.models.qmodels import qgcn_golden, qgin_golden
 from qgtc_ppopp22_tpu.ops import digits as jdigits
 from qgtc_ppopp22_tpu.ops.fused_model import fused_model_epoch as jax_fused_model_epoch
-from qgtc_ppopp22_tpu.runtime import QGTCEngine as JaxEngine
-from qgtc_ppopp22_tpu_torch import cli, graph, runtime
-from qgtc_ppopp22_tpu_torch.models import qmodels
+from qgtc_ppopp22_tpu_torch import graph, runtime
 from qgtc_ppopp22_tpu_torch.ops import digits
 from qgtc_ppopp22_tpu_torch.ops.fused_model import (
     fused_model_epoch,
     fused_model_epoch_plain,
     mega_colblock,
 )
-from qgtc_ppopp22_tpu_torch.runtime import EpochStats, QGTCEngine
 from torch_cases import mega_case
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 SHIFTS = [1, 2, 1, 2, 1]
 # keep[b][c]: occupied column blocks of row chunk c in batch b
@@ -171,116 +167,6 @@ def test_fused_model_refuses_bad_shapes():
         fused_model_epoch(a, x, ws, 2, blk_sched=torch.zeros((1, 2, 3), dtype=torch.int32))
     with pytest.raises(ValueError, match="shifts"):
         fused_model_epoch(a, x, ws, 2, shifts=[1, 2])
-
-
-# -- the engine -------------------------------------------------------------
-
-
-def _engine_pair(model, bucket_rows=256, zerotile_jump=None):
-    kw = dict(bit_width=2, seed=5, bucket_rows=bucket_rows, partition_method="bfs")
-    ds = graph.synthesize("Proteins", scale=0.02, seed=5)
-    jds = jgraph.synthesize("Proteins", scale=0.02, seed=5)
-    it, jit = graph.ClusterBatcher(ds, 4, 2, **kw), jgraph.ClusterBatcher(jds, 4, 2, **kw)
-    je = JaxEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=1)
-    te = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model, seed=1,
-                    zerotile_jump=zerotile_jump, device="cpu")
-    te.weights = qmodels.weights_from_jax([np.asarray(w) for w in je.float_weights], 2)
-    return ds, it, jit, je, te
-
-
-def _jax_mega_logits(je, jit, compact):
-    """The JAX engine's mega path (runtime.py:473-634 at 2 bits, resident)."""
-    out = [None] * len(jit.batches)
-    where = {id(b): i for i, b in enumerate(jit.batches)}
-    for key, bs, a_np, x_np, _, _ in je._fused_groups(jit):
-        pn = key[0]
-        x = jdigits.planes_stack_to_digits(jnp.asarray(x_np), bs[0].bit_X.shape, 2)
-        sched = None
-        if compact:
-            sched = jnp.asarray(np.stack([jruntime.mega_block_sched(b.a_words, 512 if pn % 512 == 0 else 256,
-                                                                    mega_colblock(pn)) for b in bs]))
-        res = np.asarray(jax_fused_model_epoch(
-            jnp.asarray(a_np[:, 0]), x, je.weights, 2, model=je.model, blk_sched=sched,
-            out_cols=je.cfg.out_dim, x_cols=je.cfg.in_dim))
-        for b, r in zip(bs, res):
-            out[where[id(b)]] = r
-    return out
-
-
-@pytest.mark.parametrize("zerotile_jump", [None, True, False])
-@pytest.mark.parametrize("model", ["gcn", "gin"])
-def test_run_epochs_mega_matches_step_engine_and_jax(model, zerotile_jump):
-    ds, it, jit, je, te = _engine_pair(model, zerotile_jump=zerotile_jump)
-    got = te._mega_logits(it)
-    info = te.mega_buckets
-    assert info and all(not i["fallback"] for i in info)
-    # auto gate: these buckets are below pn 2048, so only True compacts
-    assert all(i["compact"] == bool(zerotile_jump) for i in info)
-    assert all(0.0 <= i["skippable"] <= 1.0 for i in info)
-    te_step = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model,
-                         device="cpu")
-    te_step.weights = te.weights
-    ref = _jax_mega_logits(je, jit, bool(zerotile_jump))
-    for b, g, s, r in zip(it.batches, got, te_step.forward_all(it), ref):
-        n, c = b.num_nodes, ds.num_classes
-        assert g.shape == (b.padded_nodes, -(-c // 8) * 8)
-        np.testing.assert_array_equal(g.numpy(), r)
-        assert torch.equal(g[:n, :c], s[:n, :c])
-
-
-def test_run_epochs_mega_falls_back_loudly(capsys):
-    """A bucket the kernel refuses (here: more layers than it takes) runs
-    through its captured fused epoch (the step engine's chains), and says
-    so."""
-    ds, it, _, _, _ = _engine_pair("gcn")
-    te = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes, num_layers=9, seed=3,
-                    device="cpu")
-    got = te._mega_logits(it)
-    assert "[mega] bucket pn=" in capsys.readouterr().out
-    assert te.mega_buckets and all(i["fallback"] for i in te.mega_buckets)
-    for b, g, s in zip(it.batches, got, te.forward_all(it)):
-        assert torch.equal(g, s)
-
-
-@pytest.mark.parametrize("sync_every_epoch", [False, True])
-def test_run_epochs_mega_stats(sync_every_epoch):
-    _, it, _, _, te = _engine_pair("gcn")
-    st = te.run_epochs_mega(it, n_epochs=2, sync_every_epoch=sync_every_epoch)
-    assert isinstance(st, EpochStats) and st.n_batches == len(it)
-    assert len(st.epoch_ms) == (2 if sync_every_epoch else 1) and st.avg_ms > 0
-    assert (st.launch_sync_ms == 0) == sync_every_epoch
-
-
-def _toy_npz(path):
-    rng = np.random.default_rng(0)
-    np.savez(path / "toy.npz", src_li=rng.integers(0, 600, 3000), dst_li=rng.integers(0, 600, 3000))
-
-
-@pytest.mark.parametrize("flags", [[], ["--zerotile_jump"]])
-def test_cli_mega_mode(tmp_path, monkeypatch, capsys, flags):
-    _toy_npz(tmp_path)
-    monkeypatch.chdir(tmp_path)
-    rc = cli.main(["--dataset", "toy", "--data-dir", str(tmp_path), "--psize", "4",
-                   "--batch-size", "2", "--n-epochs", "2", "--device", "cpu", "--use_QGTC",
-                   "--mode", "mega", *flags])
-    assert rc == 0
-    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert record["engine"] == "qgtc-mega" and record["avg_epoch_ms"] > 0
-    assert all(b["compact"] == bool(flags) and not b["fallback"] for b in record["buckets"])
-
-
-def test_cli_zerotile_jump_needs_mega_mode(tmp_path, monkeypatch, capsys):
-    """It no longer does: ``--zerotile_jump`` in step mode runs the
-    TileMap K skip and records the batches' tile counters."""
-    _toy_npz(tmp_path)
-    monkeypatch.chdir(tmp_path)
-    rc = cli.main(["--dataset", "toy", "--data-dir", str(tmp_path), "--psize", "4",
-                   "--batch-size", "2", "--n-epochs", "1", "--device", "cpu", "--zerotile_jump"])
-    assert rc == 0
-    out = capsys.readouterr().out
-    record = json.loads(out.strip().splitlines()[-1])
-    assert record["engine"] == "qgtc-step" and 0 < record["tiles_processed"] <= record["tiles_total"]
-    assert f"zero-tile: processed {record['tiles_processed']}/{record['tiles_total']}" in out
 
 
 def test_plain_is_the_cpu_path():

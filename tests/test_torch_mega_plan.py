@@ -15,6 +15,7 @@ import torch
 from qgtc_ppopp22_tpu_torch.ops import digits, fused_model
 from qgtc_ppopp22_tpu_torch.ops.fused_model import K1Plan, fused_model_plan
 from torch_cases import levels_plane, mega_case
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 LIMIT = 227 * 1024
 

@@ -18,6 +18,7 @@ from qgtc_ppopp22_tpu_torch.ops import fused_model
 from qgtc_ppopp22_tpu_torch.ops.digits import digit_pack
 from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
 from torch_cases import levels_plane, mega_case
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 # form -> (bits, levels-form X, hidden): hidden 128 leaves no weight a free
 # padded lane, so 8-bit levels take the split chain there

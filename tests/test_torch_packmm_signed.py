@@ -28,6 +28,7 @@ from qgtc_ppopp22_tpu_torch.ops import digits, packmm
 from qgtc_ppopp22_tpu_torch.utils import metrics
 from tests.golden import bitmm_np
 from tests.torch_cases import operands
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 BITS = [1, 2, 4, 8]
 

@@ -25,6 +25,7 @@ from qgtc_ppopp22_tpu_torch.benchmarks import exp_packmm as ep
 from qgtc_ppopp22_tpu_torch.benchmarks import grid_overhead_study as go
 from qgtc_ppopp22_tpu_torch.ops import packmm
 from torch_cases import operands  # tests/ is on sys.path
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NP = 128  # B's padded width, as the JAX script pads it
@@ -74,11 +75,11 @@ def test_pack_rows_tile_256_is_the_packmm_layout(bits):
 
 
 # every variant at 1/2/4 bits; the shapes (M = K, tm) cycle through the
-# three combinations of M = K in {256, 512} and tm in {256, 512}; K2's
-# loader (the port's row, JAX's concat) in the tm = 256 layout
+# three combinations of M = K in {256, 512} and tm in {256, 512}; concat
+# on K2's row ranges (the port's row, JAX's concat) in the tm = 256 layout
 P1A_CASES = [(v, bits, (256, 256) if i % 3 == 0 else (512, 256) if i % 3 == 1 else (512, 512))
              for i, (v, bits) in enumerate((v, b) for v in ep.VARIANTS for b in (1, 2, 4))] \
-    + [("k2loader", bits, (512, 256)) for bits in (1, 2, 4)]
+    + [("rowrange", bits, (512, 256)) for bits in (1, 2, 4)]
 
 
 @pytest.mark.parametrize("variant,bits,shape", P1A_CASES)
@@ -89,9 +90,9 @@ def test_packmm_exp_equals_jax_interpret(jax_script, variant, bits, shape):
     qa = rng.integers(0, 1 << bits, (mk, mk))  # dense: every field and byte of the words is used
     qb = _signed_b(mk, mk, 16, bits)
     words, b = jx.pack_rows_np(qa, bits, tm)[None], _b(qb)
-    if variant == "k2loader":
+    if variant == "rowrange":
         want = np.asarray(jx.make_packmm(mk, mk, NP, bits, tm, 128, NP, "concat")(words, b))
-        got = ep.packmm_exp_k2loader(torch.from_numpy(words), torch.from_numpy(b), bits)
+        got = ep.packmm_exp_rowrange(torch.from_numpy(words), torch.from_numpy(b), bits)
     else:
         want = np.asarray(jx.make_packmm(mk, mk, NP, bits, tm, 128, NP, variant)(words, b))
         got = ep.packmm_exp(torch.from_numpy(words), torch.from_numpy(b), bits, tm, variant, tk=128)

@@ -41,6 +41,7 @@ from qgtc_ppopp22_tpu_torch.ops.packmm import packed_levels
 from qgtc_ppopp22_tpu_torch.runtime import QGTCEngine
 from test_signed_mega import _LINEAR_SHIFTS, _assert_linear_chain, _linear_case
 from torch_cases import chain_shifts, levels_plane, mega_case
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 
 def _levels(qx, bits, xp=128):

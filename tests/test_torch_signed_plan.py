@@ -27,6 +27,7 @@ from qgtc_ppopp22_tpu_torch.ops import packmm
 from qgtc_ppopp22_tpu_torch.ops.bitpack import round_up
 from qgtc_ppopp22_tpu_torch.ops.packmm import packmm_signed_plan
 from tests.torch_cases import K2_FORMS, K4_FORMS, hand_map, k4_groups, k4_levels, k4_operands
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 GROUPS = k4_groups()
 

@@ -21,6 +21,7 @@ from qgtc_ppopp22_tpu_torch import graph
 from qgtc_ppopp22_tpu_torch.models import golden, qmodels
 from qgtc_ppopp22_tpu_torch.models.sparse import sparse_aggregate_levels, sparse_q_forward
 from qgtc_ppopp22_tpu_torch.runtime import SparseEngine
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 SHIFTS = {"none": None, "gcn": [1, 2, 0, 1, 0], "gin": [2, 0, 1, 0, 1]}
 

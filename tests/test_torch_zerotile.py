@@ -29,6 +29,7 @@ from qgtc_ppopp22_tpu_torch.models import qmodels
 from qgtc_ppopp22_tpu_torch.ops import _gemm, digitmm, digits, fused_model, packmm
 from qgtc_ppopp22_tpu_torch.ops.bitgemm import TileMap
 from torch_cases import mega_case, operands
+from torch_threads import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 
 def _jmap(tm):
