@@ -117,10 +117,12 @@ Runs, and stops with a non-zero exit at the first failure:
    ``packedout_plan`` (column tile, K step, split, ring) at 1/2/4 bits,
    layout tiles of 256, 512, 768, 1024 and 4096 rows, Np 16, 48 and 64,
    sums below 0, each output twice after filling its block with -1 and
-   then 0; P2's bitcasts (``exp_bitcast_probe``) and the fragment
-   registers of a random tile; P3's zero body (``grid_overhead_study``, G
-   1 and 3, oc 8, 48, 120, and the study's geometry: pn 1024 and 2048, G
-   1 and 5; K1's rows a CTA and 64) and K-dot under every forced plan of
+   then 0; P2's bitcasts (``exp_bitcast_probe``) at the probes' shapes,
+   shapes that take P2b's vector path and its tail, 16 MB and 128 MB, P2b
+   after a -1 fill, each round trip back to its input, P2b's launches
+   counted, and the fragment registers of a random tile; P3's zero body
+   (``grid_overhead_study``, G 1 and 3, oc 8, 48, 120, and the study's
+   geometry: pn 1024 and 2048, G 1 and 5; K1's rows a CTA and 64) and K-dot under every forced plan of
    ``kdot_plan`` (rows a CTA, cluster, ring; K 0, 1, 2; oc 8,
    48, 120; pn 256, 640 and the study's 2048), random S and x, each output
    twice after a NaN fill.
@@ -278,8 +280,10 @@ Runs, and stops with a non-zero exit at the first failure:
    each probe kernel at its study's shape beside plain, bound and a
    library yardstick where one PyTorch call computes the same function:
    for P1 ``torch._int_mm`` on the unpacked levels, for P2's bitcasts a
-   strided copy of the bytes (and P2a beside the launch floor, the device
-   time of ``torch.zeros(1)``'s fill in the same session), for P3b K ``torch._int_mm`` calls of S by
+   strided copy of the bytes (P2a and P2b beside the launch floor, the
+   device time of ``torch.zeros(1)``'s fill in the same session, and
+   each at 16 MB and 128 MB, taking turns over copies, beside its bound
+   and its strided copy), for P3b K ``torch._int_mm`` calls of S by
    the 50 batches' rolled columns side by side, only the round_up(oc, 8)
    that the function keeps, none for the zero body
    (taking turns over copies of X, so each call reads X from HBM); K2's
@@ -763,7 +767,8 @@ def main() -> int:
                              operands)
     from qgtc_ppopp22_tpu_torch import cli
     from qgtc_ppopp22_tpu_torch.bench import card_line
-    from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe, exp_packmm, grid_overhead_study, kernel_sweep
+    from qgtc_ppopp22_tpu_torch.benchmarks import (exp_bitcast_probe, exp_packmm, gemm_times, grid_overhead_study,
+                                                   kernel_sweep)
     from qgtc_ppopp22_tpu_torch.graph import ClusterBatcher, load_dataset
     from qgtc_ppopp22_tpu_torch.models.layers import QGCNConv, QGINConv
     from qgtc_ppopp22_tpu_torch.models.qmodels import qgcn_forward, qgcn_golden
@@ -1432,13 +1437,26 @@ def main() -> int:
         raise AssertionError("P1b: a case did not launch the kernel once")
     print(f"phase 1: P1b packed out (word-row CTAs) under every forced plan, {po_calls} launches, each output "
           f"twice, == plain ({time.perf_counter() - t1:.1f} s)")
-    for shape in ((8, 128), (5, 40), (64, 300)):
+    # P2: the probes' shapes, P2b's vector path (n % 4 == 0) and its tail,
+    # then 16 MB and 128 MB of bytes (int32 [1024x4096], [4096x8192]); P2b
+    # after its output's block is filled with -1, and the round trip back
+    # to x, each call counted by the wrapper
+    p2_shapes = ((8, 128), (5, 40), (64, 300), (16, 6), (3, 7), (1, 1), (1024, 4096), (4096, 8192))
+    t1, exp_bitcast_probe.TO32_LAUNCHES = time.perf_counter(), 0
+    for shape in p2_shapes:
         x = torch.from_numpy(np.random.default_rng(shape[1]).integers(-2**31, 2**31, shape).astype(np.int32)).to(dev)
         y = exp_bitcast_probe.bitcast32to8(x)
         compare("bitcast32to8", y, exp_bitcast_probe.bitcast32to8_plain(x), f"bitcast32to8 {shape}")
-        compare("bitcast8to32", exp_bitcast_probe.bitcast8to32(y), exp_bitcast_probe.bitcast8to32_plain(y),
-                f"bitcast8to32 {shape}")
+        want = exp_bitcast_probe.bitcast8to32_plain(y)
+        torch.full(shape, -1, dtype=torch.int32, device=dev)  # a freed block the output may reuse
+        compare("bitcast8to32", exp_bitcast_probe.bitcast8to32(y), want, f"bitcast8to32 {tuple(y.shape)}")
         compare("bitcast8to32", exp_bitcast_probe.bitcast8to32(y), x, f"bitcast8to32(bitcast32to8) {shape}")
+        del x, y, want
+    p2_launches = exp_bitcast_probe.TO32_LAUNCHES
+    if p2_launches != 2 * len(p2_shapes):
+        raise AssertionError(f"P2b: {p2_launches} launches, not {2 * len(p2_shapes)}")
+    print(f"phase 1: P2 bitcasts at {len(p2_shapes)} shapes to 128 MB, P2b on its vector path and tail "
+          f"({p2_launches} launches), == plain, round trip == x ({time.perf_counter() - t1:.1f} s)")
     tiles = torch.from_numpy(np.random.default_rng(SEED).integers(-128, 128, (2, 64, 64)).astype(np.int8)).to(dev)
     for got, want in zip(exp_bitcast_probe.fragment_registers(tiles[0], tiles[1]),
                          exp_bitcast_probe.fragment_registers_plain(tiles[0], tiles[1])):
@@ -2568,8 +2586,8 @@ def main() -> int:
     # checked against plain first. P3a's zero body has none: torch.zeros
     # reads none of the X that the probe reads by design.
     lib_calls = {
-        "bitcast32to8": lambda: p2_w.view(torch.int8).view(*p2_w.shape, 4).transpose(1, 2).reshape(-1, p2_w.shape[1]),
-        "bitcast8to32": lambda: p2_b.view(-1, 4, p2_b.shape[1]).transpose(1, 2).contiguous().view(torch.int32)[..., 0],
+        "bitcast32to8": lambda: gemm_times.strided_32to8(p2_w),
+        "bitcast8to32": lambda: gemm_times.strided_8to32(p2_b),
     }
     for kind, fn in lib_calls.items():
         plain = next(t[3] for t in timed if t[0] == kind)
@@ -2606,6 +2624,24 @@ def main() -> int:
     # kernel PyTorch launches (torch.zeros(1)'s fill)
     for rep in (0, 1):
         fns[("launch floor", "floor", rep)] = lambda: torch.zeros(1, device=dev)
+    # P2 at 16 MB and 128 MB (gemm_times.P2_SIZES past the probe's shape,
+    # which the rows above time; each call takes the next of enough copies
+    # that its input is out of the L2), each probe beside its strided copy
+    # on the same inputs, in the probes' session; each copy checked
+    # against plain
+    p2_sizes = {}
+    for label, bs, ws in gemm_times.p2_operands(SEED, dev)[1:]:
+        for kind, xs, kern, lib, plain in (
+                ("bitcast8to32", bs, exp_bitcast_probe.bitcast8to32, gemm_times.strided_8to32,
+                 exp_bitcast_probe.bitcast8to32_plain),
+                ("bitcast32to8", ws, exp_bitcast_probe.bitcast32to8, gemm_times.strided_32to8,
+                 exp_bitcast_probe.bitcast32to8_plain)):
+            if not torch.equal(lib(xs[0]), plain(xs[0])):
+                raise AssertionError(f"{kind} at {label}: the strided copy != plain")
+            p2_sizes[f"P2 {kind} {label}"] = (kind, label, xs)
+            for side, f in (("kernel", kern), ("library", lib)):
+                for rep in (0, 1):
+                    fns[(f"P2 {kind} {label}", side, rep)] = grid_overhead_study.in_turns(f, xs)
     # every kernel-sweep row, in the same session
     for fig, cases in sweep.items():
         for i, c in enumerate(cases):
@@ -2624,7 +2660,8 @@ def main() -> int:
     bucket_idx = {i for i, t in enumerate(timed) if t[0] in other_buckets}
 
     def session(k):
-        return (1 if k[0] in probe_idx or k[0] in probe_kinds or k[0] == "launch floor" else 2 if k[0] in captured_idx
+        return (1 if k[0] in probe_idx or k[0] in probe_kinds or k[0] in p2_sizes or k[0] == "launch floor"
+                else 2 if k[0] in captured_idx
                 else 3 if k[0] in bucket_idx else 0)
 
     dt = {}
@@ -2856,8 +2893,16 @@ def main() -> int:
         print(f"phase 3: {k} bound {b_ms * 1e3:.2f} us ({by}); kernel {times[k][0] * 1e3:.1f} us, "
               f"plain {times[k][1] * 1e3:.1f} us{lib} [{card}]")
     floor_ms = min(dt[("launch floor", "floor", 0)], dt[("launch floor", "floor", 1)])
-    print(f"phase 3: bitcast32to8 kernel {times['bitcast32to8'][0] * 1e3:.2f} us against the launch floor "
-          f"{floor_ms * 1e3:.2f} us (torch.zeros(1)'s fill, the same profiler session) [{card}]")
+    print(f"phase 3: bitcast32to8 kernel {times['bitcast32to8'][0] * 1e3:.2f} us, bitcast8to32 kernel "
+          f"{times['bitcast8to32'][0] * 1e3:.2f} us against the launch floor {floor_ms * 1e3:.2f} us "
+          f"(torch.zeros(1)'s fill, the same profiler session) [{card}]")
+    for key, (kind, label, xs) in p2_sizes.items():
+        k_ms, l_ms = (min(dt[(key, side, 0)], dt[(key, side, 1)]) for side in ("kernel", "library"))
+        b_ms, by = bound(2 * nbytes(xs[0]), 0, "int8")
+        print(f"phase 3: {kind} {str(xs[0].dtype).split('.')[-1]} [{xs[0].shape[0]}x{xs[0].shape[1]}] ({label}, "
+              f"in turns over {len(xs)} copies): kernel {k_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({by}; "
+              f"the input alone {b_ms / 2 * 1e3:.3f}), strided copy {l_ms * 1e3:.2f} us, launch floor "
+              f"{floor_ms * 1e3:.2f} us [{card}]")
 
     sources = {"packmm": ("packmm_k2.cuh", "qgtc_ppopp22_tpu/ops/packmm.py:664", launches),
                "digitmm": ("digitmm_k3.cuh", "qgtc_ppopp22_tpu/ops/digitmm.py:193", launches),

@@ -10,14 +10,16 @@ held to its plain PyTorch version:
   i to row 4i + k, as ``pltpu.bitcast`` gives in interpret mode (on the
   card's memory this is a transpose of each word's 4 bytes, not a view);
 * :func:`bitcast8to32`: the inverse, word i = bytes 4i .. 4i+3,
-  little-endian;
-* :func:`fragment_registers`: the registers of ``gemm_core.cuh``'s first
-  ``mma.sync.m16n8k32`` s8 of warp 0, staged and loaded by its K loop's
-  own code (``Int8Loader``, ``load_b``'s transpose, the 32-bit
-  shared-memory loads of ``frag_a`` and ``frag_b``, which K2's and K4's
-  and the probes' K loops call); :func:`fragment_table` decodes which
-  (row, k) of the A tile and which (k, n) of B each byte holds and compares them with the
-  PTX ISA's layout for that shape (:func:`fragment_registers_plain`).
+  little-endian (a thread takes four columns of one word row: four 4-byte
+  loads, one 16-byte store);
+* :func:`fragment_registers`: the registers of the first
+  ``mma.sync.m16n8k32`` s8 of warp 0, the A tile staged by ``Int8Loader``
+  and B transposed by ``load_b`` (both in ``csrc/exp_bitcast_probe.cu``),
+  loaded by ``gemm_core.cuh``'s 32-bit shared-memory loads ``frag_a`` and
+  ``frag_b``, which K2's K loop calls (``frag_b`` K3's too);
+  :func:`fragment_table` decodes which (row, k) of the A tile and which
+  (k, n) of B each byte holds and compares them with the PTX ISA's layout
+  for that shape (:func:`fragment_registers_plain`).
 
 CPU tensors run the plain versions; CUDA tensors launch the kernels
 (``TO8_LAUNCHES``, ``TO32_LAUNCHES``, ``FRAGMENT_LAUNCHES``) or raise.

@@ -16,8 +16,10 @@ baseline mega engine stages them (C1-baseline: sage, 128 -> 16 -> 16 ->
 40), its first layer alone (128 -> 40) and the gin widths (hidden 64);
 and the kernel-study probes at their studies' rows (P3b ``kdot``, P3a's
 zero body, P1b's packed output on JAX's ten rows, P1a's variants, int8 A
-and K2's rows at C1's aggregation, 1-bit A[2560²] x B[2560 x 16]; P2a beside
-the launch floor) beside K2's
+and K2's rows at C1's aggregation, 1-bit A[2560²] x B[2560 x 16]; P2b and
+P2a at the probe's shape, 16 MB and 128 MB beside their strided copies and
+the launch floor, and above the probe's shape each followed by a read that
+evicts the L2) beside K2's
 packed route at P1b's 4096² x 16 and x 64 and K2's ``packmm_to_f32`` at
 P1a's shape (``--probes-only``: these alone; with ``--plans``, P1a, P1b
 and P3b also on each of their plans).
@@ -29,7 +31,8 @@ The script calls only what the port has offered since zero-tile jumping
 ``tile_kcnt``, ``QGTCEngine(fmt="bits")``, ``fused_model_epoch``,
 ``run_epochs_mega``, ``BaselineEngine._stage_mega`` and
 ``fused_baseline_epoch``; the probes' ``kdot``, ``zero_body``,
-``packmm_exp_packedout``, ``packmm_exp`` and ``packmm_exp_int8``), so two checkouts can be
+``packmm_exp_packedout``, ``packmm_exp``, ``packmm_exp_int8``,
+``bitcast32to8`` and ``bitcast8to32``), so two checkouts can be
 timed on one card in one command: copy it into the other checkout's
 ``benchmarks/`` folder and run it from each checkout's root in turns (A,
 B, B, A), each run on the kernels that its checkout builds. Operands come
@@ -83,6 +86,80 @@ from qgtc_ppopp22_tpu_torch.ops.packmm import PackedTensor, pack_rows
 
 PN, FEAT, HIDDEN, CLASSES, BITS = 2560, 128, 16, 40, 2
 C1_8_SHIFTS = (6, 2, 11, 2, 11)  # C1-8's requantize shifts (torch_cases.chain_shifts on batch 0)
+# P2's sizes: (label, P2b's int8 rows, columns); P2a takes the inverse,
+# int32 [rows / 4 x columns]. The probe's shape; 16 MB, the 8-bit plane's
+# A in the sweep; 128 MB, past the 50 MB L2 alone.
+P2_SIZES = (("the probe's shape", 32, 128), ("16 MB", 4096, 4096), ("128 MB", 16384, 8192))
+
+
+def strided_32to8(x: torch.Tensor) -> torch.Tensor:
+    """P2a's function as one PyTorch call, a strided copy of the bytes
+    (the library yardstick; the port never calls it)."""
+    M, N = x.shape
+    out = torch.empty((4 * M, N), dtype=torch.int8, device=x.device)
+    out.view(M, 4, N).copy_(x.view(torch.int8).view(M, N, 4).transpose(1, 2))
+    return out
+
+
+def strided_8to32(x: torch.Tensor) -> torch.Tensor:
+    """P2b's function as one PyTorch call, the inverse copy."""
+    M, N = x.shape[0] // 4, x.shape[1]
+    out = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    out.view(torch.int8).view(M, N, 4).copy_(x.view(M, 4, N).transpose(1, 2))
+    return out
+
+
+def p2_operands(seed: int, device) -> list:
+    """For each of ``P2_SIZES``: (label, P2b's int8 inputs, P2a's int32
+    inputs), each a list that a call takes in turns: one at the probe's
+    shape, above it enough copies that each call finds its input out of
+    the L2 (``grid_overhead_study.l2_copies``), as a caller would."""
+    from qgtc_ppopp22_tpu_torch.benchmarks import grid_overhead_study as go
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for label, rows, cols in P2_SIZES:
+        copies = 1 if rows * cols <= 2 ** 20 else go.l2_copies(rows * cols)
+
+        def draw(r, c):
+            return [torch.randint(-128, 128, (r, c), dtype=torch.int8, device=device, generator=gen)
+                    for _ in range(copies)]
+
+        out.append((label, draw(rows, cols), [w.view(torch.int32) for w in draw(rows // 4, 4 * cols)]))
+    return out
+
+
+def p2_calls(seed: int, device) -> dict:
+    """P2b ``bitcast8to32`` and P2a ``bitcast32to8`` at each of ``P2_SIZES``,
+    each beside its strided copy on the same inputs, in turns over the
+    same copies. Above the probe's shape each probe also runs followed by
+    a read of twice the L2 (a float32 sum), beside that read alone: the
+    difference is the kernel's time with the write-back of the output it
+    left in the L2."""
+    from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe as bp
+    from qgtc_ppopp22_tpu_torch.benchmarks import grid_overhead_study as go
+
+    rows = {}
+    evict = torch.ones(2 * go.L2_BYTES // 4, dtype=torch.float32, device=device)
+    read = f"a {evict.numel() * 4 >> 20} MB read"
+
+    def then_read(call):
+        return lambda: (call(), evict.sum())
+
+    for label, bs, ws in p2_operands(seed, device):
+        turns = f", in turns over {len(bs)} copies" if len(bs) > 1 else ""
+        r, c = bs[0].shape
+        b_row = f"P2b bitcast8to32 int8 [{r}x{c}] ({label}{turns})"
+        a_row = f"P2a bitcast32to8 int32 [{r // 4}x{c}] ({label}{turns})"
+        rows[b_row] = go.in_turns(bp.bitcast8to32, bs)
+        rows[f"P2b library: strided copy int8 [{r}x{c}] ({label}{turns})"] = go.in_turns(strided_8to32, bs)
+        rows[a_row] = go.in_turns(bp.bitcast32to8, ws)
+        rows[f"P2a library: strided copy int32 [{r // 4}x{c}] ({label}{turns})"] = go.in_turns(strided_32to8, ws)
+        if len(bs) > 1:
+            rows[f"{b_row}, then {read}"] = then_read(go.in_turns(bp.bitcast8to32, bs))
+            rows[f"{a_row}, then {read}"] = then_read(go.in_turns(bp.bitcast32to8, ws))
+    rows[f"P2 L2 eviction: {read} alone"] = lambda: evict.sum()
+    return rows
 
 
 def c1_calls(seed: int, device) -> dict:
@@ -218,10 +295,9 @@ def probe_calls(seed: int, device) -> dict:
     4096² x 16 and x 64 shapes, and P1a's variants, its int8 A and K2's
     rows at C1's 1-bit 2560² x 16 beside K2's ``packmm_to_f32`` there (each
     checkout's default launch; K2's rows are ``packmm_exp_rowrange`` where
-    the checkout has it, else ``packmm_exp_k2loader``), and P2a's
-    ``bitcast32to8`` at int32 [8 x 128] beside the launch floor, the device
-    time of ``torch.zeros(1)``'s fill."""
-    from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe as bp
+    the checkout has it, else ``packmm_exp_k2loader``), and P2 at each of
+    ``P2_SIZES`` (``p2_calls``) beside the launch floor, the device time of
+    ``torch.zeros(1)``'s fill."""
     from qgtc_ppopp22_tpu_torch.benchmarks import exp_packmm as ep
     from qgtc_ppopp22_tpu_torch.benchmarks import grid_overhead_study as go
 
@@ -264,9 +340,9 @@ def probe_calls(seed: int, device) -> dict:
     k2a = PackedTensor(words=words, shape=(mk, mk), bits=bits)
     k2b = digit_pack(torch.from_numpy(qb).to(device), bits)
     rows[f"K2 packmm_to_f32 1-bit A[{mk}x{mk}] x B[{mk}x{n}]"] = lambda: packmm.packmm_to_f32(k2a, k2b)
-    # P2a at its probe's shape, beside the launch floor (torch.zeros(1)'s fill)
-    p2 = torch.from_numpy(rng.integers(-2**31, 2**31, (8, 128)).astype(np.int32)).to(device)
-    rows["P2a bitcast32to8 int32 [8x128]"] = lambda: bp.bitcast32to8(p2)
+    # P2b and P2a at the probe's shape, 16 MB and 128 MB beside their
+    # strided copies and the launch floor (torch.zeros(1)'s fill)
+    rows.update(p2_calls(seed, device))
     rows["launch floor: torch.zeros(1)'s fill"] = lambda: torch.zeros(1, device=device)
     return rows
 

@@ -3,8 +3,7 @@
 // (digitmm_k3.cuh), K4 (packmm_k4.cuh, the offset-signed 8-bit A plane:
 // packmm_signed and packmm's 8-bit route) and the kernel-study probes:
 // the tile constants, the output kinds and their epilogue stores, the
-// offset corrections, the TileMap K skip, the fragment loads and the mma,
-// and the int8 A-tile loader.
+// offset corrections, the TileMap K skip, the fragment loads and the mma.
 //
 // C = sum_{d<ND_A, e<ND_B} dot(A_d, B_e) << 4*(d+e), exact in int32, plus
 // an optional offset correction (CORR), followed by one fused epilogue:
@@ -125,28 +124,6 @@ inline bool map_ok(const KMap& m, int mp, int kp, int rows, int k_step) {
          kp % m.tile_k == 0;
 }
 
-// Plain int8 rows, [ND][mp][kp]: digit planes, or the one offset-signed
-// byte plane of a 5-8 bit packed A.
-struct Int8Loader {
-  const int8_t* __restrict__ a;
-  int mp, kp;
-
-  template <int ND, int ROWS>
-  __device__ __forceinline__ void load(int8_t (*As)[ROWS][LDS], int m0, int k0,
-                                       int tid) const {
-    constexpr int CH = BK / 16;  // 16-byte chunks per row
-    for (int c = tid; c < ROWS * CH; c += 2 * ROWS) {
-      const int r = c / CH, kc = (c % CH) * 16;
-#pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        const int4 v = __ldg(reinterpret_cast<const int4*>(
-            a + (size_t)d * mp * kp + (size_t)(m0 + r) * kp + k0 + kc));
-        *reinterpret_cast<int4*>(&As[d][r][kc]) = v;
-      }
-    }
-  }
-};
-
 // The F-bit fields at bit sh of four consecutive columns' words, as the
 // four bytes of one register (column j in byte j): an M-packed A's
 // unpack (packmm_k2.cuh, the kernel-study probes).
@@ -167,24 +144,6 @@ __device__ __forceinline__ uint32_t bytes_at(const int4& v, int k) {
   return __byte_perm(lo, hi, 0x5410);
 }
 
-template <int ND_B, int NT = THREADS>
-__device__ __forceinline__ void load_b(int8_t (*Bs)[BN][LDS],
-                                       const int8_t* __restrict__ b, int kp,
-                                       int np, int k0, int n0, int tid) {
-  constexpr int CH = BN / 16;
-  for (int c = tid; c < BK * CH; c += NT) {
-    const int k = c / CH, nc = (c % CH) * 16;
-#pragma unroll
-    for (int e = 0; e < ND_B; ++e) {
-      const int4 v = __ldg(reinterpret_cast<const int4*>(
-          b + (size_t)e * kp * np + (size_t)(k0 + k) * np + n0 + nc));
-      const int8_t* bytes = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) Bs[e][nc + j][k] = bytes[j];
-    }
-  }
-}
-
 // The A and B fragments of one int8 mma.sync.m16n8k32 (PTX ISA, "Matrix
 // Fragments for mma.m16n8k32", .s8), as 32-bit shared-memory loads: lane
 // (g, t4) = (lane / 4, lane % 4) takes A rows g and g + 8 at k = 4 t4 ..
@@ -192,7 +151,7 @@ __device__ __forceinline__ void load_b(int8_t (*Bs)[BN][LDS],
 // p points at the lane's first byte: (row g, k 4 t4) of the 16-row m-tile
 // of an A tile with rows LDS bytes apart, or (column g, k 4 t4) of the
 // 8-column n-tile of B transposed to [n][k] (any column stride).
-// K2 and K4 load their fragments here;
+// K2 loads its fragments here (K3 its B fragments);
 // exp_bitcast_probe.cu's fragment_probe pins on the card what these loads
 // put in each register.
 __device__ __forceinline__ void frag_a(uint32_t (&f)[4], const int8_t* p) {

@@ -966,13 +966,18 @@ def test_packmm_exp_refuses_what_the_kernel_cannot_index(cuda):
         exp_packmm.packmm_exp(torch.zeros((1, 4, 256), dtype=torch.int32, device=cuda), b, 1, 128)
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (5, 40), (64, 300)])
+@pytest.mark.parametrize("shape", [(8, 128), (5, 40), (64, 300), (16, 6), (3, 7), (1024, 4096)])
 def test_bitcast_kernels_equal_plain(cuda, shape):
     x = torch.from_numpy(np.random.default_rng(shape[1]).integers(-2**31, 2**31, shape).astype(np.int32)).to(cuda)
     y = exp_bitcast_probe.bitcast32to8(x)
     _check(y, exp_bitcast_probe.bitcast32to8_plain(x))
+    want = exp_bitcast_probe.bitcast8to32_plain(y)
+    _check(want, x)
+    torch.full(tuple(x.shape), -1, dtype=torch.int32, device=cuda)  # a freed block the output may reuse
+    before = exp_bitcast_probe.TO32_LAUNCHES
+    _check(exp_bitcast_probe.bitcast8to32(y), want)  # P2b's vector path (n % 4 == 0) or its tail
+    assert exp_bitcast_probe.TO32_LAUNCHES == before + 1
     _check(exp_bitcast_probe.bitcast8to32(y), x)
-    _check(exp_bitcast_probe.bitcast8to32(y), exp_bitcast_probe.bitcast8to32_plain(y))
 
 
 def test_bitcast_and_fragment_tables_on_card(cuda):

@@ -9,7 +9,8 @@ output (``csrc/exp_packmm_packed.cu``) gives each CTA whole word rows
 (``packedout_plan``, ``word_row_ctas``), and so does P1a's f32 product
 (``csrc/exp_packmm.cuh``, ``exp_packmm_plan``), whose warps unpack the
 rows they multiply; P2a's byte transpose (``csrc/exp_bitcast_probe.cu``)
-takes four words a thread. The kernels run only on the card,
+takes four words a thread, and P2b's inverse four columns of a word row a
+thread. The kernels run only on the card,
 where ``chip_smoke.py`` holds them to their plain versions under every
 forced plan; here NumPy mirrors of their index maps are held to the plain
 versions and to the layout's packer. Tolerance: exact equality.
@@ -21,6 +22,7 @@ import torch
 
 from qgtc_ppopp22_tpu_torch.benchmarks import exp_bitcast_probe as bp
 from qgtc_ppopp22_tpu_torch.benchmarks import exp_packmm as ep
+from qgtc_ppopp22_tpu_torch.benchmarks import gemm_times
 from qgtc_ppopp22_tpu_torch.benchmarks import grid_overhead_study as go
 
 
@@ -410,3 +412,78 @@ def bitcast32to8_walk(x):
 def test_bitcast32to8_walk_equals_plain(shape):
     x = np.random.default_rng(shape[1]).integers(-2**31, 2**31, shape).astype(np.int32)
     np.testing.assert_array_equal(bitcast32to8_walk(x), bp.bitcast32to8_plain(torch.from_numpy(x)).numpy())
+
+
+# -- P2b: four columns of a word row a thread ---------------------------------
+
+def bitcast8to32_walk(x):
+    """The kernel's threads as the C entry launches them: CTAs of
+    min(128, ceil(n / 4) rounded up to a warp) threads, one grid row per
+    word row i; thread t of CTA b holds columns j = 4 (b * threads + t) ..
+    j + 3. With n % 4 == 0 one 4-byte load
+    from each byte row 4i + k and word j' = byte j' of each load (the 4 x 4
+    byte transpose, bytes_at), else the tail path's word of four single
+    bytes. Every word must be written once."""
+    rows, n = x.shape
+    m, nc = rows // 4, -(-n // 4)
+    threads = min(128, -(-nc // 32) * 32)
+    u = x.view(np.uint8)
+    out = np.zeros((m, n), np.uint32)
+    writes = np.zeros((m, n), np.int64)
+    vec = n % 4 == 0
+    for i, b, t in np.ndindex(m, -(-nc // threads), threads):
+        j = 4 * (b * threads + t)
+        if j >= n:
+            continue
+        if vec:
+            loads = [int(np.frombuffer(u[4 * i + k, j:j + 4].tobytes(), "<u4")[0]) for k in range(4)]
+            for jj in range(4):  # bytes_at(loads, jj): byte jj of load k in byte k
+                out[i, j + jj] = sum(((loads[k] >> (8 * jj)) & 0xFF) << (8 * k) for k in range(4))
+                writes[i, j + jj] += 1
+        else:
+            for jj in range(j, min(j + 4, n)):
+                out[i, jj] = sum(int(u[4 * i + k, jj]) << (8 * k) for k in range(4))
+                writes[i, jj] += 1
+    assert (writes == 1).all()
+    return out.view(np.int32)
+
+
+@pytest.mark.parametrize("shape", [(32, 128), (20, 40), (256, 300), (12, 7), (4, 1), (8, 6), (4, 4)])
+def test_bitcast8to32_walk_equals_plain(shape):
+    x = np.random.default_rng(shape[1]).integers(-128, 128, shape).astype(np.int8)
+    want = bp.bitcast8to32_plain(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(bitcast8to32_walk(x), want)
+    assert torch.equal(bp.bitcast8to32(torch.from_numpy(x)), torch.from_numpy(want))  # the CPU runs plain
+
+
+@pytest.mark.parametrize("shape", [(32, 128), (20, 40), (12, 7), (4, 1)])
+def test_p2_strided_copies_equal_plain(shape):
+    """The library yardsticks timed beside P2a and P2b (``gemm_times``)
+    compute the probes' functions."""
+    x = torch.from_numpy(np.random.default_rng(shape[1]).integers(-128, 128, shape).astype(np.int8))
+    assert torch.equal(gemm_times.strided_8to32(x), bp.bitcast8to32_plain(x))
+    w = torch.from_numpy(np.random.default_rng(1).integers(-2**31, 2**31, (shape[0] // 4, shape[1])).astype(np.int32))
+    assert torch.equal(gemm_times.strided_32to8(w), bp.bitcast32to8_plain(w))
+
+
+def test_p2_calls_take_turns_over_copies_out_of_the_l2(monkeypatch):
+    monkeypatch.setattr(gemm_times, "P2_SIZES", (("the probe's shape", 32, 128), ("4 MB", 4096, 1024)))
+    monkeypatch.setattr(go, "L2_BYTES", 2 ** 20)  # a small L2 keeps the copies and the evicting read small
+    ops = gemm_times.p2_operands(3, "cpu")
+    assert [len(bs) for _, bs, _ in ops] == [1, go.l2_copies(4096 * 1024)]
+    for label, bs, ws in ops:
+        assert all(b.shape == bs[0].shape and b.dtype == torch.int8 for b in bs)
+        assert all(w.shape == (bs[0].shape[0] // 4, bs[0].shape[1]) and w.dtype == torch.int32 for w in ws)
+    rows = gemm_times.p2_calls(3, "cpu")
+    assert len(rows) == 11  # 4 a size, the 4 MB probes also before the read, the read alone
+    read = 2 * go.L2_BYTES // 4  # the evicting read's float32 ones
+    for name, fn in rows.items():
+        out = fn()
+        if name.startswith("P2 L2 eviction"):
+            assert int(out) == read
+            continue
+        if name.endswith("read"):
+            out, total = out
+            assert "4 MB" in name and int(total) == read
+        want = (8, 128) if "probe" in name else (1024, 1024)
+        assert tuple(out.shape) == (want if "P2b" in name else (4 * want[0], want[1]))
